@@ -1,0 +1,102 @@
+"""Int8 weight quantization for frozen inference models (counterpart of
+lr2ppo_tpu/ops/int8.py).
+
+Weights are quantized once at load, per output channel; activations per row
+at run time; both symmetric, round half to even, clip to +-127. Weights keep
+torch's (out, in) layout, so the per-output-channel amax runs over dim 1
+where the JAX package takes it over axis 0 of its (in, out) kernels.
+
+The size gates, their constants and their order are the JAX package's, so
+both packages take the same route at the same shapes. Tests monkeypatch
+them to 0 to force quantization on tiny models.
+"""
+
+from __future__ import annotations
+
+import torch
+
+INT8_MIN_KERNEL_ELEMENTS = 2 * 1024 * 1024
+INT8_DYNQUANT_MIN_FLOPS = 50e9
+INT8_DYNQUANT_MIN_WIDTH = 1024
+
+# Route deterministic int8 FFNs through the fused kernel (ops/int8_mlp.py).
+# In JAX this is off in multi-device programs, where a pallas_call has no
+# partitioning rule; the port runs on one GPU, so it is on. Tests set it.
+FUSED_FFN = True
+
+
+def should_quantize(shape) -> bool:
+    """True when a 2-D weight of this shape is worth storing as int8."""
+    return len(shape) == 2 and shape[0] * shape[1] >= INT8_MIN_KERNEL_ELEMENTS
+
+
+def quantize_rows(xf: torch.Tensor):
+    """Per-row dynamic quantization of a float32 tensor over its last dim:
+    (int8 values, float32 scale with a trailing 1). The scale is a true
+    division by 127: amax * (1/127) differs in the last bit and moves
+    round-ties a whole step. The divisor is a tensor because PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal."""
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-8) / torch.full_like(amax, 127.0)
+    q = torch.round(xf / scale).clamp_(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_weight(w: torch.Tensor):
+    """(out, in) float weight -> (int8 weight, float32 per-out-channel scale);
+    the int8 weight is row-major, as the fused kernel reads it."""
+    q, scale = quantize_rows(w.float())
+    return q.contiguous(), scale[:, 0]
+
+
+def int8_linear(x: torch.Tensor, weight: torch.Tensor,
+                weight_scale: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """y = x @ weight.T with the JAX package's three routes
+    (lr2ppo_tpu/ops/int8.py:int8_matmul): an int8 weight that is not
+    compute-bound at this call site, or narrow, is dequantized to `out_dtype`
+    for a plain product; otherwise x is quantized per row and the s8 x s8
+    product accumulates in int32. A float weight is quantized first."""
+    out_dtype = out_dtype or x.dtype
+    if weight.dtype != torch.int8:
+        weight, weight_scale = quantize_weight(weight)
+    n, k = weight.shape
+    rows = x.numel() // x.shape[-1]
+    compute_bound = 2 * rows * k * n >= INT8_DYNQUANT_MIN_FLOPS
+    narrow = n < INT8_DYNQUANT_MIN_WIDTH
+    if not compute_bound or narrow:
+        w = (weight.float() * weight_scale.float()[:, None]).to(out_dtype)
+        return torch.matmul(x.to(out_dtype), w.t())
+    lead = x.shape[:-1]
+    xq, xscale = quantize_rows(x.reshape(rows, k).float())
+    # the one library s8 product of the port: JAX leaves this dot to XLA,
+    # outside any Pallas kernel
+    acc = torch._int_mm(xq, weight.t())
+    y = acc.float() * xscale * weight_scale.float()
+    return y.to(out_dtype).reshape(*lead, n)
+
+
+def quantize_state_dict(state: dict, other_dtype=torch.bfloat16) -> dict:
+    """Counterpart of quantize_tree: every 2-D float `*.weight` that passes
+    `should_quantize` becomes int8 with a float32 `*.weight_scale` sibling;
+    every other float tensor is cast to `other_dtype`. Idempotent: an int8
+    weight's scale passes through untouched."""
+
+    def quantizable(v):
+        return (v is not None and v.ndim == 2 and v.is_floating_point()
+                and should_quantize(v.shape))
+
+    out = {}
+    for key, v in state.items():
+        if key.endswith(".weight") and quantizable(v):
+            out[key], out[key + "_scale"] = quantize_weight(v)
+        elif key.endswith(".weight_scale") and quantizable(
+                state.get(key[: -len("_scale")])):
+            continue            # recomputed from the float weight above
+        elif (key.endswith(".weight_scale")
+              and state[key[: -len("_scale")]].dtype == torch.int8):
+            out[key] = v        # beside an int8 weight: keep the f32 scale
+        elif v.is_floating_point():
+            out[key] = v.to(other_dtype)
+        else:
+            out[key] = v
+    return out

@@ -1,0 +1,125 @@
+"""The weight bridge: JAX package checkpoints and reference `.bin` files
+into reference-keyed state_dicts, in numpy and torch only (counterpart of
+lr2ppo_tpu/train/checkpoints.py).
+
+The key map is the JAX package's (checkpoints.py:42-63, 148-187): flax
+`kernel` (in, out) becomes torch `weight` (out, in), `scale` becomes
+`weight`, and the flax `trunk` scope is dropped. The port's modules use the
+reference layout, so every load is `load_state_dict(strict=True)`.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+from typing import Dict
+
+import numpy as np
+import torch
+
+# torch tail -> flax tail inside one XiT block (checkpoints.py:_XIT_TAILS)
+_XIT_TAILS = {
+    "0.0.0.fn.0.ln_x.weight": ("ln_x", "scale"),
+    "0.0.0.fn.0.ln_x.bias": ("ln_x", "bias"),
+    "0.0.0.fn.0.ln_y.weight": ("ln_y", "scale"),
+    "0.0.0.fn.0.ln_y.bias": ("ln_y", "bias"),
+    "0.0.0.fn.1.queries.weight": ("attn", "queries", "kernel"),
+    "0.0.0.fn.1.queries.bias": ("attn", "queries", "bias"),
+    "0.0.0.fn.1.keys.weight": ("attn", "keys", "kernel"),
+    "0.0.0.fn.1.keys.bias": ("attn", "keys", "bias"),
+    "0.0.0.fn.1.values.weight": ("attn", "values", "kernel"),
+    "0.0.0.fn.1.values.bias": ("attn", "values", "bias"),
+    "0.0.0.fn.1.projection.weight": ("attn", "projection", "kernel"),
+    "0.0.0.fn.1.projection.bias": ("attn", "projection", "bias"),
+    "0.0.1.fn.0.weight": ("ln_ffn", "scale"),
+    "0.0.1.fn.0.bias": ("ln_ffn", "bias"),
+    "0.0.1.fn.1.0.weight": ("ffn_fc1", "kernel"),
+    "0.0.1.fn.1.0.bias": ("ffn_fc1", "bias"),
+    "0.0.1.fn.1.3.weight": ("ffn_fc2", "kernel"),
+    "0.0.1.fn.1.3.bias": ("ffn_fc2", "bias"),
+    "1.0.weight": ("ln_out", "scale"),
+    "1.0.bias": ("ln_out", "bias"),
+}
+_INV_TAILS = {v: k for k, v in _XIT_TAILS.items()}
+
+
+def _flatten(node, path=()):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _flatten(v, path + (k,))
+    else:
+        yield path, node
+
+
+def params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
+    """A flax param tree of numpy arrays (optionally under "params") ->
+    reference-keyed state_dict of torch tensors (flax_to_torch's map)."""
+    tree = tree.get("params", tree)
+    out = {}
+    for path, arr in _flatten(tree):
+        arr = np.asarray(arr)
+        if path[-1] == "kernel":
+            arr = arr.T
+        if path[0] == "trunk" and path[1] == "xit":
+            key = f"xit.{_INV_TAILS[path[2:]]}"
+        elif path[0] == "trunk":
+            leaf = "weight" if path[-1] == "kernel" else "bias"
+            key = f"{path[1]}.{path[2]}.{leaf}"
+        elif path[0] == "xitt":
+            key = f"xitt.{_INV_TAILS[path[1:]]}"
+        elif path[0] == "pos_emb":
+            key = "pos_emb.weight"
+        elif path[0] == "head":
+            key = "head.weight" if path[-1] == "kernel" else "head.bias"
+        elif path[0].startswith("text_proj"):    # 2-data projections
+            leaf = "weight" if path[-1] == "kernel" else "bias"
+            key = f"{path[0]}.{path[1]}.{leaf}"
+        else:
+            raise KeyError(f"unmapped flax path {path}")
+        # a row-major copy: the tensor must not alias the caller's numpy
+        # buffer, and a transposed kernel must not stay column-major
+        out[key] = torch.from_numpy(np.array(arr, copy=True, order="C"))
+    return out
+
+
+def split_actor_critic(state_dict: dict):
+    """Split an ActorCritic checkpoint ('actor.'/'critic.' prefixes,
+    reference ppo_eval.py:336-343) into two single-model state_dicts."""
+    actor, critic = {}, {}
+    for k, v in state_dict.items():
+        if k.startswith("actor."):
+            actor[k[len("actor."):]] = v
+        elif k.startswith("critic."):
+            critic[k[len("critic."):]] = v
+        else:
+            raise KeyError(f"unexpected ActorCritic key: {k}")
+    return actor, critic
+
+
+def load_any(path: str, kind: str = "single"):
+    """Load a JAX package pickle checkpoint (save_checkpoint: its leaves are
+    numpy arrays) or a reference torch `.bin`, as reference-keyed
+    state_dicts.
+
+    A pickle of one model gives one state_dict; a pickle holding
+    {"actor", "critic"} subtrees, or a `.bin` read with
+    kind="actor_critic", gives {"actor": ..., "critic": ...}. Orbax
+    checkpoint directories are JAX-only and raise."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is an orbax checkpoint directory, which only the JAX "
+            "package reads; save with the 'pickle' backend to serve it here")
+    try:
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+        tree = payload["tree"]
+    except (pickle.UnpicklingError, EOFError, KeyError, UnicodeDecodeError,
+            TypeError):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if kind == "actor_critic":
+            actor, critic = split_actor_critic(sd)
+            return {"actor": actor, "critic": critic}
+        return sd
+    if "actor" in tree or "critic" in tree:
+        return {k: params_from_flax(v) for k, v in tree.items()}
+    return params_from_flax(tree)

@@ -1,0 +1,67 @@
+"""lr2ppo_torch, and chip_smoke.py imported as a module, leave JAX and its
+libraries out of the process."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import lr2ppo_torch
+names = [m.name for m in pkgutil.walk_packages(lr2ppo_torch.__path__,
+                                               "lr2ppo_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = sorted({m.split(".")[0] for m in sys.modules}
+                & {"jax", "jaxlib", "flax", "optax", "orbax"})
+print(json.dumps({"modules": names, "loaded": loaded}))
+"""
+
+
+def test_port_never_imports_jax():
+    env = {**os.environ, "PYTHONPATH": REPO}
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"lr2ppo_torch.cli.serve", "lr2ppo_torch.kernels.build",
+            "lr2ppo_torch.ops.int8_mlp"} <= set(res["modules"])
+    assert res["loaded"] == [], f"the port imported {res['loaded']}"
+
+
+def test_chip_smoke_names_no_jax_package_module():
+    """chip_smoke.py reaches the JAX package's host side only through the
+    port's own modules."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as src:
+        tree = ast.parse(src.read())
+    named = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    named += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    roots = {m.split(".")[0] for m in named}
+    assert not roots & {"lr2ppo_tpu", "jax", "jaxlib", "flax", "optax",
+                        "orbax"}, sorted(roots)
+
+
+def _run_smoke(cwd, env):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    """No CUDA device here: the script exits non-zero and prints no result;
+    alone in a directory it cannot import the port and fails too."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = _run_smoke(REPO, env)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    with open(os.path.join(REPO, "chip_smoke.py")) as src:
+        (tmp_path / "chip_smoke.py").write_text(src.read())
+    alone = _run_smoke(str(tmp_path), env)
+    assert alone.returncode != 0
+    assert '"ok"' not in alone.stdout
