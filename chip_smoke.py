@@ -1,22 +1,37 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's ranking service once on one CUDA card.
+"""Drive the PyTorch port once on one CUDA card: the ranking service and
+the stage-3 LR2PPO trainer at the flagship width.
 
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which raises on failure (exit code other than 0):
   1. device: torch and CUDA versions, the card's name and power limit;
-  2. build: compile the CUDA kernels from lr2ppo_torch/kernels/csrc;
+  2. build: compile the CUDA kernels from lr2ppo_torch/kernels/csrc, one
+     nvcc per source, all at once;
   3. the fused int8 FFN kernel against its plain PyTorch version at a ragged
-     row count and at the serve shape (200,704 rows, D 768, H 3072), in
-     float32 and bfloat16, with both times from CUDA events;
-  4. the main path: the flagship-width int8 ScoreModel (seeded weights,
+     row count, at the serve shape (200,704 rows, D 768, H 3072) in float32
+     and bfloat16, and at the rollout's 100,352 rows in bfloat16, with the
+     times from CUDA events;
+  4. the serving path: the flagship-width int8 ScoreModel (seeded weights,
      saved as a reference `.bin` and loaded back), served over synthetic
      EvalLoader batches through lr2ppo_torch.cli.serve.serve_batches; the
      kernel's launch count, the rankings' schema and the int8 scores
      against the same weights served in bfloat16 are checked;
   5. breakdown: where a batch's time goes, for the int8 and the bfloat16
      model (host-to-device copy, forward on device-resident inputs, a
-     torch.profiler trace summed by kernel, the device's idle share).
+     torch.profiler trace summed by kernel, the device's idle share);
+  6. both dropout kernels (hash, Philox) against their plain versions at a
+     ragged size and at the update's FFN-inner site (100,352 x 3072),
+     float32 and bfloat16, forward and backward, bit for bit, with times
+     beside torch.nn.functional.dropout's;
+  7. the training path: PPOTrainer.fit under --profile fast at batch 256
+     (4 rollouts, 4 updates, one eval, one best save reloaded strict), its
+     kernel launches, losses and moved parameters checked; then the
+     rollout's and the update's CUDA-event times and a torch.profiler trace
+     of one of each;
+  8. the TPU-dropout configuration (pallas_dropout on, hash off): two
+     update steps at batch 256, with 2 forward and 2 backward launches of
+     the Philox kernel each.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -38,19 +53,45 @@ import numpy as np
 import torch
 
 from lr2ppo_torch.cli import serve
+from lr2ppo_torch.config import ModelConfig, parse_config
 from lr2ppo_torch.device import require_cuda
 from lr2ppo_torch.kernels import build
 from lr2ppo_torch.models.layers import init_weights
-from lr2ppo_torch.models.scorer import ModelConfig, ScoreModel
+from lr2ppo_torch.models.scorer import ActorCritic, ScoreModel, SeqScoreModel
+from lr2ppo_torch.ops.dropout import philox_dropout, philox_dropout_reference
+from lr2ppo_torch.ops.hash_dropout import hash_dropout, hash_dropout_reference
 from lr2ppo_torch.ops.int8 import quantize_weight
 from lr2ppo_torch.ops.int8_mlp import int8_mlp, int8_mlp_reference
 from lr2ppo_torch.train.checkpoints import load_any
+from lr2ppo_torch.train.common import init_state
 from lr2ppo_torch.train.evaluate import scores_and_ndcg
+from lr2ppo_torch.train.optim import build_optimizer
+from lr2ppo_torch.train.ppo import (PPOTrainer, frozen_copy,
+                                    make_rollout_step, make_update_step)
 
 D, H = 768, 3072
 SERVE_ROWS = 32 * 32 * 196            # items x tag bucket x text tokens
+TRAIN_BS, PAIR = 256, 2               # PPO batch: 256 items x 2 tags
+ROLLOUT_ROWS = TRAIN_BS * PAIR * 196  # K1's rows in a rollout forward
 ITEMS, BUCKET, TAGS = 32, 32, (5, 20)
 BATCHES = 4                           # served on the main path
+TRAIN_BATCHES = 4                     # rollouts of the training run
+
+# NVIDIA's H100 SXM data sheet (dense): the rates a bound is taken against
+HBM_BYTES_PER_S = 3.35e12
+INT8_TENSOR_OPS_PER_S = 1979e12
+# the data sheet's only rate outside the tensor cores (float32, 67 T/s);
+# integer operations are counted against it
+VECTOR_OPS_PER_S = 67e12
+
+
+def bound(nbytes: float, ops: float, rate: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over their peak rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / rate * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def emit(**kw) -> None:
@@ -125,6 +166,10 @@ def check_kernel(rows: int, out_dtype, seed: int, dev, time_it: bool,
             lambda: int8_mlp_reference(x, *w, out_dtype=out_dtype))
         ops = 2 * 2 * rows * D * H
         res["kernel_tops"] = ops / (res["ms"] * 1e-3) / 1e12
+        esize = torch.tensor([], dtype=out_dtype).element_size()
+        weights = 2 * D * H + 4 * 2 * (D + H)
+        res.update(bound(2 * rows * D * esize + weights, ops,
+                         INT8_TENSOR_OPS_PER_S))
         res["card"] = card_line
     emit(phase="kernel_vs_plain", **res)
     return res
@@ -140,27 +185,30 @@ class SyntheticItems:
                           for i, t in enumerate(tag_counts)}
 
 
-def synthetic_batches(n: int, mcfg: ModelConfig, seed: int):
-    """EvalLoader-format batches: 32 items of 5-20 tags each, padded to the
-    32-tag bucket (zero text, masked out), made with numpy from `seed`."""
+def synthetic_batches(n: int, mcfg: ModelConfig, seed: int,
+                      items: int = ITEMS, bucket: int = BUCKET,
+                      tags=TAGS):
+    """EvalLoader-format batches: `items` items of tags[0]-tags[1] tags
+    each, padded to the `bucket`-tag bucket (zero text, masked out), made
+    with numpy from `seed`."""
     rng = np.random.default_rng(seed)
-    counts = rng.integers(TAGS[0], TAGS[1] + 1, size=n * ITEMS)
+    counts = rng.integers(tags[0], tags[1] + 1, size=n * items)
     batches = []
     for b in range(n):
-        text = np.zeros((ITEMS, BUCKET, mcfg.seq_length, mcfg.feat_size),
+        text = np.zeros((items, bucket, mcfg.seq_length, mcfg.feat_size),
                         np.float32)
-        tgts = np.zeros((ITEMS, BUCKET), np.int32)
-        mask = np.zeros((ITEMS, BUCKET), bool)
-        for i in range(ITEMS):
-            t = counts[b * ITEMS + i]
+        tgts = np.zeros((items, bucket), np.int32)
+        mask = np.zeros((items, bucket), bool)
+        for i in range(items):
+            t = counts[b * items + i]
             text[i, :t] = rng.standard_normal(
                 (t, mcfg.seq_length, mcfg.feat_size), dtype=np.float32)
             tgts[i, :t] = rng.integers(0, 3, size=t)
             tgts[i, 0] = 2                     # every item has gold labels
             mask[i, :t] = True
-        img = rng.standard_normal((ITEMS, mcfg.max_imgs, mcfg.feat_size),
+        img = rng.standard_normal((items, mcfg.max_imgs, mcfg.feat_size),
                                   dtype=np.float32)
-        idx = np.arange(b * ITEMS, (b + 1) * ITEMS, dtype=np.int64)
+        idx = np.arange(b * items, (b + 1) * items, dtype=np.int64)
         batches.append({"text": text, "img": img, "tgts": tgts,
                         "mask": mask, "_idx": idx})
     return batches, SyntheticItems(counts.tolist())
@@ -269,7 +317,6 @@ def breakdown(models: dict, mcfg: ModelConfig, seed: int, dev,
         time summed by kernel name, host-to-device copy time, and the share
         of the traced device window in which no compute kernel ran.
     Emits one line per model, with the ten kernels that took longest."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for name, model in models.items():
@@ -294,22 +341,7 @@ def breakdown(models: dict, mcfg: ModelConfig, seed: int, dev,
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             serve.serve_batches(model, batches[2 + BATCHES:], ds, None, dev)
-        device = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        if not device:
-            raise AssertionError("the profiler traced no device activity")
-        copies = [e for e in device if e.name.startswith("Memcpy")]
-        kernels = [e for e in device if not e.name.startswith(("Memcpy",
-                                                               "Memset"))]
-        by_kernel: dict = {}
-        for e in kernels:
-            ms, n = by_kernel.get(e.name, (0.0, 0))
-            by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-        window = (max(e.time_range.end for e in device)
-                  - min(e.time_range.start for e in device))
-        busy = _union_us([(e.time_range.start, e.time_range.end)
-                          for e in kernels])
-        h2d = [e for e in copies if "HtoD" in e.name]
+        trace = trace_summary(prof)
         batch_s = served["batch_seconds"]
         res = {
             "h2d_ms": h2d_ms, "h2d_text16_ms": h2d_text16_ms,
@@ -317,17 +349,352 @@ def breakdown(models: dict, mcfg: ModelConfig, seed: int, dev,
             "p50_batch_ms": 1e3 * statistics.median(batch_s),
             "items_per_s": served["items"] / sum(batch_s),
             "traced_batches": len(batches) - 2 - BATCHES,
-            "traced_window_ms": window / 1e3,
-            "traced_h2d_ms": sum(e.time_range.elapsed_us() for e in h2d) / 1e3,
-            "traced_kernel_ms": sum(ms for ms, _ in by_kernel.values()),
-            "traced_int8_mlp_ms": sum(ms for k, (ms, _) in by_kernel.items()
-                                      if "int8_mlp" in k),
-            "idle_share": 1.0 - busy / window,
-            "top_kernels": sorted(([k[:100], ms, n]
-                                   for k, (ms, n) in by_kernel.items()),
-                                  key=lambda r: -r[1])[:10],
+            **trace,
         }
         emit(phase="breakdown", model=name, card=card_line, **res)
+
+
+def kernel_class(name: str) -> str:
+    """The port's own kernels by name; library matrix products (cuBLAS's
+    nvjet, CUTLASS, cuBLAS gemm); PyTorch's elementwise and reduction
+    kernels; the rest."""
+    for own in build.ENTRIES:
+        if own in name:
+            return own
+    if any(t in name for t in ("nvjet", "gemm", "cutlass")):
+        return "matmul"
+    if "elementwise" in name or "copy" in name:
+        return "elementwise"
+    if "reduce" in name:
+        return "reduce"
+    return "other"
+
+
+def trace_summary(prof) -> dict:
+    """A torch.profiler trace summed by kernel name: the traced device
+    window, host-to-device copy time, kernel time (and that of each of the
+    port's kernels), the share of the window in which no kernel ran, and
+    the ten kernels that took longest."""
+    from torch.autograd import DeviceType
+
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        raise AssertionError("the profiler traced no device activity")
+    copies = [e for e in device if e.name.startswith("Memcpy")]
+    kernels = [e for e in device if not e.name.startswith(("Memcpy",
+                                                           "Memset"))]
+    by_kernel: dict = {}
+    for e in kernels:
+        ms, n = by_kernel.get(e.name, (0.0, 0))
+        by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    window = (max(e.time_range.end for e in device)
+              - min(e.time_range.start for e in device))
+    busy = _union_us([(e.time_range.start, e.time_range.end)
+                      for e in kernels])
+    h2d = [e for e in copies if "HtoD" in e.name]
+    by_class: dict = {}
+    for k, (ms, _) in by_kernel.items():
+        cls = kernel_class(k)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+    return {
+        "traced_window_ms": window / 1e3,
+        "traced_h2d_ms": sum(e.time_range.elapsed_us() for e in h2d) / 1e3,
+        "traced_kernel_ms": sum(ms for ms, _ in by_kernel.values()),
+        **{f"traced_{name}_ms": sum(ms for k, (ms, _) in by_kernel.items()
+                                    if name in k)
+           for name in build.ENTRIES},
+        "idle_share": 1.0 - busy / window,
+        "ms_by_class": by_class,
+        "top_kernels": sorted(([k[:100], ms, n]
+                               for k, (ms, n) in by_kernel.items()),
+                              key=lambda r: -r[1])[:10],
+    }
+
+
+DROPOUT_KERNELS = {
+    "hash_dropout": (hash_dropout, hash_dropout_reference,
+                     "lr2ppo_tpu/ops/hash_dropout.py:88"),
+    "philox_dropout": (philox_dropout, philox_dropout_reference,
+                       "lr2ppo_tpu/ops/pallas_dropout.py:70"),
+}
+DROP_RATE = 0.1                        # ModelConfig.drop_p / forward_drop_p
+
+
+def check_dropout(name: str, shape, dtype, seed: int, dev, time_it: bool,
+                  card_line: str) -> dict:
+    """One dropout kernel against its plain version: the forward and the
+    backward (the cotangent) bit for bit, the same mask in both, and the
+    keep share within 5 sigma of 1 - rate."""
+    fn, ref, _ = DROPOUT_KERNELS[name]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # no zeros in the inputs, so a zero in the output is a dropped element
+    x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    g = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    x[x == 0] = 1.0
+    g[g == 0] = 1.0
+    xr = x.clone().requires_grad_(True)
+    y = fn(xr, seed, DROP_RATE)
+    y.backward(g)
+    y = y.detach()
+    torch.cuda.synchronize()
+    want_y, want_g = ref(x, seed, DROP_RATE), ref(g, seed, DROP_RATE)
+    n = x.numel()
+    share = float((y != 0).float().mean())
+    sigma = (DROP_RATE * (1 - DROP_RATE) / n) ** 0.5
+    res = {"kernel": name, "shape": list(shape),
+           "dtype": str(dtype).replace("torch.", ""),
+           "forward_bit_equal": bool(torch.equal(y, want_y)),
+           "backward_bit_equal": bool(torch.equal(xr.grad, want_g)),
+           "same_mask": bool(torch.equal(y == 0, xr.grad == 0)),
+           "max_abs_err": max(float((y.float() - want_y.float()).abs().max()),
+                              float((xr.grad.float()
+                                     - want_g.float()).abs().max())),
+           "keep_share": share, "keep_sigmas": abs(share - (1 - DROP_RATE))
+           / sigma}
+    if not (res["forward_bit_equal"] and res["backward_bit_equal"]
+            and res["same_mask"] and res["keep_sigmas"] < 5):
+        emit(phase="dropout_vs_plain", failed=True, **res)
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{res}")
+    del xr, y, want_y, want_g, g
+    if time_it:
+        res["ms"] = cuda_ms(lambda: fn(x, seed, DROP_RATE))
+        res["plain_ms"] = cuda_ms(lambda: ref(x, seed, DROP_RATE), iters=3,
+                                  warmup=1)
+        # the same work with another random stream; the port never calls it
+        res["library_ms"] = cuda_ms(lambda: torch.nn.functional.dropout(
+            x, DROP_RATE, training=True))
+        # one read and one write of every element; ~12 (hash) or ~30
+        # (Philox: 10 rounds of 4 multiplies, 4 xors, 2 adds per 4
+        # elements) integer operations per element
+        ops = n * (12 if name == "hash_dropout" else 30)
+        res.update(bound(2 * n * x.element_size(), ops, VECTOR_OPS_PER_S))
+        res["card"] = card_line
+    emit(phase="dropout_vs_plain", **res)
+    return res
+
+
+def dropout_kernels(seed: int, dev, card_line: str) -> dict:
+    """Phase 6: both dropout kernels at a ragged small size and at the
+    update's FFN-inner site (100,352 x 3072), float32 and bfloat16. The
+    bfloat16 site's numbers go to the kernels line."""
+    out = {}
+    for name in DROPOUT_KERNELS:
+        runs = [check_dropout(name, (1000, 3077), dt, seed - 77, dev, False,
+                              card_line)
+                for dt in (torch.float32, torch.bfloat16)]
+        runs += [check_dropout(name, (ROLLOUT_ROWS, H), dt, seed + 1, dev,
+                               dt == torch.bfloat16, card_line)
+                 for dt in (torch.float32, torch.bfloat16)]
+        torch.cuda.empty_cache()
+        out[name] = {**runs[-1],
+                     "max_abs_err": max(r["max_abs_err"] for r in runs)}
+    return out
+
+
+class SyntheticTrainLoader:
+    """What PPOTrainer.fit reads of a loader: TRAIN_BATCHES ppo-mode
+    batches (text (B, 2, S, D), img (B, I, D), tgts (B, 2)) made with numpy
+    from `seed`, float32 as a loader emits them without ml_dtypes."""
+
+    def __init__(self, mcfg: ModelConfig, seed: int):
+        rng = np.random.default_rng(seed)
+        self.batches = [{
+            "text": rng.standard_normal(
+                (TRAIN_BS, PAIR, mcfg.seq_length, mcfg.feat_size),
+                dtype=np.float32),
+            "img": rng.standard_normal(
+                (TRAIN_BS, mcfg.max_imgs, mcfg.feat_size), dtype=np.float32),
+            "tgts": rng.integers(0, 3, size=(TRAIN_BS, PAIR)).astype(
+                np.int32)} for _ in range(TRAIN_BATCHES)]
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def set_epoch(self, epoch: int) -> None:
+        pass
+
+    def first_batch(self):
+        return self.batches[0]
+
+
+def train_config(tmp: str, seed: int, **model_kw):
+    """The trainer's configuration under --profile fast at batch 256."""
+    cfg = parse_config(["--profile", "fast", "--batch_size", str(TRAIN_BS),
+                        "--max_tags", str(PAIR), "--max_timesteps", "1",
+                        "--update_timesteps", "2", "--epochs_num", "1",
+                        "--eval_steps", "2", "--seed", str(seed),
+                        "--output_model_path", os.path.join(tmp, "best.bin"),
+                        "--log_path", os.path.join(tmp, "train.log")])
+    return cfg.replace(model=dataclasses.replace(cfg.model, **model_kw))
+
+
+def train_path(args, dev, card_line: str) -> dict:
+    """Phase 7: PPOTrainer.fit at the flagship width under --profile fast
+    (bf16 compute and moments, hash dropout, int8 reward and actor twin):
+    4 rollouts, 2 sweeps of 2 updates, one eval and one best save. Then
+    per-rollout and per-update CUDA-event times and a torch.profiler trace
+    of one rollout plus one update on the trained models."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = train_config(tmp, args.seed)
+        loader = SyntheticTrainLoader(cfg.model, args.seed + 3)
+        evb, _ = synthetic_batches(2, cfg.model, args.seed + 4, items=8,
+                                   bucket=8, tags=(2, 8))
+        trainer = PPOTrainer(cfg, dev)
+        built = {}
+
+        def init_params(seed):
+            built["models"] = models = PPOTrainer.init_params(trainer, seed)
+            built["before"] = {k: p.detach().clone() for k, p in (
+                ("actor.head.weight", models[0].head.weight),
+                ("critic.head.weight", models[1].head.weight),
+                ("actor.xit.ffn.fc1", models[0].xit._modules["0"][0][1]
+                 .fn[1][0].weight))}
+            return models
+
+        trainer.init_params = init_params
+        torch.cuda.reset_peak_memory_stats()
+        int8_mlp.launches = hash_dropout.launches = 0
+        philox_dropout.launches = 0
+        t0 = time.perf_counter()
+        astate, cstate, best = trainer.fit(lambda epoch: loader, evb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"int8_mlp": int8_mlp.launches,
+                    "hash_dropout": hash_dropout.launches,
+                    "philox_dropout": philox_dropout.launches}
+        fit_peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        rollouts, updates = TRAIN_BATCHES, astate.step
+        want = {"int8_mlp": 4 * rollouts, "hash_dropout": 18 * updates,
+                "philox_dropout": 0}
+        if updates != 4 or cstate.step != 4 or launches != want:
+            raise AssertionError(f"{updates} updates, launches {launches}; "
+                                 f"expected 4 updates and {want}")
+        with open(cfg.log_path + ".jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        losses = [[r["policy_loss"], r["value_loss"]] for r in recs]
+        if not (len(recs) == 2 and np.isfinite(losses).all()
+                and np.isfinite(best) and "ndcg_full" in recs[-1]):
+            raise AssertionError(f"sweep records {recs}, best {best}")
+        actor, critic, reward = built["models"]
+        now = {"actor.head.weight": actor.head.weight,
+               "critic.head.weight": critic.head.weight,
+               "actor.xit.ffn.fc1": actor.xit._modules["0"][0][1].fn[1][0]
+               .weight}
+        moved = {k: float((now[k].detach() - v).abs().max())
+                 for k, v in built["before"].items()}
+        if not all(v > 0 for v in moved.values()):
+            raise AssertionError(f"parameters did not move: {moved}")
+        state = torch.load(cfg.output_model_path, weights_only=True)
+        ActorCritic(cfg.model, device="meta").load_state_dict(
+            state, strict=True, assign=True)
+        reloaded = len(state)
+        del state
+
+        # where a step's time goes, on the trained models
+        b = trainer.ctx.put(loader.batches[0])
+        st = trainer.ctx.put_array(np.broadcast_to(
+            np.arange(PAIR, dtype=np.int32), (TRAIN_BS, PAIR)).copy())
+        twin = frozen_copy(ScoreModel, cfg.model, actor.state_dict(),
+                           trainer.dtype, True)
+        roll = make_rollout_step(cfg.model.mode)
+        upd = make_update_step(cfg)
+        gen = torch.Generator().manual_seed(args.seed)
+        out = roll(twin, critic, reward, b["text"], b["img"], st)
+        rollout_ms = cuda_ms(lambda: roll(twin, critic, reward, b["text"],
+                                          b["img"], st), iters=3, warmup=1)
+
+        def one_update():
+            upd(astate, cstate, gen, b["text"], b["img"], st, out[2],
+                out[0], out[3], out[1])
+        update_ms = cuda_ms(one_update, iters=3, warmup=1)
+        # the actor's AdamW step alone, on stand-in gradients: the part of
+        # an update that is the optimizer's (the critic's is the same size)
+        for p in actor.parameters():
+            p.grad = torch.zeros_like(p)
+        adamw_ms = cuda_ms(astate.opt.step, iters=3, warmup=1)
+        astate.opt.zero_grad()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            roll(twin, critic, reward, b["text"], b["img"], st)
+            one_update()
+            torch.cuda.synchronize()
+        emit(phase="train", params_per_model=sum(
+                 p.numel() for p in actor.parameters()),
+             rollouts=rollouts, updates=int(updates), kernel_launches=launches,
+             sweep_losses=losses, best_ndcg_full=best, moved=moved,
+             reloaded_keys=reloaded, fit_seconds=wall,
+             fit_peak_mem_gb=fit_peak_gb, rollout_ms=rollout_ms,
+             update_ms=update_ms, actor_adamw_step_ms=adamw_ms,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+             card=card_line)
+        emit(phase="train_breakdown", traced="one rollout + one update",
+             card=card_line, **trace_summary(prof))
+    return launches
+
+
+def k3_path(args, dev, card_line: str) -> int:
+    """Phase 8: the trainer's update step twice at batch 256 with
+    pallas_dropout=True, hash_dropout=False: the FFN-inner site of each
+    trained model (256 x 2 x 196 x 3072 elements, above the 128 x 2^20
+    gate) takes the Philox kernel, forward and backward; the other sites
+    are canonical dropout."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = train_config(tmp, args.seed, hash_dropout=False,
+                           pallas_dropout=True)
+        trainer = PPOTrainer(cfg, dev)
+        actor, critic = (ScoreModel(cfg.model, trainer.dtype, device=dev),
+                         SeqScoreModel(cfg.model, trainer.dtype, device=dev))
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+        init_weights(actor, gen)
+        init_weights(critic, gen)
+
+        def state(model):
+            return init_state(model, build_optimizer(
+                cfg.optim, dict(model.named_parameters()), 10,
+                lr=cfg.optim.learning_rate))
+        astate, cstate = state(actor), state(critic)
+        batch = SyntheticTrainLoader(cfg.model, args.seed + 6).batches[0]
+        b = trainer.ctx.put(batch)
+        rng = np.random.default_rng(args.seed + 7)
+        st = torch.arange(PAIR, device=dev, dtype=torch.int32).expand(
+            TRAIN_BS, PAIR).contiguous()
+        perm = torch.from_numpy(np.stack([rng.permutation(PAIR)
+                                          for _ in range(TRAIN_BS)])).to(dev)
+        nxt = torch.cat([st, perm.to(torch.int32)], dim=1)
+        small = [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, trainer.dtype)
+            for shape in ((TRAIN_BS, PAIR), (TRAIN_BS,), (TRAIN_BS,))]
+        upd = make_update_step(cfg)
+        cpu_gen = torch.Generator().manual_seed(args.seed + 8)
+        philox_dropout.launches = hash_dropout.launches = 0
+        times, metrics = [], []
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = upd(astate, cstate, cpu_gen, b["text"], b["img"], st, nxt,
+                    *small)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = philox_dropout.launches
+        if launches != 2 * 4 or hash_dropout.launches != 0:
+            raise AssertionError(f"philox_dropout launched {launches} times "
+                                 "in 2 updates, expected 2 forward and 2 "
+                                 "backward each")
+        if not all(np.isfinite(list(m.values())).all() for m in metrics):
+            raise AssertionError(f"non-finite update metrics {metrics}")
+        emit(phase="k3_updates", updates=2, philox_launches=launches,
+             update_ms=times, policy_loss=[m["policy_loss"] for m in metrics],
+             value_loss=[m["value_loss"] for m in metrics], card=card_line)
+    return launches
 
 
 def main(argv=None) -> None:
@@ -342,31 +709,55 @@ def main(argv=None) -> None:
          python=sys.version.split()[0], card=card_line,
          count=torch.cuda.device_count())
 
-    b = build.build()
-    ptxas = [ln.strip() for ln in b["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit(phase="build", seconds=b["seconds"], library=b["path"],
-         ptxas=ptxas)
-    build.library()
+    t0 = time.perf_counter()
+    built = build.build()
+    emit(phase="build", wall_seconds=time.perf_counter() - t0,
+         seconds={k: v["seconds"] for k, v in built.items()},
+         libraries={k: v["path"] for k, v in built.items()},
+         ptxas={k: [ln.strip() for ln in v["log"].splitlines()
+                    if "registers" in ln or "spill" in ln]
+                for k, v in built.items()})
+    for name in build.ENTRIES:
+        build.library(name)
 
     results = [check_kernel(1000, dt, args.seed, dev, False, card_line)
                for dt in (torch.float32, torch.bfloat16)]
     serve_shape = {dt: check_kernel(SERVE_ROWS, dt, args.seed, dev, True,
                                     card_line)
                    for dt in (torch.float32, torch.bfloat16)}
-    results += serve_shape.values()
+    rollout_k1 = check_kernel(ROLLOUT_ROWS, torch.bfloat16, args.seed, dev,
+                              True, card_line)
+    results += [*serve_shape.values(), rollout_k1]
 
-    launches = main_path(args, dev, card_line)
+    serve_launches = main_path(args, dev, card_line)
+    torch.cuda.empty_cache()
+    drop = dropout_kernels(args.seed, dev, card_line)
+    train_launches = train_path(args, dev, card_line)
+    torch.cuda.empty_cache()
+    k3_launches = k3_path(args, dev, card_line)
 
-    main_k1 = serve_shape[torch.bfloat16]       # the main path's dtype
-    print(card_line, flush=True)
-    emit(kernels=[{
+    main_k1 = serve_shape[torch.bfloat16]       # the serving path's dtype
+    kernels = [{
         "name": "int8_mlp", "route": "cuda",
         "source": "lr2ppo_torch/kernels/csrc/int8_mlp.cu",
         "replaces": "lr2ppo_tpu/ops/pallas_int8_mlp.py:139",
-        "launches": launches,
+        "launches": serve_launches + train_launches["int8_mlp"],
         "max_abs_err": max(r["max_abs_err"] for r in results),
-        "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"]}])
+        "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
+        "bound_ms": main_k1["bound_ms"], "bound_by": main_k1["bound_by"],
+        "library_ms": None}]
+    for name, launches in (("hash_dropout", train_launches["hash_dropout"]),
+                           ("philox_dropout", k3_launches)):
+        r = drop[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"lr2ppo_torch/kernels/csrc/{name}.cu",
+            "replaces": DROPOUT_KERNELS[name][2], "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(card_line, flush=True)
+    emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -10,15 +10,14 @@ JSON line per item:
 
     {"id", "pred_order", "pred_scores"[, "tags", "tags_rearranged"][, "ndcg"]}
 
-It takes the JAX package's flags (lr2ppo_tpu.config.parse_config) and runs
-on one GPU: `--dp`/`--tp` above 1 raise.
+It takes the JAX package's flags (lr2ppo_torch/config.py, the port's copy
+of its flag table) and runs on one GPU: `--dp`/`--tp` above 1 raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import logging
 import os
 import sys
 import time
@@ -26,33 +25,14 @@ import time
 import numpy as np
 import torch
 
-from lr2ppo_tpu.cli._common import movienet_eval_loader
-from lr2ppo_tpu.config import ModelConfig, parse_config
-from lr2ppo_torch.device import require_cuda
+from lr2ppo_torch.cli._common import movienet_eval_loader
+from lr2ppo_torch.config import ModelConfig, parse_config
+from lr2ppo_torch.device import compute_dtype, require_cuda
 from lr2ppo_torch.models.scorer import ScoreModel
 from lr2ppo_torch.ops.int8 import quantize_state_dict
 from lr2ppo_torch.train.checkpoints import load_any
 from lr2ppo_torch.train.evaluate import scores_and_ndcg
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _logger(log_path) -> logging.Logger:
-    logger = logging.getLogger("lr2ppo_torch")
-    logger.setLevel(logging.INFO)
-    logger.handlers.clear()
-    handlers = [logging.StreamHandler(sys.stdout)]
-    if log_path:
-        os.makedirs(os.path.dirname(os.path.abspath(log_path)), exist_ok=True)
-        handlers.append(logging.FileHandler(log_path))
-    fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s",
-                            "%Y-%m-%d %H:%M:%S")
-    for h in handlers:
-        h.setFormatter(fmt)
-        logger.addHandler(h)
-    logger.propagate = False
-    return logger
-
+from lr2ppo_torch.utils import init_logger
 
 def int8_flag(argv, cfg_int8: bool) -> bool:
     """Serving defaults to int8. parse_config cannot tell an absent flag from
@@ -136,16 +116,13 @@ def main(argv=None, device=None):
     if cfg.mesh.dp > 1 or cfg.mesh.tp > 1:
         raise ValueError(f"--dp {cfg.mesh.dp} --tp {cfg.mesh.tp}: the port "
                          "serves on one GPU; multi-GPU is not ported yet")
-    if cfg.mesh.compute_dtype not in _DTYPES:
-        raise ValueError(f"--compute_dtype {cfg.mesh.compute_dtype!r}: "
-                         f"expected one of {sorted(_DTYPES)}")
+    dtype = compute_dtype(cfg.mesh.compute_dtype)
     device = require_cuda() if device is None else torch.device(device)
-    logger = _logger(cfg.log_path)
+    logger = init_logger(cfg.log_path)
 
     int8 = int8_flag(argv, cfg.model.int8)
     ckpt = load_any(cfg.pretrained_model_path, kind="actor_critic")
     state = ckpt["actor"] if "actor" in ckpt else ckpt
-    dtype = _DTYPES[cfg.mesh.compute_dtype]
     model = load_model(dataclasses.replace(cfg.model, int8=int8), state,
                        dtype, device)
 

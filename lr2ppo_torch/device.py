@@ -1,8 +1,20 @@
-"""Device selection: explicit, never silent."""
+"""Device and compute-dtype selection: explicit, never silent."""
 
 from __future__ import annotations
 
 import torch
+
+
+# --compute_dtype values the port runs
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a --compute_dtype value; raises on others."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"--compute_dtype {name!r}: expected one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
 
 
 def require_cuda() -> torch.device:

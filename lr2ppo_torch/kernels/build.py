@@ -1,9 +1,11 @@
-"""Build the CUDA sources under `csrc/` into one shared library, at first use.
+"""Build the CUDA sources under `csrc/` at first use, one shared library per
+source, all `nvcc` processes started together.
 
-The library has a plain C interface and is loaded with ctypes: no PyTorch
+Each library has a plain C interface and is loaded with ctypes: no PyTorch
 headers, so `nvcc` takes seconds. It goes to `_build/` beside this file
-(listed in .gitignore), named by a hash of the sources and the flags, so an
-edited source builds anew and an unchanged one is reused.
+(listed in .gitignore), named by the source's stem and a hash of the
+source, the shared header and the flags, so an edited source builds anew
+and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
@@ -24,7 +28,21 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib = None
+# the C entries' code for each tensor dtype they take
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_vp, _i32, _i64, _u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_uint32)
+_ELEMENTWISE = ([_vp, _vp, _i64, _u32, _u32, ctypes.c_float, _i32, _vp], _i32)
+# (argtypes, restype) of each library's C entry
+ENTRIES = {
+    "int8_mlp": {"lr2ppo_int8_mlp": ([_vp] * 8 + [_i64, _i32, _i32, _i32, _vp],
+                                     _i32)},
+    "hash_dropout": {"lr2ppo_hash_dropout": _ELEMENTWISE},
+    "philox_dropout": {"lr2ppo_philox_dropout": _ELEMENTWISE},
+}
+
+_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -38,51 +56,62 @@ def _nvcc() -> str:
     return found
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
-
-
-def library_path() -> Path:
+def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lr2ppo_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict:
-    """Compile the library unless it exists. Returns its path, the seconds
-    the build took (0 when it was reused) and the compiler's report, which
-    lists each kernel's registers, shared memory and spills."""
-    out = library_path()
-    if out.exists():
-        return {"path": str(out), "seconds": 0.0, "log": ""}
+    """Compile every library that does not exist yet, one nvcc per source,
+    all at once. Returns {name: {"path", "seconds", "log"}}; seconds is 0
+    for a library that was reused, and the log is the compiler's report of
+    each kernel's registers, shared memory and spills."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return {"path": str(out), "seconds": seconds,
-            "log": proc.stdout + proc.stderr}
+    out, running = {}, {}
+    nvcc = None
+    for name in ENTRIES:
+        path = library_path(name)
+        if path.exists():
+            out[name] = {"path": str(path), "seconds": 0.0, "log": ""}
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, cmd, tmp, path, time.perf_counter())
+    failed = []
+    for name, (proc, cmd, tmp, path, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                          f"\n{log}")
+            continue
+        os.replace(tmp, path)
+        out[name] = {"path": str(path), "seconds": seconds, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.lr2ppo_int8_mlp.argtypes = [vp] * 8 + [i64, i32, i32, i32, vp]
-        lib.lr2ppo_int8_mlp.restype = i32
-        lib.lr2ppo_cuda_error_string.argtypes = [i32]
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    if name not in _libs:
+        path = library_path(name)
+        if not path.exists():
+            build()
+        lib = ctypes.CDLL(str(path))
+        for fn, (argtypes, restype) in ENTRIES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        lib.lr2ppo_cuda_error_string.argtypes = [_i32]
         lib.lr2ppo_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

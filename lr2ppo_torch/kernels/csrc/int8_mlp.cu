@@ -36,9 +36,7 @@
 // elementwise kernels round after every operation). amax / 127 is a true
 // division. Never build with --use_fast_math.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -313,10 +311,6 @@ int lr2ppo_int8_mlp(const void* x, const void* w1, const void* s1, const void* b
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(x, w1, s1, b1, w2, s2, b2, y, rows, d, h, s);
   return launch<__nv_bfloat16>(x, w1, s1, b1, w2, s2, b2, y, rows, d, h, s);
-}
-
-const char* lr2ppo_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -10,8 +10,10 @@ softmax, the probabilities divided by sqrt(feat_size) after it, and a causal
 mask that is a no-op. Fast mode (`faithful=False`) is scaled dot-product
 attention with a real causal mask.
 
-Only the eval path is ported: dropout is inactive, and asking for the
-training path (`deterministic=False`) raises.
+Training (`deterministic=False`) draws each active dropout site's seed from
+the caller's CPU `torch.Generator` (ops/hash_dropout.py:module_dropout);
+the fused int8 FFN runs on the deterministic path only, where the dropout
+between fc1 and fc2 is inactive.
 """
 
 from __future__ import annotations
@@ -24,14 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from lr2ppo_torch.ops import int8 as int8_ops
+from lr2ppo_torch.ops.hash_dropout import module_dropout
 from lr2ppo_torch.ops.int8_mlp import int8_mlp, supported
-
-
-def eval_only(deterministic: bool) -> None:
-    if not deterministic:
-        raise NotImplementedError(
-            "lr2ppo_torch runs the eval path only: dropout and training are "
-            "not ported yet")
 
 
 def cast(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -117,13 +113,15 @@ class LayerNorm(nn.LayerNorm):
         return y.to(torch.promote_types(x.dtype, self.weight.dtype))
 
 
-def fused_int8_ffn_ok(fc1: Linear, fc2: Linear, x_shape) -> bool:
+def fused_int8_ffn_ok(fc1: Linear, fc2: Linear, x_shape,
+                      deterministic: bool = True) -> bool:
     """Route fc1 -> GELU -> fc2 through the fused int8 kernel? The JAX gate
-    (models/layers.py:_fused_int8_ffn_ok) in its order: both weights int8,
-    the site compute-bound, and shapes the kernel takes."""
+    (models/layers.py:_fused_int8_ffn_ok) in its order: the deterministic
+    path, both weights int8, the site compute-bound, and shapes the kernel
+    takes."""
     d, hdn, out = fc1.in_features, fc1.out_features, fc2.out_features
     rows = math.prod(x_shape[:-1])
-    return (fc1.use_int8 and fc2.use_int8
+    return (deterministic and fc1.use_int8 and fc2.use_int8
             and int8_ops.FUSED_FFN
             and int8_ops.should_quantize((d, hdn))
             and int8_ops.should_quantize((hdn, out))
@@ -131,12 +129,14 @@ def fused_int8_ffn_ok(fc1: Linear, fc2: Linear, x_shape) -> bool:
             and supported(x_shape, (hdn, d), (out, hdn)))
 
 
-def gelu_ffn(fc1: Linear, fc2: Linear, x: torch.Tensor,
-             dtype) -> torch.Tensor:
-    """fc2(GELU(fc1(x))), exact GELU. Where fused_int8_ffn_ok routes it, the
-    whole int8 FFN runs in one kernel (ops/int8_mlp.py)."""
-    if not fused_int8_ffn_ok(fc1, fc2, x.shape):
-        return fc2(F.gelu(fc1(x), approximate="none"))
+def gelu_ffn(fc1: Linear, fc2: Linear, x: torch.Tensor, dtype,
+             drop=None) -> torch.Tensor:
+    """fc2(drop(GELU(fc1(x)))), exact GELU; `drop` is the dropout between
+    the two (None on the deterministic path). Where fused_int8_ffn_ok routes
+    it, the whole int8 FFN runs in one kernel (ops/int8_mlp.py)."""
+    if not fused_int8_ffn_ok(fc1, fc2, x.shape, drop is None):
+        h = F.gelu(fc1(x), approximate="none")
+        return fc2(h if drop is None else drop(h))
     out_dtype = dtype or x.dtype
     return int8_mlp(x.to(out_dtype), fc1.weight, fc1.weight_scale.float(),
                     fc1.bias.float(), fc2.weight, fc2.weight_scale.float(),
@@ -144,24 +144,30 @@ def gelu_ffn(fc1: Linear, fc2: Linear, x: torch.Tensor,
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU(exact) -> fc2 (reference ppo.py:154-170; dropout is
-    inactive on the eval path)."""
+    """fc1 -> GELU(exact) -> drop -> fc2 -> drop (reference ppo.py:154-170);
+    `drop` is 0.0 in the fusion trunk. Its dropout is canonical (the JAX
+    Mlp's nn.Dropout)."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  out_features: int, init_style: str = "torch_default",
                  dtype: Optional[torch.dtype] = None, int8: bool = False,
-                 device=None):
+                 device=None, drop: float = 0.0):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.drop = dtype, drop
         self.fc1 = Linear(in_features, hidden_features, init_style,
                           dtype=dtype, int8=int8, device=device)
         self.fc2 = Linear(hidden_features, out_features, init_style,
                           dtype=dtype, int8=int8, device=device)
 
-    def forward(self, x: torch.Tensor,
-                deterministic: bool = True) -> torch.Tensor:
-        eval_only(deterministic)
-        return gelu_ffn(self.fc1, self.fc2, x, self.dtype)
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if deterministic:
+            return gelu_ffn(self.fc1, self.fc2, x, self.dtype)
+
+        def drop(t):
+            return module_dropout(t, self.drop, False, generator, False)
+
+        return drop(gelu_ffn(self.fc1, self.fc2, x, self.dtype, drop))
 
 
 class XiTAttention(nn.Module):
@@ -234,16 +240,30 @@ class XiT(nn.Module):
       0.0.1.fn.0 (LayerNorm)    0.0.1.fn.1.0 (fc1), 0.0.1.fn.1.3 (fc2)
       1.0 (final LayerNorm)
     Positions 1 and 2 of the FFN list are the reference's GELU and Dropout,
-    which hold no weights."""
+    which hold no weights.
+
+    Three dropout sites, in this order: after attention (drop_p), inside
+    the FFN (forward_drop_p) and after it (drop_p). `hash_dropout`,
+    `fast_dropout` and `pallas_dropout` pick the backend
+    (ops/hash_dropout.py:module_dropout); the Philox kernel takes only
+    sites of at least PALLAS_DROPOUT_MIN_ELEMENTS elements."""
+
+    # the JAX package's gate (models/layers.py:277): only the FFN-inner
+    # site of the trunk reaches it at batch 256
+    PALLAS_DROPOUT_MIN_ELEMENTS = 128 * 1024 * 1024
 
     def __init__(self, feat_size: int = 768, num_heads: int = 8,
                  causal: bool = False, faithful: bool = True,
                  forward_expansion: int = 4, init_style: str = "torch_default",
                  dtype: Optional[torch.dtype] = None, int8: bool = False,
-                 device=None):
+                 device=None, drop_p: float = 0.1,
+                 forward_drop_p: float = 0.1, hash_dropout: bool = False,
+                 fast_dropout: bool = False, pallas_dropout: bool = False):
         super().__init__()
         d, hdn = feat_size, forward_expansion * feat_size
         self.dtype = dtype
+        self.drop_p, self.forward_drop_p = drop_p, forward_drop_p
+        self.backends = (hash_dropout, fast_dropout, pallas_dropout)
         attn = _Residual(
             _NormPair(d, device),
             XiTAttention(d, num_heads, causal, faithful, init_style, dtype,
@@ -257,19 +277,30 @@ class XiT(nn.Module):
         self.add_module("1", nn.ModuleList([LayerNorm(d, device)]))
 
     def forward(self, x: torch.Tensor, y: torch.Tensor,
-                deterministic: bool = True) -> torch.Tensor:
-        eval_only(deterministic)
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        def drop(rate):
+            return lambda t: module_dropout(
+                t, rate, deterministic, generator, *self.backends,
+                self.PALLAS_DROPOUT_MIN_ELEMENTS)
+
         attn_res, ffn_res = self._modules["0"][0]
         norms, attn = attn_res.fn
-        x = x + attn(norms.ln_x(x), norms.ln_y(y))
+        x = x + drop(self.drop_p)(attn(norms.ln_x(x), norms.ln_y(y)))
         ln_ffn, ffn = ffn_res.fn
-        x = x + gelu_ffn(ffn[0], ffn[3], ln_ffn(x), self.dtype)
+        inner = None if deterministic else drop(self.forward_drop_p)
+        h = gelu_ffn(ffn[0], ffn[3], ln_ffn(x), self.dtype, inner)
+        x = x + drop(self.drop_p)(h)
         return self._modules["1"][0](x)
 
 
+@torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Initialize every Linear and LayerNorm of a float model from one
-    explicit generator (the JAX package's init styles)."""
+    """Initialize every Linear, LayerNorm and position embedding of a float
+    model from one explicit generator (the JAX package's init styles; an
+    embedding is N(0, 1), torch's nn.Embedding default)."""
     for m in model.modules():
         if isinstance(m, (Linear, LayerNorm)):
             m.reset_parameters(generator)
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0, generator=generator)

@@ -1,12 +1,16 @@
-"""Pointwise scorer (counterpart of lr2ppo_tpu/models/scorer.py).
+"""Task models (counterpart of lr2ppo_tpu/models/scorer.py): the pointwise
+scorer `ScoreModel` (reference Classifier/Actor), the sequence scorer
+`SeqScoreModel` (reference Critic/Reward) and the `ActorCritic` pair.
 
-`ScoreModel` is the reference Classifier/Actor. Its state_dict keys are the
-reference's: `text_proj.*`, `img_proj.*`, `xit.*`, `out_layer.*`, `head.*`,
-with no `trunk.` prefix, because the JAX package's `trunk` scope is its own
-and the reference has none (lr2ppo_tpu/train/checkpoints.py:148-187).
+State_dict keys are the reference's: `text_proj.*`, `img_proj.*`, `xit.*`,
+`out_layer.*`, `head.*`, and for the sequence scorer `pos_emb.weight` and
+`xitt.*`, with no `trunk.` prefix, because the JAX package's `trunk` scope
+is its own and the reference has none (lr2ppo_tpu/train/checkpoints.py).
 
 As in JAX, image embeddings stay (B, I, D): img_proj runs once per item and
-its output broadcasts over the tag axis.
+its output broadcasts over the tag axis. Training (`deterministic=False`)
+takes the caller's CPU `torch.Generator`, from which every active dropout
+site draws its seed in forward order.
 """
 
 from __future__ import annotations
@@ -16,8 +20,17 @@ from typing import Optional
 import torch
 from torch import nn
 
-from lr2ppo_tpu.config import ModelConfig
-from lr2ppo_torch.models.layers import Linear, Mlp, XiT, cast, eval_only
+from lr2ppo_torch.config import ModelConfig
+from lr2ppo_torch.models.layers import Linear, Mlp, XiT, cast
+
+
+def _xit(cfg: ModelConfig, dtype, device, causal: bool = False) -> XiT:
+    return XiT(cfg.feat_size, cfg.num_heads, causal=causal,
+               faithful=cfg.faithful_attention, init_style=cfg.init_style,
+               dtype=dtype, int8=cfg.int8, device=device, drop_p=cfg.drop_p,
+               forward_drop_p=cfg.forward_drop_p,
+               hash_dropout=cfg.hash_dropout, fast_dropout=cfg.fast_dropout,
+               pallas_dropout=cfg.pallas_dropout)
 
 
 class FusionTrunk(nn.Module):
@@ -34,6 +47,10 @@ class FusionTrunk(nn.Module):
             raise NotImplementedError(
                 f"lr2ppo_torch ports the multimodal family only, not "
                 f"{cfg.family!r}")
+        if cfg.remat:
+            raise NotImplementedError(
+                "remat (activation recomputation) is not ported yet "
+                "(ROADMAP.md, queue A)")
         self.cfg, self.dtype = cfg, dtype
         d = cfg.feat_size
         hidden = cfg.mlp_ratio * d
@@ -44,21 +61,24 @@ class FusionTrunk(nn.Module):
 
         self.text_proj = mlp(d)
         self.img_proj = mlp(d)
-        self.xit = XiT(d, cfg.num_heads, faithful=cfg.faithful_attention,
-                       init_style=cfg.init_style, dtype=dtype, int8=cfg.int8,
-                       device=device)
+        self.xit = _xit(cfg, dtype, device)
         self.out_layer = mlp(cfg.fusion_tokens * d)
 
-    def forward(self, text_emb: torch.Tensor, img_emb: torch.Tensor,
-                deterministic: bool = True) -> torch.Tensor:
-        eval_only(deterministic)
+    def trunk(self, text_emb: torch.Tensor, img_emb: torch.Tensor,
+              deterministic: bool = True,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, t = text_emb.shape[:2]
-        tfeat = self.text_proj(cast(text_emb, self.dtype))
-        ifeat = self.img_proj(cast(img_emb, self.dtype))[:, None]  # (B,1,I,D)
-        x = self.xit(tfeat, ifeat)
+        tfeat = self.text_proj(cast(text_emb, self.dtype), deterministic,
+                               generator)
+        ifeat = self.img_proj(cast(img_emb, self.dtype), deterministic,
+                              generator)[:, None]           # (B, 1, I, D)
+        x = self.xit(tfeat, ifeat, deterministic, generator)
         ib = ifeat.expand(b, t, *ifeat.shape[2:])
-        x = torch.cat([x, ib], dim=2)                   # (B, T, S+I, D)
-        return self.out_layer(x.reshape(b, t, -1))       # (B, T, D)
+        x = torch.cat([x, ib], dim=2)                       # (B, T, S+I, D)
+        return self.out_layer(x.reshape(b, t, -1), deterministic,
+                              generator)                    # (B, T, D)
+
+    forward = trunk
 
 
 class ScoreModel(FusionTrunk):
@@ -73,6 +93,49 @@ class ScoreModel(FusionTrunk):
                            int8=cfg.int8, device=device)
 
     def forward(self, text_emb: torch.Tensor, img_emb: torch.Tensor,
-                deterministic: bool = True) -> torch.Tensor:
-        logits = self.head(super().forward(text_emb, img_emb, deterministic))
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        logits = self.head(self.trunk(text_emb, img_emb, deterministic,
+                                      generator))
         return logits[..., 0] if self.cfg.mode == "reg" else logits
+
+
+class SeqScoreModel(FusionTrunk):
+    """Sequence scorer (reference Critic/Reward, ppo.py:247-350): the trunk
+    runs on the T distinct tags, and the (B, T, D) features are gathered by
+    `index` (B, K), so duplicated positions share dropout masks, as in JAX
+    (scorer.py:142-148). Learned position embeddings are added, the causal
+    XiT `xitt` runs over the K positions (in faithful mode the causal mask
+    is the reference's no-op), and the last position's scalar is returned,
+    (B,)."""
+
+    def __init__(self, cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__(cfg, dtype, device)
+        self.pos_emb = nn.Embedding(cfg.num_pos, cfg.feat_size, device=device)
+        self.xitt = _xit(cfg, dtype, device, causal=True)
+        self.head = Linear(cfg.feat_size, 1, cfg.init_style, dtype=dtype,
+                           int8=cfg.int8, device=device)
+
+    def forward(self, text_emb: torch.Tensor, img_emb: torch.Tensor,
+                index: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.trunk(text_emb, img_emb, deterministic, generator)
+        idx = index.long()[..., None].expand(*index.shape, x.shape[-1])
+        x = torch.gather(x, 1, idx)                          # (B, K, D)
+        k = x.shape[1]
+        x = x + self.pos_emb.weight[:k].to(x.dtype)[None]
+        x = self.xitt(x, x, deterministic, generator)
+        return self.head(x)[:, -1, 0]
+
+
+class ActorCritic(nn.Module):
+    """The actor (ScoreModel) and critic (SeqScoreModel) under the
+    reference's `actor.`/`critic.` prefixes (ppo_eval.py:336-343), so a
+    saved best checkpoint loads with `load_state_dict(strict=True)`."""
+
+    def __init__(self, cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__()
+        self.actor = ScoreModel(cfg, dtype, device)
+        self.critic = SeqScoreModel(cfg, dtype, device)

@@ -76,10 +76,12 @@ def int8_linear(x: torch.Tensor, weight: torch.Tensor,
 
 
 def quantize_state_dict(state: dict, other_dtype=torch.bfloat16) -> dict:
-    """Counterpart of quantize_tree: every 2-D float `*.weight` that passes
-    `should_quantize` becomes int8 with a float32 `*.weight_scale` sibling;
-    every other float tensor is cast to `other_dtype`. Idempotent: an int8
-    weight's scale passes through untouched."""
+    """Counterpart of quantize_tree: every 2-D float Linear `*.weight` that
+    passes `should_quantize` becomes int8 with a float32 `*.weight_scale`
+    sibling; every other float tensor is cast to `other_dtype`, the
+    position table `pos_emb.weight` too (quantize_tree quantizes `kernel`
+    leaves only). Idempotent: an int8 weight's scale passes through
+    untouched."""
 
     def quantizable(v):
         return (v is not None and v.ndim == 2 and v.is_floating_point()
@@ -87,7 +89,8 @@ def quantize_state_dict(state: dict, other_dtype=torch.bfloat16) -> dict:
 
     out = {}
     for key, v in state.items():
-        if key.endswith(".weight") and quantizable(v):
+        if (key.endswith(".weight") and not key.endswith("pos_emb.weight")
+                and quantizable(v)):
             out[key], out[key + "_scale"] = quantize_weight(v)
         elif key.endswith(".weight_scale") and quantizable(
                 state.get(key[: -len("_scale")])):

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from lr2ppo_torch.kernels import build
 from lr2ppo_torch.ops.int8 import quantize_rows
 
 _BM = 256                       # the TPU kernel's row block: the row gate
@@ -32,8 +33,6 @@ _ERF_ALPHA = (-2.72614225801306e-10, 2.77068142495902e-08,
 _ERF_BETA = (-1.45660718464996e-05, -2.13374055278905e-04,
              -1.68282697438203e-03, -7.37332916720468e-03,
              -1.42647390514189e-02)
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def supported(x_shape, w1_shape, w2_shape) -> bool:
@@ -86,7 +85,7 @@ def int8_mlp_reference(x, w1, s1, b1, w2, s2, b2,
 
 
 def _check(x, w1, s1, b1, w2, s2, b2, out_dtype):
-    if out_dtype not in _DTYPE_CODES:
+    if out_dtype not in build.DTYPE_CODES:
         raise ValueError(f"int8_mlp: out_dtype {out_dtype} is not float32 "
                          "or bfloat16")
     if x.dtype != out_dtype:
@@ -123,18 +122,16 @@ def int8_mlp(x, w1, s1, b1, w2, s2, b2,
         return int8_mlp_reference(x, w1, s1, b1, w2, s2, b2, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"int8_mlp: no kernel for device {x.device}")
-    from lr2ppo_torch.kernels import build
-
     *lead, d = x.shape
     hdn = w1.shape[0]
     x2 = x.reshape(-1, d).contiguous()
     y = torch.empty_like(x2)
-    lib = build.library()
+    lib = build.library("int8_mlp")
     with torch.cuda.device(x.device):
         err = lib.lr2ppo_int8_mlp(
             x2.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), y.data_ptr(),
-            x2.shape[0], d, hdn, _DTYPE_CODES[out_dtype],
+            x2.shape[0], d, hdn, build.DTYPE_CODES[out_dtype],
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "int8_mlp launch")
     int8_mlp.launches += 1

@@ -1,5 +1,6 @@
-"""Batched, masked NDCG@k on the device (counterpart of the batched path of
-lr2ppo_tpu/ops/ndcg.py; its host-side meter is numpy and is used as it is).
+"""Batched, masked NDCG@k on the device, and the host-side meter that
+averages it (counterpart of lr2ppo_tpu/ops/ndcg.py; the meter is a copy of
+its numpy class).
 
 Gain is 2^rel - 1, discount 1/log2(pos + 2), and an all-irrelevant ideal
 (true DCG <= 1e-6) scores 1. The sorts are stable, like jnp.argsort, so
@@ -8,8 +9,9 @@ tied scores rank in the same order in both packages.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 NDCG_AT_K_DEFAULT = [1, 3, 5, 10, 20, 100000000]
@@ -41,3 +43,32 @@ def ndcg_from_scores(scores: torch.Tensor, gold: torch.Tensor,
         idcg = (gains_ideal * within).sum(-1)
         out.append(torch.where(idcg <= 1e-6, 1.0, dcg / idcg))
     return torch.stack(out, dim=-1)
+
+
+class AverageNDCGMeter:
+    """Host accumulator mirroring the reference API (ndcg.py:9-65)."""
+
+    def __init__(self, ndcg_at_k: Sequence[int] = tuple(NDCG_AT_K_DEFAULT)):
+        self.ndcg_at_k = list(ndcg_at_k)
+        self.ndcg: Dict[int, list] = {}
+        self.reset()
+
+    def reset(self) -> None:
+        for k in self.ndcg_at_k:
+            self.ndcg[k] = []
+
+    def value(self) -> Dict[int, float]:
+        # NOTE: mutates state like the reference (ndcg.py:21-25)
+        for k in self.ndcg:
+            vals = self.ndcg[k]
+            self.ndcg[k] = (float(np.mean(np.asarray(vals))) if len(vals)
+                            else float("nan"))
+        return self.ndcg
+
+    def extend(self, ndcg_rows: np.ndarray) -> None:
+        """Append a (N, len(ks)) matrix of per-list NDCG vectors (the
+        device-side batched path feeding the host meter)."""
+        rows = np.asarray(ndcg_rows).reshape(-1, len(self.ndcg_at_k))
+        for row in rows:
+            for i, k in enumerate(self.ndcg_at_k):
+                self.ndcg[k].append(float(row[i]))

@@ -1,5 +1,6 @@
 """The weight bridge: JAX package checkpoints and reference `.bin` files
-into reference-keyed state_dicts, in numpy and torch only (counterpart of
+into reference-keyed state_dicts, in numpy and torch only, and the save side
+of the trainer's best checkpoint (counterpart of
 lr2ppo_tpu/train/checkpoints.py).
 
 The key map is the JAX package's (checkpoints.py:42-63, 148-187): flax
@@ -94,6 +95,21 @@ def split_actor_critic(state_dict: dict):
         else:
             raise KeyError(f"unexpected ActorCritic key: {k}")
     return actor, critic
+
+
+def save_actor_critic(path: str, actor: torch.nn.Module,
+                      critic: torch.nn.Module) -> None:
+    """Write both models as one reference-keyed ActorCritic `.bin`
+    ('actor.'/'critic.' prefixes, reference ppo_eval.py:336-343), through a
+    temporary file and a rename, so a crash mid-write leaves the previous
+    best in place. `load_any(path, kind="actor_critic")` reads it back."""
+    sd = {f"{prefix}.{k}": v.detach().cpu()
+          for prefix, model in (("actor", actor), ("critic", critic))
+          for k, v in model.state_dict().items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(sd, tmp)
+    os.replace(tmp, path)
 
 
 def load_any(path: str, kind: str = "single"):

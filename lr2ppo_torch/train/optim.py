@@ -1,0 +1,172 @@
+"""AdamW and LR schedules with the reference's semantics (counterpart of
+lr2ppo_tpu/train/optim.py).
+
+The step is the JAX package's optax chain written out:
+  [clip_by_global_norm] -> scale_by_adam_hf -> add_decayed_weights(mask)
+  -> scale_by_learning_rate,
+so one update is  p -= lr(t) * (m / (sqrt(v) + eps) + wd * p)  with no bias
+correction by default (HF AdamW(correct_bias=False)), the decay scaled by
+the scheduled lr and applied after the Adam step, and t counted from 0.
+torch.optim.AdamW always corrects the bias and decays before the step, so
+it cannot stand in. Moments may be stored in a narrower `moment_dtype`;
+their math runs in float32.
+
+The decay mask decays every parameter whose name does not end in `bias`:
+the reference exempts names holding 'bias'/'gamma'/'beta', and its finetune
+models have no gamma/beta, so LayerNorm weights and `pos_emb` decay.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+
+
+def _schedule_fns(name: str, base_lr: float, train_steps: int, w: int):
+    """The str2scheduler family (optimizers.py:25-300) in float64 Python
+    arithmetic; the JAX package evaluates the same formulas in float32."""
+    n = float(train_steps)
+
+    def clip01(v):
+        return min(max(v, 0.0), 1.0)
+
+    if name == "constant":
+        return lambda t: base_lr
+    if name == "constant_with_warmup":
+        return lambda t: base_lr * min(1.0, t / w)
+    if name == "linear":
+        return lambda t: base_lr * (t / w if t < w else max(
+            0.0, (n - t) / max(1.0, n - w)))
+    if name == "cosine":
+        return lambda t: base_lr * (t / w if t < w else 0.5 * (
+            1.0 + math.cos(math.pi * clip01((t - w) / max(1.0, n - w)))))
+    if name == "inverse_sqrt":
+        return lambda t: base_lr * (t / w if t < w else math.sqrt(
+            w / max(t, 1)))
+    if name == "polynomial":
+        return lambda t: base_lr * (t / w if t < w else 1.0 - clip01(
+            (t - w) / max(1.0, n - w)))
+    if name == "cosine_with_restarts":
+        def sched(t):
+            if t < w:
+                return base_lr * t / w
+            prog = (t - w) / max(1.0, n - w)
+            cyc = 0.5 * (1.0 + math.cos(math.pi * (prog % 1.0)))
+            return base_lr * (0.0 if prog >= 1.0 else max(0.0, cyc))
+        return sched
+    if name == "tri_stage":
+        init_scale, final_scale = 0.01, 0.05
+        decay_steps = max(train_steps // 4, 1)
+        hold_end = train_steps - decay_steps
+        decay_factor = -math.log(final_scale) / decay_steps
+
+        def sched(t):
+            if t < w:
+                factor = init_scale + (1.0 - init_scale) * t / w
+            elif t < hold_end:
+                factor = 1.0
+            elif t <= train_steps:
+                factor = math.exp(-decay_factor * (t - hold_end))
+            else:
+                factor = final_scale
+            return base_lr * factor
+        return sched
+    raise ValueError(f"unknown scheduler: {name}")
+
+
+def make_schedule(name: str, base_lr: float, train_steps: int,
+                  warmup: float) -> Callable[[int], float]:
+    """The lr at optimizer step t, counted from 0."""
+    return _schedule_fns(name, base_lr, train_steps,
+                         max(int(train_steps * warmup), 1))
+
+
+def decays(name: str) -> bool:
+    """Decay every parameter not named `bias`."""
+    return name.split(".")[-1] != "bias"
+
+
+class AdamW:
+    """The reference's AdamW over named parameters; `step()` reads their
+    `.grad` and updates them in place. `count` is the number of steps
+    taken; step t uses schedule(t)."""
+
+    def __init__(self, named_params: Dict[str, torch.nn.Parameter],
+                 schedule: Callable[[int], float], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-6,
+                 weight_decay: float = 0.01, correct_bias: bool = False,
+                 moment_dtype: Optional[torch.dtype] = None,
+                 grad_clip: Optional[float] = None):
+        self.params = dict(named_params)
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay, self.correct_bias = weight_decay, correct_bias
+        self.grad_clip = grad_clip
+        self.count = 0
+        self.mu = {k: torch.zeros_like(p, dtype=moment_dtype or p.dtype)
+                   for k, p in self.params.items()}
+        self.nu = {k: torch.zeros_like(p, dtype=moment_dtype or p.dtype)
+                   for k, p in self.params.items()}
+
+    def lr(self) -> float:
+        """The lr the next step uses."""
+        return float(self.schedule(self.count))
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = {k: p.grad for k, p in self.params.items()}
+        norm = None
+        if self.grad_clip:
+            # optax.clip_by_global_norm: g / ||g|| * max_norm where
+            # ||g|| >= max_norm
+            norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                  for g in grads.values()))
+        lr = self.lr()
+        self.count += 1
+        step_scale = 1.0
+        if self.correct_bias:
+            c = float(self.count)
+            step_scale = math.sqrt(1 - self.b2 ** c) / (1 - self.b1 ** c)
+        for k, p in self.params.items():
+            g = grads[k].float()
+            if norm is not None:
+                g = torch.where(norm < self.grad_clip, g,
+                                g / norm * self.grad_clip)
+            m = self.mu[k].float().mul_(self.b1).add_(g * (1 - self.b1))
+            v = self.nu[k].float().mul_(self.b2).add_(
+                torch.square(g).mul_(1 - self.b2))
+            upd = m * step_scale / (torch.sqrt(v) + self.eps)
+            if self.weight_decay and decays(k):
+                upd.add_(p.float() * self.weight_decay)
+            p.add_((upd * -lr).to(p.dtype))
+            self.mu[k].copy_(m)
+            self.nu[k].copy_(v)
+
+    def zero_grad(self) -> None:
+        for p in self.params.values():
+            p.grad = None
+
+
+def build_optimizer(optim_cfg, named_params: Dict[str, torch.nn.Parameter],
+                    train_steps: int, lr: Optional[float] = None,
+                    schedule_wrap=None) -> AdamW:
+    """AdamW + schedule, mirroring build_optimizer (ppo.py:378-419). `lr`
+    overrides the base lr (actor vs critic); `schedule_wrap(sched) -> sched`
+    remaps the step axis — PPO ticks its schedulers once per update SWEEP
+    (ppo.py:612-613) via `lambda s: lambda t: s(t // upd)`."""
+    if optim_cfg.optimizer == "adafactor":
+        raise NotImplementedError(
+            "adafactor is not ported yet (ROADMAP.md, queue A)")
+    base_lr = lr if lr is not None else optim_cfg.learning_rate
+    sched = make_schedule(optim_cfg.scheduler, base_lr, train_steps,
+                          optim_cfg.warmup)
+    if schedule_wrap is not None:
+        sched = schedule_wrap(sched)
+    moment_dtype = getattr(optim_cfg, "moment_dtype", None)
+    return AdamW(named_params, sched, optim_cfg.beta1, optim_cfg.beta2,
+                 optim_cfg.adam_eps, optim_cfg.weight_decay,
+                 optim_cfg.correct_bias,
+                 getattr(torch, moment_dtype) if moment_dtype else None,
+                 optim_cfg.grad_clip)

@@ -1,6 +1,7 @@
-"""lr2ppo_torch models against the JAX package's: Mlp, XiT, FusionTrunk
-and ScoreModel (reg and cls) from the same weights through the bridge, and
-the batched NDCG. Inputs come from numpy seeds; the JAX side runs as its own
+"""lr2ppo_torch models against the JAX package's: Mlp, XiT, FusionTrunk,
+ScoreModel (reg and cls) and SeqScoreModel from the same weights through the
+bridge, eval and training (forward, gradients, hash dropout on shared
+seeds), and the batched NDCG. Inputs come from numpy seeds; the JAX side runs as its own
 tests run it (Pallas in interpret mode on this CPU backend)."""
 
 import dataclasses
@@ -15,11 +16,15 @@ from lr2ppo_tpu.config import ModelConfig
 from lr2ppo_tpu.models import Mlp as JMlp, XiT as JXiT
 from lr2ppo_tpu.models.scorer import FusionTrunk as JTrunk
 from lr2ppo_tpu.models.scorer import ScoreModel as JScore
+from lr2ppo_tpu.models.scorer import SeqScoreModel as JSeq
+from lr2ppo_tpu.ops import pallas_dropout as jpd
 from lr2ppo_tpu.ops import int8 as jint8
 from lr2ppo_tpu.ops.int8 import quantize_tree
 from lr2ppo_tpu.ops.ndcg import ndcg_from_scores as j_ndcg
 from lr2ppo_torch.models import layers as tl
-from lr2ppo_torch.models.scorer import FusionTrunk, ScoreModel
+from lr2ppo_torch.models.scorer import (ActorCritic, FusionTrunk, ScoreModel,
+                                        SeqScoreModel)
+from lr2ppo_torch.ops import hash_dropout as thd
 from lr2ppo_torch.ops import int8 as tint8
 from lr2ppo_torch.ops.int8 import quantize_state_dict
 from lr2ppo_torch.ops.ndcg import ndcg_from_scores
@@ -191,7 +196,127 @@ def test_ndcg_matches_jax_on_masked_ties():
     assert np.all(got[5] == 1.0)
 
 
-def test_training_path_is_not_ported():
-    m = tl.Mlp(D, HID, D)
-    with pytest.raises(NotImplementedError):
-        m(torch.zeros(2, D), deterministic=False)
+def _index(seed=1, k=4):
+    """(B, K) tag positions with repeats, as the rollout's next_state."""
+    rng = np.random.RandomState(seed)
+    return rng.randint(0, T, size=(B, k)).astype(np.int32)
+
+
+def test_seq_score_model_eval_parity_f32():
+    """The critic/reward scorer: trunk on the T tags, features gathered by
+    index, position embeddings, the causal (faithful: no-op) XiT."""
+    text, img = inputs()
+    idx = _index()
+    cfg = model_config()
+    jm = JSeq(cfg)
+    params = jm.init(jax.random.PRNGKey(4), *map(jnp.asarray, (text, img,
+                                                               idx)))
+    ref = np.asarray(jm.apply(params, *map(jnp.asarray, (text, img, idx))))
+    tm = SeqScoreModel(cfg)
+    tm.load_state_dict(bridge(params), strict=True)
+    with torch.no_grad():
+        got = tm(*map(torch.from_numpy, (text, img, idx))).numpy()
+    assert got.shape == ref.shape == (B,)
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(ref).max()))
+
+
+def _seed_list(monkeypatch, n=16):
+    """The same per-site seeds, in call order, for both packages: JAX's
+    seed_from_key (which hash dropout calls once per site, at trace time)
+    and the port's draw_seed are replaced by one fixed list each."""
+    seeds = np.random.RandomState(9).randint(-2**31, 2**31 - 1, size=n)
+    jseeds, tseeds = list(seeds), list(seeds)
+    monkeypatch.setattr(jpd, "seed_from_key",
+                        lambda key: jnp.int32(jseeds.pop(0)))
+    monkeypatch.setattr(thd, "draw_seed", lambda gen: int(tseeds.pop(0)))
+    return jseeds, tseeds
+
+
+def _train_both(kind, cfg):
+    """Training-mode output and parameter gradients of sum(out * w), JAX
+    and port, from the same weights; gradients bridged to torch keys."""
+    text, img = inputs()
+    idx = _index()
+    args = (text, img) if kind == "score" else (text, img, idx)
+    jm = JScore(cfg) if kind == "score" else JSeq(cfg)
+    params = jm.init(jax.random.PRNGKey(6), *map(jnp.asarray, args))
+    w = np.random.RandomState(7).randn(*((B, T) if kind == "score"
+                                         else (B,))).astype(np.float32)
+
+    def loss(p):
+        out = jm.apply(p, *map(jnp.asarray, args), False,
+                       rngs={"dropout": jax.random.PRNGKey(0)})
+        return jnp.sum(out * w), out
+
+    (_, jout), jgrad = jax.value_and_grad(loss, has_aux=True)(params)
+    tm = (ScoreModel if kind == "score" else SeqScoreModel)(cfg)
+    tm.load_state_dict(bridge(params), strict=True)
+    tout = tm(*map(torch.from_numpy, args), deterministic=False,
+              generator=torch.Generator().manual_seed(0))
+    (tout * torch.from_numpy(w)).sum().backward()
+    tgrad = {k: p.grad for k, p in tm.named_parameters()}
+    return (tout.detach().numpy(), np.asarray(jout), tgrad,
+            bridge(jgrad))
+
+
+def _assert_grads_close(tgrad, jgrad, rtol):
+    """Each gradient within rtol of its largest entry. The keys' bias
+    gradient is zero in exact arithmetic (a per-query constant added to
+    every energy leaves the softmax unchanged), so both sides hold only
+    rounding noise there: each must be below 1e-6 of the largest gradient
+    of the model."""
+    assert set(tgrad) == set(jgrad)
+    top = max(float(np.abs(g.numpy()).max()) for g in jgrad.values())
+    for k, ref in jgrad.items():
+        ref = ref.numpy()
+        if k.endswith("keys.bias"):
+            assert float(np.abs(ref).max()) < 1e-6 * top, k
+            assert float(tgrad[k].abs().max()) < 1e-6 * top, k
+            continue
+        scale = float(np.abs(ref).max()) + 1e-12
+        np.testing.assert_allclose(tgrad[k].numpy(), ref, rtol=rtol,
+                                   atol=rtol * scale, err_msg=k)
+
+
+@pytest.mark.parametrize("kind", ["score", "seq"])
+def test_training_forward_and_grad_parity_without_dropout(kind):
+    """deterministic=False with every dropout rate 0: the training forward
+    and every parameter's gradient agree with JAX at float32 (1e-4 of each
+    gradient's largest entry: another summation order)."""
+    tout, jout, tgrad, jgrad = _train_both(kind, model_config())
+    np.testing.assert_allclose(tout, jout, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(jout).max()))
+    _assert_grads_close(tgrad, jgrad, 1e-4)
+
+
+@pytest.mark.parametrize("kind", ["score", "seq"])
+def test_training_parity_with_hash_dropout(kind, monkeypatch):
+    """Hash dropout at the XiT sites (rates 0.1) on the same per-site
+    seeds: the same masks in both packages, so the outputs and gradients
+    agree as without dropout. The actor has 3 sites, the critic 6."""
+    jseeds, tseeds = _seed_list(monkeypatch)
+    cfg = dataclasses.replace(model_config(hash_dropout=True), drop_p=0.1,
+                              forward_drop_p=0.1)
+    tout, jout, tgrad, jgrad = _train_both(kind, cfg)
+    sites = 3 if kind == "score" else 6
+    assert len(jseeds) == len(tseeds) == 16 - sites
+    np.testing.assert_allclose(tout, jout, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(jout).max()))
+    _assert_grads_close(tgrad, jgrad, 1e-4)
+    # dropout is live: another seed list moves the output
+    monkeypatch.setattr(thd, "draw_seed", lambda gen: 5)
+    tm = ScoreModel(cfg)
+    tl.init_weights(tm, torch.Generator().manual_seed(0))
+    a = tm(*map(torch.from_numpy, inputs()), deterministic=False,
+           generator=torch.Generator())
+    b = tm(*map(torch.from_numpy, inputs()), deterministic=True)
+    assert not torch.allclose(a, b)
+
+
+def test_actor_critic_keys_are_the_reference_prefixes():
+    ac = ActorCritic(model_config())
+    keys = set(ac.state_dict())
+    assert "actor.xit.0.0.1.fn.1.0.weight" in keys
+    assert {"critic.pos_emb.weight", "critic.xitt.1.0.weight"} <= keys
+    assert all(k.split(".")[0] in ("actor", "critic") for k in keys)

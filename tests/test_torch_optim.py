@@ -1,0 +1,120 @@
+"""The port's AdamW and schedules against the JAX package's optax chain
+(lr2ppo_tpu/train/optim.py:build_optimizer): an N-step parameter trajectory
+from the same parameters and gradients, for all 8 schedules, float32 and
+bfloat16 moments, with and without the global-norm clip, ticked once per
+2 steps as the PPO trainer ticks them."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from lr2ppo_tpu.config import OptimConfig
+from lr2ppo_tpu.train.optim import build_optimizer as jbuild
+from lr2ppo_torch.config import OptimConfig as TOptimConfig
+from lr2ppo_torch.train import optim as topt
+
+torch.set_num_threads(1)
+
+SCHEDULES = ["linear", "cosine", "constant", "constant_with_warmup",
+             "inverse_sqrt", "polynomial", "cosine_with_restarts",
+             "tri_stage"]
+SHAPES = {"fc.weight": (5, 4), "fc.bias": (5,), "ln.weight": (4,)}
+STEPS, TRAIN_STEPS, LR = 7, 8, 1e-2
+
+
+def _flax(tree):
+    """torch names -> a flax-style tree whose leaf names carry the decay
+    mask the same way ('bias' is exempt; kernel and scale decay)."""
+    return {"fc": {"kernel": tree["fc.weight"], "bias": tree["fc.bias"]},
+            "ln": {"scale": tree["ln.weight"]}}
+
+
+def _inputs():
+    rng = np.random.RandomState(0)
+    params = {k: rng.randn(*s).astype(np.float32) for k, s in SHAPES.items()}
+    grads = []
+    for t in range(STEPS):
+        g = {k: (rng.randn(*s) * 10.0 ** rng.randint(-3, 2)).astype(
+            np.float32) for k, s in SHAPES.items()}
+        g["fc.weight"][0, :2] = [0.0, 1e-7]      # zero and tiny entries
+        grads.append(g)
+    return params, grads
+
+
+@pytest.mark.parametrize("clip", [None, 0.5], ids=["noclip", "clip"])
+@pytest.mark.parametrize("moments", [None, "bfloat16"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_adamw_trajectory_matches_optax(schedule, moments, clip):
+    """Tolerance: float32 moments agree to float32 rounding (1e-6 absolute,
+    a few ulps of parameters of order 1; measured 1.2e-7). bfloat16 moments round to 8 bits of mantissa, and a value
+    the two frameworks compute one float32 ulp apart can round to the
+    neighbouring bfloat16: that moves m or v by 2^-8 relative, and a step
+    by up to ~0.4% of lr; over the trajectory the bound is 0.02 * lr."""
+    params, grads = _inputs()
+    kw = dict(scheduler=schedule, warmup=0.3, grad_clip=clip,
+              moment_dtype=moments, learning_rate=LR)
+    jcfg = dataclasses.replace(OptimConfig(), **kw)
+    tcfg = dataclasses.replace(TOptimConfig(), **kw)
+
+    def wrap(s):
+        return lambda t: s(t // 2)
+
+    tx = jbuild(jcfg, TRAIN_STEPS, schedule_wrap=wrap)
+    jp = jax.tree.map(jnp.asarray, _flax(params))
+    state = tx.init(jp)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+          for k, v in params.items()}
+    opt = topt.build_optimizer(tcfg, tp, TRAIN_STEPS, schedule_wrap=wrap)
+    for g in grads:
+        upd, state = tx.update(jax.tree.map(jnp.asarray, _flax(g)), state, jp)
+        jp = optax.apply_updates(jp, upd)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k])
+        opt.step()
+        opt.zero_grad()
+    assert opt.count == STEPS
+    ref = {"fc.weight": jp["fc"]["kernel"], "fc.bias": jp["fc"]["bias"],
+           "ln.weight": jp["ln"]["scale"]}
+    # the worst case, a sign flip of a near-zero gradient's first
+    # step (+-3.16 lr each way, ~7 lr), does not arise: both sides get
+    # the same gradients; the bounds below hold with room
+    tol = 1e-6 if moments is None else 0.02 * LR
+    for k, p in tp.items():
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(ref[k]),
+                                   rtol=0, atol=tol, err_msg=k)
+    moved = max(float((p.detach() - torch.from_numpy(params[k])).abs().max())
+                for k, p in tp.items())
+    assert moved > LR        # the parameters did move
+
+
+def test_first_step_without_bias_correction():
+    """correct_bias=False: the first step is lr * m/(sqrt(v)+eps) with
+    m = 0.1 g, v = 0.001 g^2, about 3.16 * lr * sign(g), and the decay
+    skips the bias."""
+    p = {"w.weight": torch.nn.Parameter(torch.zeros(3)),
+         "w.bias": torch.nn.Parameter(torch.ones(3))}
+    opt = topt.AdamW(p, lambda t: 0.1, weight_decay=0.5)
+    p["w.weight"].grad = torch.tensor([2.0, -3.0, 0.0])
+    p["w.bias"].grad = torch.tensor([1.0, 1.0, 1.0])
+    opt.step()
+    step = 0.1 * 0.1 / (0.001 ** 0.5)      # lr * 3.16
+    np.testing.assert_allclose(p["w.weight"].detach().numpy(),
+                               [-step, step, 0.0], rtol=1e-4)
+    np.testing.assert_allclose(p["w.bias"].detach().numpy(),
+                               1.0 - step, rtol=1e-4)
+    assert topt.decays("xit.1.0.weight") and topt.decays("pos_emb.weight")
+    assert not topt.decays("head.bias")
+
+
+def test_adafactor_and_unknown_schedules_raise():
+    p = {"w.weight": torch.nn.Parameter(torch.zeros(2))}
+    with pytest.raises(NotImplementedError, match="adafactor"):
+        topt.build_optimizer(dataclasses.replace(TOptimConfig(),
+                                                 optimizer="adafactor"), p, 4)
+    with pytest.raises(ValueError, match="scheduler"):
+        topt.make_schedule("wavy", 1.0, 4, 0.1)
