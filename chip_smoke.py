@@ -31,7 +31,19 @@ Phases, each of which raises on failure (exit code other than 0):
      of one of each;
   8. the TPU-dropout configuration (pallas_dropout on, hash off): two
      update steps at batch 256, with 2 forward and 2 backward launches of
-     the Philox kernel each.
+     the Philox kernel each;
+  9. the tower attention kernel against its plain version at a ragged
+     (3, 5, 77, 64), a long (2, 12, 514, 64), a dh-128 (2, 4, 130, 128), the
+     text (32, 12, 196, 64) and the image (32, 12, 197, 64) shape, float32
+     and bfloat16, with padded keys; at the two tower shapes its time beside
+     the plain version's, F.scaled_dot_product_attention's and the bound;
+ 10. the feature-extraction path at full width: XLM-R base and ViT-B/16
+     (seeded weights saved as reference `.bin` files and loaded back
+     strict, pallas_attention on, float32), a synthetic Unigram vocabulary,
+     8 items of 5-20 tags and 16 frames of 224x224 through the CLI's
+     per-item loop at batch 32; the attention kernel's launches (12 per
+     encode), the features' shapes and values, the same items with the
+     kernel off, and the encode times with it on and off.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -42,6 +54,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -52,12 +65,14 @@ import time
 import numpy as np
 import torch
 
-from lr2ppo_torch.cli import serve
+from lr2ppo_torch.cli import preprocess, serve
 from lr2ppo_torch.config import ModelConfig, parse_config
+from lr2ppo_torch.data.tokenizers import XLMRobertaTokenizer
 from lr2ppo_torch.device import require_cuda
 from lr2ppo_torch.kernels import build
 from lr2ppo_torch.models.layers import init_weights
 from lr2ppo_torch.models.scorer import ActorCritic, ScoreModel, SeqScoreModel
+from lr2ppo_torch.ops.attention import fused_attention, reference_attention
 from lr2ppo_torch.ops.dropout import philox_dropout, philox_dropout_reference
 from lr2ppo_torch.ops.hash_dropout import hash_dropout, hash_dropout_reference
 from lr2ppo_torch.ops.int8 import quantize_weight
@@ -66,6 +81,12 @@ from lr2ppo_torch.train.checkpoints import load_any
 from lr2ppo_torch.train.common import init_state
 from lr2ppo_torch.train.evaluate import scores_and_ndcg
 from lr2ppo_torch.train.optim import build_optimizer
+from lr2ppo_torch.towers import (TowerConfig, TowerModel,
+                                 load_tower_checkpoint)
+from lr2ppo_torch.towers.extract import (ImageFeatureExtractor,
+                                         TextFeatureExtractor)
+from lr2ppo_torch.towers.model import init_weights as init_tower_weights
+from lr2ppo_torch.towers.torch_import import encoder_state
 from lr2ppo_torch.train.ppo import (PPOTrainer, frozen_copy,
                                     make_rollout_step, make_update_step)
 
@@ -80,6 +101,7 @@ TRAIN_BATCHES = 4                     # rollouts of the training run
 # NVIDIA's H100 SXM data sheet (dense): the rates a bound is taken against
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
+BF16_TENSOR_OPS_PER_S = 989e12
 # the data sheet's only rate outside the tensor cores (float32, 67 T/s);
 # integer operations are counted against it
 VECTOR_OPS_PER_S = 67e12
@@ -122,13 +144,13 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def ffn_inputs(rows: int, seed: int, dev):
+def ffn_inputs(rows: int, seed: int, dev, d: int = D, h: int = H):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((rows, D), dtype=np.float32)
-    w1 = rng.standard_normal((H, D), dtype=np.float32) * 0.05
-    b1 = rng.standard_normal(H, dtype=np.float32) * 0.01
-    w2 = rng.standard_normal((D, H), dtype=np.float32) * 0.05
-    b2 = rng.standard_normal(D, dtype=np.float32) * 0.01
+    x = rng.standard_normal((rows, d), dtype=np.float32)
+    w1 = rng.standard_normal((h, d), dtype=np.float32) * 0.05
+    b1 = rng.standard_normal(h, dtype=np.float32) * 0.01
+    w2 = rng.standard_normal((d, h), dtype=np.float32) * 0.05
+    b2 = rng.standard_normal(d, dtype=np.float32) * 0.01
     x, w1, b1, w2, b2 = (torch.from_numpy(a).to(dev)
                          for a in (x, w1, b1, w2, b2))
     q1, s1 = quantize_weight(w1)
@@ -142,14 +164,15 @@ def ffn_inputs(rows: int, seed: int, dev):
 
 
 def check_kernel(rows: int, out_dtype, seed: int, dev, time_it: bool,
-                 card_line: str) -> dict:
-    (x, *w), step = ffn_inputs(rows, seed, dev)
+                 card_line: str, d: int = D, h: int = H) -> dict:
+    (x, *w), step = ffn_inputs(rows, seed, dev, d, h)
     x = x.to(out_dtype)
     got = int8_mlp(x, *w, out_dtype=out_dtype)
     torch.cuda.synchronize()
     ref = int8_mlp_reference(x, *w, out_dtype=out_dtype)
     diff = (got.float() - ref.float()).abs()
-    res = {"rows": rows, "dtype": str(out_dtype).replace("torch.", ""),
+    res = {"rows": rows, "d": d, "h": h,
+           "dtype": str(out_dtype).replace("torch.", ""),
            "bit_equal": float((got == ref).float().mean()),
            "max_abs_err": float(diff.max()),
            "mean_abs_err": float(diff.mean()),
@@ -164,11 +187,11 @@ def check_kernel(rows: int, out_dtype, seed: int, dev, time_it: bool,
         res["ms"] = cuda_ms(lambda: int8_mlp(x, *w, out_dtype=out_dtype))
         res["plain_ms"] = cuda_ms(
             lambda: int8_mlp_reference(x, *w, out_dtype=out_dtype))
-        ops = 2 * 2 * rows * D * H
+        ops = 2 * 2 * rows * d * h
         res["kernel_tops"] = ops / (res["ms"] * 1e-3) / 1e12
         esize = torch.tensor([], dtype=out_dtype).element_size()
-        weights = 2 * D * H + 4 * 2 * (D + H)
-        res.update(bound(2 * rows * D * esize + weights, ops,
+        weights = 2 * d * h + 4 * 2 * (d + h)
+        res.update(bound(2 * rows * d * esize + weights, ops,
                          INT8_TENSOR_OPS_PER_S))
         res["card"] = card_line
     emit(phase="kernel_vs_plain", **res)
@@ -697,6 +720,309 @@ def k3_path(args, dev, card_line: str) -> int:
     return launches
 
 
+# (B, H, S, dh) of phase 9
+ATTN_SHAPES = {
+    "ragged": (3, 5, 77, 64),
+    "long": (2, 12, 514, 64),             # XLM-R's max_seq_length
+    "dh128": (2, 4, 130, 128),
+    "text": (32, 12, 196, 64),            # one XLM-R encode at batch 32
+    "image": (32, 12, 197, 64),           # one ViT-B/16 encode at batch 32
+}
+# kernel against plain version, |got - ref| <= atol + rtol * |ref|. The two
+# sum in other orders and nowhere else differ. float32: the JAX package's
+# kernel-vs-reference bound (tests/test_pallas_attention.py). bfloat16: a
+# probability may round to the neighbouring bfloat16 (2^-8 of it, times
+# |v| < 5) and the output to its neighbouring step (2^-8 of |ref|).
+ATTN_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2e-2, 2.0 ** -7)}
+
+
+def key_bias(name: str, b: int, s: int, rng) -> tuple:
+    """The (B, S) 0 / -10000 bias and the real keys per row: every key of
+    an image is real; a text row has 8-40 real tokens, as tags have; the
+    other shapes 1..S, one row full."""
+    if name == "image":
+        real = np.full(b, s)
+    elif name == "text":
+        real = rng.integers(8, 41, size=b)
+    else:
+        real = rng.integers(1, s + 1, size=b)
+        real[0] = s
+    bias = np.where(np.arange(s)[None] < real[:, None], 0.0, -10000.0)
+    return bias.astype(np.float32), real
+
+
+def check_attention(name: str, dtype, seed: int, dev, card_line: str) -> dict:
+    """Phase 9, one shape and dtype: the kernel against its plain version;
+    at the tower shapes, the times and the bound."""
+    b, h, s, dh = ATTN_SHAPES[name]
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, h, s, dh, device=dev, generator=gen).to(dtype)
+               for _ in range(3))
+    bias_np, real = key_bias(name, b, s, rng)
+    bias = torch.from_numpy(bias_np).to(dev)
+    scale = 1.0 / math.sqrt(dh)
+    atol, rtol = ATTN_TOL[dtype]
+    with torch.inference_mode():
+        got = fused_attention(q, k, v, bias, scale)
+        torch.cuda.synchronize()
+        ref = reference_attention(q, k, v, bias, scale)
+        diff = (got.float() - ref.float()).abs()
+        res = {"shape": name, "bhsd": [b, h, s, dh],
+               "dtype": str(dtype).replace("torch.", ""),
+               "real_keys": [int(real.min()), int(real.max())],
+               "max_abs_err": float(diff.max()),
+               "bit_equal": float((got == ref).float().mean()),
+               "atol": atol, "rtol": rtol,
+               "within_tol": bool((diff <= atol + rtol * ref.float().abs())
+                                  .all())}
+        if not (res["within_tol"] and got.shape == ref.shape
+                and got.dtype == dtype):
+            emit(phase="attention_vs_plain", failed=True, **res)
+            raise AssertionError(f"fused_attention disagrees with its plain "
+                                 f"version: {res}")
+        if name in ("text", "image"):
+            res["ms"] = cuda_ms(lambda: fused_attention(q, k, v, bias, scale))
+            res["plain_ms"] = cuda_ms(
+                lambda: reference_attention(q, k, v, bias, scale))
+            # the library's fused attention on the same inputs; the port
+            # never calls it
+            mask = bias[:, None, None, :].to(dtype)
+            res["library_ms"] = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale))
+            # q, k, v read and out written once, the bias read once; two
+            # products of 2 * S * S * dh operations per (b, h)
+            rate = (VECTOR_OPS_PER_S if dtype == torch.float32
+                    else BF16_TENSOR_OPS_PER_S)
+            res.update(bound(4 * b * h * s * dh * q.element_size()
+                             + 4 * b * s, 4 * b * h * s * s * dh, rate))
+            res["card"] = card_line
+    emit(phase="attention_vs_plain", **res)
+    return res
+
+
+def attention_kernels(seed: int, dev, card_line: str) -> dict:
+    """Phase 9: every shape in float32 and bfloat16; returns the runs by
+    (shape, dtype)."""
+    return {(name, dt): check_attention(name, dt, seed + i, dev, card_line)
+            for i, name in enumerate(ATTN_SHAPES)
+            for dt in (torch.float32, torch.bfloat16)}
+
+
+# TencentPretrain's models/xlm-roberta/base_config.json as SURVEY.md section
+# 2.6 gives it: 12 layers of 768, 12 heads, FFN 3072, word + pos + seg
+# embeddings, post-LN, fully visible, max_seq_length 514, vocab 250,002.
+XLMR_BASE = {
+    "emb_size": 768, "hidden_size": 768, "feedforward_size": 3072,
+    "heads_num": 12, "layers_num": 12, "max_seq_length": 514,
+    "vocab_size": 250002, "embedding": ["word", "pos", "seg"],
+    "encoder": "transformer", "mask": "fully_visible",
+    "layernorm_positioning": "post", "target": ["mlm"],
+    # assumed, not in the SURVEY: the activation, and the dropout, which
+    # encode does not apply
+    "hidden_act": "gelu", "dropout": 0.1,
+}
+# models/vit/base-16-224_config.json as SURVEY.md section 2.6 gives it:
+# 12 layers of 768, 12 heads, FFN 3072, patch + pos embeddings, pre-LN,
+# 224 x 224 in patches of 16 (197 tokens).
+VIT_B16 = {
+    "emb_size": 768, "hidden_size": 768, "feedforward_size": 3072,
+    "heads_num": 12, "layers_num": 12, "embedding": ["patch", "pos"],
+    "remove_embedding_layernorm": True, "encoder": "transformer",
+    "mask": "fully_visible", "layernorm_positioning": "pre",
+    "image_height": 224, "image_width": 224, "patch_size": 16,
+    "channels_num": 3,
+    # assumed, not in the SURVEY: 197 position rows, the target, the
+    # activation, the dropout (not applied by encode)
+    "max_seq_length": 197, "target": ["cls"], "hidden_act": "gelu",
+    "dropout": 0.1,
+}
+EXTRACT_ITEMS, EXTRACT_FRAMES, EXTRACT_BATCH = 8, 16, 32
+EXTRACT_TAGS = (5, 20)
+TEXT_SEQ = 196
+# K4 on against K4 off on the same items, float32: only the attention's
+# order of summation differs, and 12 layers carry those ~1e-7 relative
+# differences into features of magnitude ~1-5
+EXTRACT_TOL = 1e-3
+
+
+def synthetic_vocab(path: str, rng) -> list:
+    """A Unigram vocabulary (token<TAB>score) with XLM-R's specials at ids
+    0-3, the letters, 1,500 whole words and 400 two- and three-letter
+    pieces; returns 2,000 words, a quarter of them not whole pieces."""
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    words = sorted({"".join(rng.choice(letters, n))
+                    for n in rng.integers(3, 9, size=2400)})[:2000]
+    pieces = ["<s>", "<pad>", "</s>", "<unk>"] + letters
+    pieces += ["\u2581" + c for c in letters]
+    pieces += ["\u2581" + w for w in words[:1500]]
+    pieces += ["".join(rng.choice(letters, n)) for n in (2, 3)
+               for _ in range(200)]
+    seen, lines = set(), []
+    for p in pieces:
+        if p not in seen:
+            seen.add(p)
+            lines.append(f"{p}\t{-rng.uniform(1.0, 12.0):.4f}")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return words
+
+
+def tower_checkpoint(raw: dict, path: str, seed: int, dev) -> int:
+    """Seeded weights of one tower, saved as a reference-keyed `.bin`;
+    returns the parameter count."""
+    model = TowerModel(TowerConfig.from_dict(raw), device=dev)
+    init_tower_weights(model, torch.Generator(device=dev).manual_seed(seed))
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+    return sum(p.numel() for p in model.parameters())
+
+
+def extract_path(args, dev, card_line: str) -> int:
+    """Phase 10: the CLI's per-item loop (preprocess.extract_items) over
+    synthetic items with both towers at full width, K4 on; then the same
+    items with K4 off, the encode times and a trace of one encode each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(args.seed + 9)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, raw in (("text", XLMR_BASE), ("vit", VIT_B16)):
+            paths[name] = os.path.join(tmp, f"{name}_config.json")
+            with open(paths[name], "w") as f:
+                json.dump({**raw, "pallas_attention": True}, f)
+        n_params = {name: tower_checkpoint(raw, os.path.join(tmp, f"{name}"
+                                                             ".bin"),
+                                           args.seed + 10 + i, dev)
+                    for i, (name, raw) in enumerate((("text", XLMR_BASE),
+                                                     ("vit", VIT_B16)))}
+        words = synthetic_vocab(os.path.join(tmp, "vocab.tsv"), rng)
+        tok = XLMRobertaTokenizer(vocab_path=os.path.join(tmp, "vocab.tsv"))
+        text_cfg = TowerConfig.from_json(paths["text"])
+        vit_cfg = TowerConfig.from_json(paths["vit"])
+        states = {name: encoder_state(load_tower_checkpoint(
+            os.path.join(tmp, f"{name}.bin"))) for name in ("text", "vit")}
+    text_x = TextFeatureExtractor(text_cfg, states["text"], tok, TEXT_SEQ,
+                                  device=dev)
+    img_x = ImageFeatureExtractor(vit_cfg, states["vit"], device=dev)
+
+    items, frames = [], {}
+    for i in range(EXTRACT_ITEMS):
+        n_tags = int(rng.integers(EXTRACT_TAGS[0], EXTRACT_TAGS[1] + 1))
+        tags = [" ".join(rng.choice(words, int(rng.integers(1, 7))))
+                for _ in range(n_tags)]
+        items.append({"id": f"item{i}", "tags": [
+            {"tag": t, "target": int(rng.integers(0, 3))} for t in tags]})
+        frames[f"item{i}"] = rng.random(
+            (EXTRACT_FRAMES, 3, vit_cfg.image_height, vit_cfg.image_width),
+            dtype=np.float32)
+    tokens = [int((text_x.prepare([t["tag"] for t in it["tags"]])[1] > 0)
+                  .sum(1).max()) for it in items]
+
+    def run(tx, ix):
+        feats = {}
+        res = preprocess.extract_items(
+            items, lambda item: frames[item["id"]],
+            lambda iid, t, im: feats.__setitem__(iid, (t, im)), tx, ix,
+            EXTRACT_BATCH, log=lambda line: None)
+        return feats, res
+
+    # warm-up (cuBLAS handles, the allocator), then the counted run
+    text_x(["warm up"], EXTRACT_BATCH)
+    img_x(frames["item0"][:1], EXTRACT_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_attention.launches = 0
+    t0 = time.perf_counter()
+    feats, res = run(text_x, img_x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fused_attention.launches
+
+    text_calls = sum(math.ceil(len(it["tags"]) / EXTRACT_BATCH)
+                     for it in items)
+    image_calls = EXTRACT_ITEMS * math.ceil(EXTRACT_FRAMES / EXTRACT_BATCH)
+    # one launch per layer per encode
+    want = (text_cfg.layers_num * text_calls
+            + vit_cfg.layers_num * image_calls)
+    if res["items"] != EXTRACT_ITEMS or launches != want:
+        raise AssertionError(f"{res['items']} items, fused_attention "
+                             f"launched {launches} times, expected {want} "
+                             f"({text_calls} text and {image_calls} image "
+                             "encodes)")
+    for it in items:
+        t, im = feats[it["id"]]
+        if not (t.shape == (len(it["tags"]), TEXT_SEQ, text_cfg.hidden_size)
+                and im.shape == (EXTRACT_FRAMES, vit_cfg.hidden_size)
+                and np.isfinite(t).all() and np.isfinite(im).all()):
+            raise AssertionError(f"{it['id']}: text {t.shape}, img "
+                                 f"{im.shape}, or not finite")
+
+    # the same items with the kernel off: the plain attention on the card
+    text_off = TextFeatureExtractor(
+        dataclasses.replace(text_cfg, pallas_attention=False),
+        states["text"], tok, TEXT_SEQ, device=dev)
+    img_off = ImageFeatureExtractor(
+        dataclasses.replace(vit_cfg, pallas_attention=False), states["vit"],
+        device=dev)
+    fused_attention.launches = 0
+    feats_off, _ = run(text_off, img_off)
+    if fused_attention.launches != 0:
+        raise AssertionError("pallas_attention off still launched the "
+                             "kernel")
+    err = {kind: max(float(np.abs(feats[k][j] - feats_off[k][j]).max())
+                     for k in feats) for j, kind in enumerate(("text",
+                                                               "img"))}
+    spread = {kind: max(float(np.abs(feats_off[k][j]).max()) for k in feats)
+              for j, kind in enumerate(("text", "img"))}
+    if not max(err.values()) <= EXTRACT_TOL:
+        raise AssertionError(f"K4 on vs off: max abs diff {err} above "
+                             f"{EXTRACT_TOL}")
+
+    # one encode of each tower on device-resident inputs, K4 on and off
+    src, seg = text_x.prepare([t["tag"] for t in items[0]["tags"]]
+                              [:EXTRACT_BATCH])
+    src = np.pad(src, ((0, EXTRACT_BATCH - len(src)), (0, 0)),
+                 constant_values=text_x.pad_id)
+    seg = np.pad(seg, ((0, EXTRACT_BATCH - len(seg)), (0, 0)))
+    src_d, seg_d = (torch.from_numpy(a).to(dev) for a in (src, seg))
+    pix = torch.from_numpy(np.concatenate(list(frames.values()))
+                           [:EXTRACT_BATCH]).to(dev)
+    pseg = torch.ones((EXTRACT_BATCH, img_x.seq), dtype=torch.int64,
+                      device=dev)
+    encodes = {"text": lambda m: m.encode(src_d, seg_d),
+               "image": lambda m: m.encode(pix, pseg)}
+    models = {"text": (text_x.model, text_off.model),
+              "image": (img_x.model, img_off.model)}
+    times, traces = {}, {}
+    with torch.inference_mode():
+        for kind, fn in encodes.items():
+            on, off = models[kind]
+            times[f"{kind}_encode_ms_k4_on"] = cuda_ms(lambda: fn(on),
+                                                       iters=5, warmup=1)
+            times[f"{kind}_encode_ms_k4_off"] = cuda_ms(lambda: fn(off),
+                                                        iters=5, warmup=1)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn(on)
+                torch.cuda.synchronize()
+            traces[kind] = trace_summary(prof)
+    emit(phase="extract", params=n_params, items=res["items"],
+         tags=sum(len(it["tags"]) for it in items),
+         max_real_tokens_per_item=tokens, frames_per_item=EXTRACT_FRAMES,
+         text_encodes=text_calls, image_encodes=image_calls,
+         kernel_launches=launches, items_per_s=res["items"] / wall,
+         item_ms=[1e3 * x for x in res["item_seconds"]],
+         k4_on_vs_off_max_abs_err=err, feature_max_abs=spread,
+         tolerance=EXTRACT_TOL, **times,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         card=card_line)
+    for kind, trace in traces.items():
+        emit(phase="extract_breakdown", traced=f"one {kind} encode at "
+             f"batch {EXTRACT_BATCH}, K4 on", card=card_line, **trace)
+    return launches
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -722,6 +1048,17 @@ def main(argv=None) -> None:
 
     results = [check_kernel(1000, dt, args.seed, dev, False, card_line)
                for dt in (torch.float32, torch.bfloat16)]
+    # D 512, H 4096 in float32: the hidden block does not fit in shared
+    # memory and goes through the kernel's global scratch
+    wide = [check_kernel(1000, torch.float32, args.seed, dev, False,
+                         card_line, d=512, h=4096),
+            check_kernel(ROLLOUT_ROWS, torch.float32, args.seed, dev, True,
+                         card_line, d=512, h=4096)]
+    if not all(r["bit_equal"] == 1.0 for r in wide):
+        raise AssertionError(f"int8_mlp at D 512, H 4096 float32 is not "
+                             f"bit-equal to its plain version: {wide}")
+    results += wide
+    torch.cuda.empty_cache()
     serve_shape = {dt: check_kernel(SERVE_ROWS, dt, args.seed, dev, True,
                                     card_line)
                    for dt in (torch.float32, torch.bfloat16)}
@@ -735,6 +1072,9 @@ def main(argv=None) -> None:
     train_launches = train_path(args, dev, card_line)
     torch.cuda.empty_cache()
     k3_launches = k3_path(args, dev, card_line)
+    torch.cuda.empty_cache()
+    attn = attention_kernels(args.seed, dev, card_line)
+    extract_launches = extract_path(args, dev, card_line)
 
     main_k1 = serve_shape[torch.bfloat16]       # the serving path's dtype
     kernels = [{
@@ -756,6 +1096,16 @@ def main(argv=None) -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    main_k4 = attn[("text", torch.float32)]     # the extraction path's dtype
+    kernels.append({
+        "name": "fused_attention", "route": "cuda",
+        "source": "lr2ppo_torch/kernels/csrc/fused_attention.cu",
+        "replaces": "lr2ppo_tpu/ops/pallas_attention.py:50",
+        "launches": extract_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in attn.values()),
+        "ms": main_k4["ms"], "plain_ms": main_k4["plain_ms"],
+        "bound_ms": main_k4["bound_ms"], "bound_by": main_k4["bound_by"],
+        "library_ms": main_k4["library_ms"]})
     print(card_line, flush=True)
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",

@@ -36,10 +36,17 @@ _vp, _i32, _i64, _u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _ELEMENTWISE = ([_vp, _vp, _i64, _u32, _u32, ctypes.c_float, _i32, _vp], _i32)
 # (argtypes, restype) of each library's C entry
 ENTRIES = {
-    "int8_mlp": {"lr2ppo_int8_mlp": ([_vp] * 8 + [_i64, _i32, _i32, _i32, _vp],
-                                     _i32)},
+    "int8_mlp": {
+        "lr2ppo_int8_mlp": ([_vp] * 8 + [_i64, _i32, _i32, _i32, _vp, _vp],
+                            _i32),
+        "lr2ppo_int8_mlp_scratch_bytes": ([_i64, _i32, _i32, _i32], _i64)},
     "hash_dropout": {"lr2ppo_hash_dropout": _ELEMENTWISE},
     "philox_dropout": {"lr2ppo_philox_dropout": _ELEMENTWISE},
+    "fused_attention": {
+        "lr2ppo_fused_attention": (
+            [_vp] * 5 + [_i32] * 4 + [_i64] * 9 + [ctypes.c_float, _i32, _vp],
+            _i32),
+        "lr2ppo_fused_attention_rows": ([_i32, _i32, _i32], _i32)},
 }
 
 _libs: dict = {}

@@ -23,7 +23,12 @@
 //     the hidden row block rounded to out_dtype in shared memory and keeps
 //     each row's amax;
 //   * the hidden block is quantized to int8 in place, and fc2 runs over
-//     K = H the same way, writing out_dtype.
+//     K = H the same way, writing out_dtype;
+//   * where the hidden block does not fit in a block's 227 KB of shared
+//     memory (float32 out above H ~3,300, e.g. D 512, H 4096), it lives in
+//     a global scratch instead, one slice per resident block, and the
+//     blocks walk the row blocks in a grid-stride loop. Same arithmetic,
+//     same result; every shape `supported` passes launches.
 // What this leaves on the table: with BM = 16 every block re-reads both
 // weights (4.5 MB) from L2, 12,544 times per serve-shape call, so L2
 // bandwidth rather than the tensor cores sets the pace; mma.sync issues from
@@ -154,13 +159,23 @@ __device__ __forceinline__ void gemm_group(int (&acc)[NT][4], const int8_t* a_lo
   }
 }
 
-template <typename T>
+// Bytes of one row block's hidden buffer: BM rows of out_dtype values, plus
+// one spare int8 row for the in-place quantization (step 3).
+__host__ __device__ inline size_t hidden_bytes(int h, int elem) {
+  return (size_t)BM * (h + PAD / elem) * elem + (h + PAD);
+}
+
+// kGlobal false: the hidden block stays in shared memory, one block per BM
+// rows (the loop below runs once). kGlobal true: each resident block keeps
+// its hidden buffer in its own slice of `scratch`, which the wrapper
+// allocates, and walks the row blocks in a grid-stride loop.
+template <typename T, bool kGlobal>
 __global__ void __launch_bounds__(THREADS)
     int8_mlp_kernel(const T* __restrict__ x, const int8_t* __restrict__ w1,
                     const float* __restrict__ s1, const float* __restrict__ b1,
                     const int8_t* __restrict__ w2, const float* __restrict__ s2,
                     const float* __restrict__ b2, T* __restrict__ y, long long rows, int d,
-                    int h) {
+                    int h, unsigned char* __restrict__ scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float xs[BM], hs[BM], red[WARPS][BM];
 
@@ -168,130 +183,185 @@ __global__ void __launch_bounds__(THREADS)
   const int sh = h + PAD / (int)sizeof(T);             // elements per hidden row
   const int sq = h + PAD;                              // bytes per int8 hidden row
   int8_t* xq = reinterpret_cast<int8_t*>(smem);
-  T* hbuf = reinterpret_cast<T*>(smem + BM * sx);
+  T* hbuf;
+  if constexpr (kGlobal)
+    hbuf = reinterpret_cast<T*>(scratch + blockIdx.x * hidden_bytes(h, (int)sizeof(T)));
+  else
+    hbuf = reinterpret_cast<T*>(smem + BM * sx);
   // int8 hidden rows, in place: row r sits at the end of the hidden buffer
   // (plus one spare int8 row), inside the storage of hidden rows > r only
   int8_t* hq = reinterpret_cast<int8_t*>(hbuf) + BM * (sh * (int)sizeof(T) - sq) + sq;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const long long row0 = (long long)blockIdx.x * BM;
-
-  // 1. quantize this block's x rows; rows past the end quantize to 0
-  for (int r = warp; r < BM; r += WARPS) {
-    const long long gr = row0 + r;
-    const bool live = gr < rows;
-    const T* xr = x + (live ? gr : 0) * d;
-    float amax = 0.0f;
-    if (live)
-      for (int c = lane; c < d; c += 32) amax = fmaxf(amax, fabsf(to_f32(xr[c])));
-    const float sc = row_scale(warp_max(amax));
-    if (lane == 0) xs[r] = sc;
-    for (int c = lane; c < d; c += 32) xq[r * sx + c] = live ? (int8_t)quant(to_f32(xr[c]), sc) : 0;
-  }
-  __syncthreads();
-
-  // 2. fc1 + epilogue into the hidden buffer, keeping per-row amax
-  float amax_lo = 0.0f, amax_hi = 0.0f;   // rows g and g + 8
-  for (int gi = warp; gi < h / 32; gi += WARPS) {
-    const int n0 = gi * 32;
-    int acc[NT][4] = {};
-    const int8_t* b[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) b[j] = w1 + (size_t)(n0 + j * 8 + g) * d + t * 16;
-    gemm_group(acc, xq + g * sx + t * 16, xq + (g + 8) * sx + t * 16, b, d);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = n0 + j * 8 + t * 2;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = (i < 2) ? g : g + 8;
-        const int cc = c + (i & 1);
-        const T v = from_f32<T>(gelu(rescale(acc[j][i], xs[r], s1[cc], b1[cc])));
-        hbuf[r * sh + cc] = v;
-        const float a = fabsf(to_f32(v));
-        if (i < 2) amax_lo = fmaxf(amax_lo, a); else amax_hi = fmaxf(amax_hi, a);
-      }
+  for (long long row0 = (long long)blockIdx.x * BM;; row0 += (long long)gridDim.x * BM) {
+    if constexpr (kGlobal) {
+      if (row0 >= rows) break;
     }
-  }
-  // the four threads of a group hold the same rows
-  for (int o = 1; o < 4; o <<= 1) {
-    amax_lo = fmaxf(amax_lo, __shfl_xor_sync(0xffffffffu, amax_lo, o));
-    amax_hi = fmaxf(amax_hi, __shfl_xor_sync(0xffffffffu, amax_hi, o));
-  }
-  if (t == 0) {
-    red[warp][g] = amax_lo;
-    red[warp][g + 8] = amax_hi;
-  }
-  __syncthreads();
-  if (threadIdx.x < BM) {
-    float m = 0.0f;
-    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, red[w][threadIdx.x]);
-    hs[threadIdx.x] = row_scale(m);
-  }
-  __syncthreads();
 
-  // 3. quantize the hidden rows in place, last row first: int8 row r only
-  // overwrites hidden rows > r, which earlier passes have consumed
-  for (int r = BM - 1; r >= 0; --r) {
-    const float sc = hs[r];
-    const T* src = hbuf + r * sh;
-    int8_t* dst = hq + r * sq;
-    for (int c = threadIdx.x * 4; c < h; c += THREADS * 4) {
-      char4 q;
-      q.x = (signed char)quant(to_f32(src[c]), sc);
-      q.y = (signed char)quant(to_f32(src[c + 1]), sc);
-      q.z = (signed char)quant(to_f32(src[c + 2]), sc);
-      q.w = (signed char)quant(to_f32(src[c + 3]), sc);
-      *reinterpret_cast<char4*>(dst + c) = q;
+    // 1. quantize this block's x rows; rows past the end quantize to 0
+    for (int r = warp; r < BM; r += WARPS) {
+      const long long gr = row0 + r;
+      const bool live = gr < rows;
+      const T* xr = x + (live ? gr : 0) * d;
+      float amax = 0.0f;
+      if (live)
+        for (int c = lane; c < d; c += 32) amax = fmaxf(amax, fabsf(to_f32(xr[c])));
+      const float sc = row_scale(warp_max(amax));
+      if (lane == 0) xs[r] = sc;
+      for (int c = lane; c < d; c += 32)
+        xq[r * sx + c] = live ? (int8_t)quant(to_f32(xr[c]), sc) : 0;
     }
     __syncthreads();
-  }
 
-  // 4. fc2 + epilogue straight to y
-  for (int gi = warp; gi < d / 32; gi += WARPS) {
-    const int n0 = gi * 32;
-    int acc[NT][4] = {};
-    const int8_t* b[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) b[j] = w2 + (size_t)(n0 + j * 8 + g) * h + t * 16;
-    gemm_group(acc, hq + g * sq + t * 16, hq + (g + 8) * sq + t * 16, b, h);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = n0 + j * 8 + t * 2;
-      const float cs0 = s2[c], cs1 = s2[c + 1], bb0 = b2[c], bb1 = b2[c + 1];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = half ? g + 8 : g;
-        if (row0 + r < rows)
-          store2<T>(y + (row0 + r) * d + c, rescale(acc[j][2 * half], hs[r], cs0, bb0),
-                    rescale(acc[j][2 * half + 1], hs[r], cs1, bb1));
+    // 2. fc1 + epilogue into the hidden buffer, keeping per-row amax
+    float amax_lo = 0.0f, amax_hi = 0.0f;   // rows g and g + 8
+    for (int gi = warp; gi < h / 32; gi += WARPS) {
+      const int n0 = gi * 32;
+      int acc[NT][4] = {};
+      const int8_t* b[NT];
+  #pragma unroll
+      for (int j = 0; j < NT; ++j) b[j] = w1 + (size_t)(n0 + j * 8 + g) * d + t * 16;
+      gemm_group(acc, xq + g * sx + t * 16, xq + (g + 8) * sx + t * 16, b, d);
+  #pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = n0 + j * 8 + t * 2;
+  #pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = (i < 2) ? g : g + 8;
+          const int cc = c + (i & 1);
+          const T v = from_f32<T>(gelu(rescale(acc[j][i], xs[r], s1[cc], b1[cc])));
+          hbuf[r * sh + cc] = v;
+          const float a = fabsf(to_f32(v));
+          if (i < 2) amax_lo = fmaxf(amax_lo, a); else amax_hi = fmaxf(amax_hi, a);
+        }
       }
     }
+    // the four threads of a group hold the same rows
+    for (int o = 1; o < 4; o <<= 1) {
+      amax_lo = fmaxf(amax_lo, __shfl_xor_sync(0xffffffffu, amax_lo, o));
+      amax_hi = fmaxf(amax_hi, __shfl_xor_sync(0xffffffffu, amax_hi, o));
+    }
+    if (t == 0) {
+      red[warp][g] = amax_lo;
+      red[warp][g + 8] = amax_hi;
+    }
+    __syncthreads();
+    if (threadIdx.x < BM) {
+      float m = 0.0f;
+      for (int w = 0; w < WARPS; ++w) m = fmaxf(m, red[w][threadIdx.x]);
+      hs[threadIdx.x] = row_scale(m);
+    }
+    __syncthreads();
+
+    // 3. quantize the hidden rows in place, last row first: int8 row r only
+    // overwrites hidden rows > r, which earlier passes have consumed
+    for (int r = BM - 1; r >= 0; --r) {
+      const float sc = hs[r];
+      const T* src = hbuf + r * sh;
+      int8_t* dst = hq + r * sq;
+      for (int c = threadIdx.x * 4; c < h; c += THREADS * 4) {
+        char4 q;
+        q.x = (signed char)quant(to_f32(src[c]), sc);
+        q.y = (signed char)quant(to_f32(src[c + 1]), sc);
+        q.z = (signed char)quant(to_f32(src[c + 2]), sc);
+        q.w = (signed char)quant(to_f32(src[c + 3]), sc);
+        *reinterpret_cast<char4*>(dst + c) = q;
+      }
+      __syncthreads();
+    }
+
+    // 4. fc2 + epilogue straight to y
+    for (int gi = warp; gi < d / 32; gi += WARPS) {
+      const int n0 = gi * 32;
+      int acc[NT][4] = {};
+      const int8_t* b[NT];
+  #pragma unroll
+      for (int j = 0; j < NT; ++j) b[j] = w2 + (size_t)(n0 + j * 8 + g) * h + t * 16;
+      gemm_group(acc, hq + g * sq + t * 16, hq + (g + 8) * sq + t * 16, b, h);
+  #pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = n0 + j * 8 + t * 2;
+        const float cs0 = s2[c], cs1 = s2[c + 1], bb0 = b2[c], bb1 = b2[c + 1];
+  #pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = half ? g + 8 : g;
+          if (row0 + r < rows)
+            store2<T>(y + (row0 + r) * d + c, rescale(acc[j][2 * half], hs[r], cs0, bb0),
+                      rescale(acc[j][2 * half + 1], hs[r], cs1, bb1));
+        }
+      }
+    }
+    if constexpr (!kGlobal) break;
+    __syncthreads();  // the next row block rewrites xq, xs, hs and hbuf
   }
 }
 
+// Static shared memory of both kernels: xs, hs, red.
+constexpr size_t kStaticSmem = sizeof(float) * (2 * BM + WARPS * BM);
+
 size_t smem_bytes(int d, int h, int elem) {
-  return (size_t)BM * (d + PAD) + (size_t)BM * (h + PAD / elem) * elem + (h + PAD);
+  return (size_t)BM * (d + PAD) + hidden_bytes(h, elem);
+}
+
+int max_smem_optin() {
+  int dev = 0, bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes;
+}
+
+// Does the hidden block of this shape fit in one block's shared memory?
+bool hidden_in_smem(int d, int h, int elem) {
+  return smem_bytes(d, h, elem) + kStaticSmem <= (size_t)max_smem_optin();
+}
+
+// Blocks of the global-hidden kernel: as many as can be resident at once.
+template <typename T>
+long long global_grid(long long rows, int d) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, int8_mlp_kernel<T, true>,
+                                                THREADS, (size_t)BM * (d + PAD));
+  const long long blocks = (rows + BM - 1) / BM;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  return blocks < resident ? blocks : resident;
+}
+
+template <typename T>
+long long scratch_bytes(long long rows, int d, int h) {
+  if (hidden_in_smem(d, h, (int)sizeof(T))) return 0;
+  return global_grid<T>(rows, d) * (long long)hidden_bytes(h, (int)sizeof(T));
 }
 
 template <typename T>
 int launch(const void* x, const void* w1, const void* s1, const void* b1, const void* w2,
            const void* s2, const void* b2, void* y, long long rows, int d, int h,
-           cudaStream_t stream) {
+           void* scratch, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const int8_t *w1t = static_cast<const int8_t*>(w1), *w2t = static_cast<const int8_t*>(w2);
+  const float *s1t = static_cast<const float*>(s1), *b1t = static_cast<const float*>(b1);
+  const float *s2t = static_cast<const float*>(s2), *b2t = static_cast<const float*>(b2);
+  T* yt = static_cast<T*>(y);
+  if (!hidden_in_smem(d, h, (int)sizeof(T))) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const unsigned grid = (unsigned)global_grid<T>(rows, d);
+    int8_mlp_kernel<T, true><<<grid, THREADS, (size_t)BM * (d + PAD), stream>>>(
+        xt, w1t, s1t, b1t, w2t, s2t, b2t, yt, rows, d, h,
+        static_cast<unsigned char*>(scratch));
+    return (int)cudaGetLastError();
+  }
   const size_t smem = smem_bytes(d, h, (int)sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
-      int8_mlp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      int8_mlp_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, or the next launch would report it
     return (int)err;
   }
   const unsigned grid = (unsigned)((rows + BM - 1) / BM);
-  int8_mlp_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(w1),
-      static_cast<const float*>(s1), static_cast<const float*>(b1),
-      static_cast<const int8_t*>(w2), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<T*>(y), rows, d, h);
+  int8_mlp_kernel<T, false><<<grid, THREADS, smem, stream>>>(xt, w1t, s1t, b1t, w2t, s2t, b2t,
+                                                             yt, rows, d, h, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -299,18 +369,28 @@ int launch(const void* x, const void* w1, const void* s1, const void* b1, const 
 
 extern "C" {
 
+// Bytes of global scratch `lr2ppo_int8_mlp` needs for this shape on the
+// current device: 0 where the hidden block fits in shared memory.
+long long lr2ppo_int8_mlp_scratch_bytes(long long rows, int d, int h, int dtype) {
+  if (rows <= 0 || d % 128 != 0 || h % 128 != 0) return 0;
+  return dtype == 0 ? scratch_bytes<float>(rows, d, h) : scratch_bytes<__nv_bfloat16>(rows, d, h);
+}
+
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // x and y are (rows, d) of dtype 0 = float32 or 1 = bfloat16; w1 is (h, d)
 // int8, w2 (d, h) int8, both row-major; s1, b1 (h,) and s2, b2 (d,) float32.
-// Needs d and h multiples of 128 and 16-byte aligned weights.
+// `scratch` holds lr2ppo_int8_mlp_scratch_bytes() bytes, 16-byte aligned,
+// or is null where that is 0. Needs d and h multiples of 128 and 16-byte
+// aligned weights.
 int lr2ppo_int8_mlp(const void* x, const void* w1, const void* s1, const void* b1,
                     const void* w2, const void* s2, const void* b2, void* y, long long rows,
-                    int d, int h, int dtype, void* stream) {
+                    int d, int h, int dtype, void* scratch, void* stream) {
   if (rows <= 0 || d % 128 != 0 || h % 128 != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w1, s1, b1, w2, s2, b2, y, rows, d, h, s);
-  return launch<__nv_bfloat16>(x, w1, s1, b1, w2, s2, b2, y, rows, d, h, s);
+  if (dtype == 0)
+    return launch<float>(x, w1, s1, b1, w2, s2, b2, y, rows, d, h, scratch, s);
+  return launch<__nv_bfloat16>(x, w1, s1, b1, w2, s2, b2, y, rows, d, h, scratch, s);
 }
 
 }  // extern "C"

@@ -127,11 +127,18 @@ def int8_mlp(x, w1, s1, b1, w2, s2, b2,
     x2 = x.reshape(-1, d).contiguous()
     y = torch.empty_like(x2)
     lib = build.library("int8_mlp")
+    code = build.DTYPE_CODES[out_dtype]
     with torch.cuda.device(x.device):
+        # where the hidden row block does not fit in shared memory (float32
+        # out at large H), the kernel keeps it in this scratch
+        nbytes = lib.lr2ppo_int8_mlp_scratch_bytes(x2.shape[0], d, hdn, code)
+        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+                   if nbytes else None)
         err = lib.lr2ppo_int8_mlp(
             x2.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), y.data_ptr(),
-            x2.shape[0], d, hdn, build.DTYPE_CODES[out_dtype],
+            x2.shape[0], d, hdn, code,
+            None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "int8_mlp launch")
     int8_mlp.launches += 1

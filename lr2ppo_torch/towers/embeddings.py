@@ -1,0 +1,133 @@
+"""Tower embeddings (counterpart of lr2ppo_tpu/towers/embeddings.py): word,
+pos, seg and the ViT patch embedding, summed, then an optional RefLayerNorm
+(embedding.py:19-34).
+
+The patch projection keeps the reference Conv2d's key and shape,
+`embedding.patch.projection.weight` (E, C, P, P) without a bias, but is
+computed as the JAX package computes it: the image is cut into patches by a
+reshape and a transpose to (c, ph, pw) order, then one matmul. (A float32
+convolution would also run through cuDNN in TF32 unless that is turned off.)
+
+The other kinds (sinusoidal positions, word_patch, masked_patch, speech)
+raise (ROADMAP A, the rest of the towers).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from lr2ppo_torch.towers.layers import NOT_PORTED, RefLayerNorm
+
+
+class _Table(nn.Module):
+    """A lookup table under the key `embedding.weight`, N(0, 1) at init."""
+
+    def __init__(self, rows: int, emb_size: int, device=None):
+        super().__init__()
+        self.embedding = nn.Embedding(rows, emb_size, device=device)
+
+
+class WordEmbedding(_Table):
+    """Token lookup (word_embedding.py)."""
+
+    def __init__(self, vocab_size: int, emb_size: int, device=None):
+        super().__init__(vocab_size, emb_size, device)
+
+    def forward(self, src: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+        return self.embedding.weight[src]
+
+
+class PosEmbedding(_Table):
+    """Learned absolute positions 0..S-1, no padding offset
+    (pos_embedding.py)."""
+
+    def forward(self, src, seg: torch.Tensor) -> torch.Tensor:
+        b, s = seg.shape
+        return self.embedding.weight[:s][None].expand(b, s, -1)
+
+
+class SegEmbedding(_Table):
+    """Three-way segment lookup (seg_embedding.py)."""
+
+    def __init__(self, emb_size: int, device=None):
+        super().__init__(3, emb_size, device)
+
+    def forward(self, src, seg: torch.Tensor) -> torch.Tensor:
+        return self.embedding.weight[seg]
+
+
+class PatchEmbedding(nn.Module):
+    """ViT patchify: (B, C, H, W) -> [CLS] ++ patch tokens
+    (patch_embedding.py:5-31), as reshape + matmul. `projection` is an
+    nn.Conv2d only for its key and layout; forward never convolves."""
+
+    def __init__(self, emb_size: int, image_height: int = 224,
+                 image_width: int = 224, patch_size: int = 16,
+                 channels_num: int = 3, device=None):
+        super().__init__()
+        self.image_height, self.image_width = image_height, image_width
+        self.patch_size, self.channels_num = patch_size, channels_num
+        self.projection = nn.Conv2d(channels_num, emb_size, patch_size,
+                                    stride=patch_size, bias=False,
+                                    device=device)
+        self.cls_emb = nn.Parameter(torch.zeros(1, 1, emb_size,
+                                                device=device))
+
+    def forward(self, src: torch.Tensor, seg) -> torch.Tensor:
+        p, c = self.patch_size, self.channels_num
+        b, _, h, w = src.shape
+        if (h, w) != (self.image_height, self.image_width):
+            raise ValueError(f"input {h}x{w} != model "
+                             f"{self.image_height}x{self.image_width}")
+        gh, gw = h // p, w // p
+        x = src.reshape(b, c, gh, p, gw, p).permute(0, 2, 4, 1, 3, 5)
+        x = x.reshape(b, gh * gw, c * p * p)
+        weight = self.projection.weight
+        kernel = weight.reshape(weight.shape[0], -1).t().to(x.dtype)
+        tokens = torch.matmul(x, kernel)
+        cls_tok = self.cls_emb.to(x.dtype).expand(b, 1, -1)
+        return torch.cat([cls_tok, tokens], dim=1)
+
+
+# the JAX package sizes the position table by max_audio_frames too when a
+# speech embedding is configured; speech is not ported, so it is
+# max_seq_length here
+_EMB_KINDS = {
+    "word": lambda cfg, device: WordEmbedding(cfg.vocab_size, cfg.emb_size,
+                                              device),
+    "pos": lambda cfg, device: PosEmbedding(cfg.max_seq_length,
+                                            cfg.emb_size, device),
+    "seg": lambda cfg, device: SegEmbedding(cfg.emb_size, device),
+    "patch": lambda cfg, device: PatchEmbedding(
+        cfg.emb_size, cfg.image_height, cfg.image_width, cfg.patch_size,
+        cfg.channels_num, device),
+}
+
+
+class CompositeEmbedding(nn.Module):
+    """The sum of the configured kinds, each a submodule named by its kind
+    (`embedding.word...`, `embedding.patch...`), then `layer_norm` unless
+    `remove_embedding_layernorm`. Embedding dropout is the identity on the
+    deterministic path this slice runs."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.kinds = list(cfg.embedding)
+        for kind in self.kinds:
+            if kind not in _EMB_KINDS:
+                raise NotImplementedError(f"the {kind!r} embedding is "
+                                          f"{NOT_PORTED}")
+            self.add_module(kind, _EMB_KINDS[kind](cfg, device))
+        self.layer_norm: Optional[RefLayerNorm] = (
+            None if cfg.remove_embedding_layernorm
+            else RefLayerNorm(cfg.emb_size, device=device))
+
+    def forward(self, src, seg: torch.Tensor) -> torch.Tensor:
+        emb = None
+        for kind in self.kinds:
+            cur = getattr(self, kind)(src, seg)
+            emb = cur if emb is None else emb + cur
+        return emb if self.layer_norm is None else self.layer_norm(emb)

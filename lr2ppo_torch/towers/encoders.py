@@ -1,0 +1,88 @@
+"""The transformer encoder of the towers (counterpart of
+lr2ppo_tpu/towers/encoders.py:TransformerEncoder).
+
+Its layers are `encoder.transformer.<i>` (or one shared `encoder.transformer`
+under parameter sharing), then `encoder.layer_norm` for pre-LN stacks. On a
+deterministic fully-visible pass with `pallas_attention` set, the encoder
+hands each layer a (B, S) key bias, which routes attention through the fused
+kernel (ops/attention.py), as the JAX gate (encoders.py:84-89) does.
+
+The RNN family, the gated CNN, dual encoders, relative positions, residual
+attention, `remat` and `seq_parallel` raise (ROADMAP A: the rest of the
+towers; multi-GPU).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from lr2ppo_torch.models.layers import Linear
+from lr2ppo_torch.towers.layers import (NOT_PORTED, TransformerLayer,
+                                        additive_mask_from_seg,
+                                        make_layer_norm)
+
+
+class TransformerEncoder(nn.Module):
+    """transformer_encoder.py:7-138 (the BERT/ViT-style stack)."""
+
+    def __init__(self, cfg, dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        for flag in ("relative_position_embedding", "has_residual_attention",
+                     "remat", "seq_parallel"):
+            if getattr(cfg, flag):
+                raise NotImplementedError(f"{flag} is {NOT_PORTED}")
+        self.cfg = cfg
+        if cfg.factorized_embedding_parameterization:
+            self.linear = Linear(cfg.emb_size, cfg.hidden_size, dtype=dtype,
+                                 device=device)
+
+        def layer() -> TransformerLayer:
+            return TransformerLayer(
+                cfg.hidden_size, cfg.heads_num, cfg.feedforward_size,
+                cfg.hidden_act, cfg.layernorm_positioning, cfg.layernorm,
+                cfg.feed_forward, cfg.attention_head_size,
+                has_bias=not cfg.remove_transformer_bias,
+                with_scale=not cfg.remove_attention_scale, dtype=dtype,
+                device=device)
+
+        self.transformer = (layer() if cfg.parameter_sharing
+                            else nn.ModuleList(layer()
+                                               for _ in range(cfg.layers_num)))
+        if cfg.layernorm_positioning == "pre":
+            self.layer_norm = make_layer_norm(cfg.layernorm, cfg.hidden_size,
+                                              dtype, device)
+
+    def forward(self, emb: torch.Tensor, seg: torch.Tensor,
+                deterministic: bool = True) -> torch.Tensor:
+        cfg = self.cfg
+        if not deterministic:
+            raise NotImplementedError(f"tower dropout is {NOT_PORTED}")
+        if cfg.factorized_embedding_parameterization:
+            emb = self.linear(emb)
+        # the key-only bias that takes the fused attention kernel. The JAX
+        # gate also asks for a deterministic pass without residual attention
+        # or relative positions, which is every pass this encoder runs
+        key_bias = None
+        if cfg.pallas_attention and cfg.mask == "fully_visible":
+            key_bias = torch.where(seg > 0, 0.0, -10000.0)
+        # the (B, 1, S, S) mask, where some layer takes the plain path
+        mask = (additive_mask_from_seg(seg, cfg.mask)
+                if key_bias is None or cfg.remove_attention_scale else None)
+        hidden = emb
+        for i in range(cfg.layers_num):
+            blk = (self.transformer if cfg.parameter_sharing
+                   else self.transformer[i])
+            hidden = blk(hidden, mask, key_bias)
+        if cfg.layernorm_positioning == "pre":
+            hidden = self.layer_norm(hidden)
+        return hidden
+
+
+def build_encoder(cfg, dtype=None, device=None) -> TransformerEncoder:
+    if cfg.encoder != "transformer":
+        raise NotImplementedError(f"the {cfg.encoder!r} encoder is "
+                                  f"{NOT_PORTED}")
+    return TransformerEncoder(cfg, dtype, device)

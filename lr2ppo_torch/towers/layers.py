@@ -1,0 +1,245 @@
+"""Transformer layers of the towers (counterpart of
+lr2ppo_tpu/towers/layers.py).
+
+The modules carry the TencentPretrain key layout (`self_attn.linear_layers.
+{0,1,2}`, `self_attn.final_linear`, `feed_forward.linear_1`, `layer_norm_1.
+gamma`, ...), so a reference tower `.bin` loads with
+`load_state_dict(strict=True)`. The numerics are the reference's and the
+JAX package's:
+
+  * RefLayerNorm divides by (std + eps) with eps outside the square root and
+    a Bessel-corrected std; it is neither nn.LayerNorm nor the flax-numerics
+    LayerNorm of models/layers.py;
+  * attention masks are additive -10000 biases; the plain path divides the
+    scores by sqrt(dh) and then adds the mask.
+
+This slice runs the towers' inference path. Dropout, the T5 relative
+position bias and residual-attention chaining belong to pretraining and
+raise (ROADMAP A, "the rest of the towers with pretraining").
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lr2ppo_torch.models.layers import Linear
+from lr2ppo_torch.ops.attention import fused_attention
+
+ACTS: dict = {
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "gelu_fast": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+    "linear": lambda x: x,
+    "tanh": torch.tanh,
+}
+
+NOT_PORTED = ("not ported yet (ROADMAP A: the rest of the towers, with "
+              "pretraining)")
+
+
+class RefLayerNorm(nn.Module):
+    """gamma * (x - mean) / (std + eps) + beta with a Bessel-corrected std,
+    taken as sqrt(max(var, 1e-20)); float32 statistics; weights named gamma
+    and beta (reference layer_norm.py:5-21)."""
+
+    def __init__(self, d: int, eps: float = 1e-6,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.gamma = nn.Parameter(torch.ones(d, device=device))
+        self.beta = nn.Parameter(torch.zeros(d, device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.gamma.fill_(1.0)
+        self.beta.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = x.shape[-1]
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        centered = xf - mean
+        var = (centered * centered).mean(-1, keepdim=True)
+        var = var * (d / max(d - 1, 1))                # unbiased
+        std = torch.sqrt(torch.clamp_min(var, 1e-20))
+        out = self.gamma * centered / (std + self.eps) + self.beta
+        return out.to(self.dtype or x.dtype)
+
+
+class T5LayerNorm(nn.Module):
+    """RMS norm with float32 statistics (reference layer_norm.py:24-39)."""
+
+    def __init__(self, d: int, eps: float = 1e-6,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(d, device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.weight.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        var = x.float().square().mean(-1, keepdim=True)
+        out = x * torch.rsqrt(var + self.eps).to(x.dtype)
+        return self.weight.to(self.dtype or x.dtype) * out
+
+
+def make_layer_norm(kind: str, d: int, dtype=None, device=None) -> nn.Module:
+    if kind == "t5":
+        return T5LayerNorm(d, dtype=dtype, device=device)
+    return RefLayerNorm(d, dtype=dtype, device=device)
+
+
+def additive_mask_from_seg(seg: torch.Tensor, mask_kind: str) -> torch.Tensor:
+    """seg (B, S) -> additive attention bias (B, 1, S, S), float32, 0 where
+    visible and -10000 where hidden (transformer_encoder.py:62-90)."""
+    b, s = seg.shape
+    if mask_kind == "fully_visible":
+        vis = (seg > 0)[:, None, None, :].expand(b, 1, s, s)
+    elif mask_kind == "causal":
+        vis = torch.ones(s, s, dtype=torch.bool, device=seg.device).tril()
+        vis = vis[None, None].expand(b, 1, s, s)
+    elif mask_kind == "causal_with_prefix":
+        mask_a = (seg == 1)[:, None, None, :].float()
+        mask_b = (seg > 0)[:, None, None, :].float()
+        tril = torch.ones(s, s, device=seg.device).tril()[None, None]
+        vis = ((mask_a + mask_b + tril) >= 2).expand(b, 1, s, s)
+    else:
+        raise ValueError(f"unknown mask: {mask_kind}")
+    zero = torch.zeros((), device=seg.device)
+    return torch.where(vis, zero, zero - 10000.0)
+
+
+class MultiHeadedAttention(nn.Module):
+    """Reference MHA (multi_headed_attn.py:6-76): separate q/k/v linears
+    `linear_layers.{0,1,2}` and the output linear `final_linear`.
+
+    With a `key_bias` (the encoder's gate), attention runs through the
+    fused kernel (ops/attention.py), as the JAX layer takes the Pallas
+    kernel. The position bias, score chaining and attention dropout of the
+    JAX layer belong to pretraining and are not ported yet."""
+
+    def __init__(self, hidden_size: int, heads_num: int,
+                 attention_head_size: int, has_bias: bool = True,
+                 with_scale: bool = True, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__()
+        self.heads_num, self.head_size = heads_num, attention_head_size
+        self.with_scale, self.dtype = with_scale, dtype
+        inner = heads_num * attention_head_size
+        self.linear_layers = nn.ModuleList([
+            Linear(hidden_size, inner, bias=has_bias, dtype=dtype,
+                   device=device) for _ in range(3)])
+        self.final_linear = Linear(inner, hidden_size, bias=has_bias,
+                                   dtype=dtype, device=device)
+
+    def forward(self, key: torch.Tensor, value: torch.Tensor,
+                query: torch.Tensor, mask: Optional[torch.Tensor],
+                key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h, dh = self.heads_num, self.head_size
+        q = self.linear_layers[0](query)
+        k = self.linear_layers[1](key)
+        v = self.linear_layers[2](value)
+        b, sq = q.shape[:2]
+        sk = k.shape[1]
+        q = q.reshape(b, sq, h, dh).transpose(1, 2)
+        k = k.reshape(b, sk, h, dh).transpose(1, 2)
+        v = v.reshape(b, sk, h, dh).transpose(1, 2)
+
+        if key_bias is not None and self.with_scale:
+            # the JAX gate (towers/layers.py:145-146): q, k, v as strided
+            # (B, H, S, dh) views, read by the kernel in place
+            out = fused_attention(q, k, v, key_bias.float(),
+                                  1.0 / math.sqrt(float(dh)))
+        else:
+            scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+            if self.with_scale:
+                # a tensor divisor: a true division on every device, as JAX
+                scores = scores / scores.new_tensor(math.sqrt(float(dh)))
+            scores = scores + mask
+            probs = torch.softmax(scores, dim=-1).to(self.dtype or q.dtype)
+            out = torch.matmul(probs, v.to(probs.dtype))
+            out = out.to(self.dtype or torch.float32)
+        out = out.transpose(1, 2).reshape(b, sq, h * dh)
+        return self.final_linear(out)
+
+
+class PositionwiseFeedForward(nn.Module):
+    """linear_1 -> act -> linear_2 (position_ffn.py:4-15)."""
+
+    def __init__(self, hidden_size: int, feedforward_size: int,
+                 hidden_act: str = "gelu", has_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.act = ACTS[hidden_act]
+        self.linear_1 = Linear(hidden_size, feedforward_size, bias=has_bias,
+                               dtype=dtype, device=device)
+        self.linear_2 = Linear(feedforward_size, hidden_size, bias=has_bias,
+                               dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(self.act(self.linear_1(x)))
+
+
+class GatedFeedForward(nn.Module):
+    """act(W_g x) * (W_1 x) -> W_2 (position_ffn.py:18-35)."""
+
+    def __init__(self, hidden_size: int, feedforward_size: int,
+                 hidden_act: str = "gelu", has_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.act = ACTS[hidden_act]
+        self.linear_gate = Linear(hidden_size, feedforward_size,
+                                  bias=has_bias, dtype=dtype, device=device)
+        self.linear_1 = Linear(hidden_size, feedforward_size, bias=has_bias,
+                               dtype=dtype, device=device)
+        self.linear_2 = Linear(feedforward_size, hidden_size, bias=has_bias,
+                               dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(self.act(self.linear_gate(x)) * self.linear_1(x))
+
+
+class TransformerLayer(nn.Module):
+    """Pre- or post-LN encoder block (transformer.py:8-74) on the
+    deterministic path, where every dropout is the identity."""
+
+    def __init__(self, hidden_size: int, heads_num: int,
+                 feedforward_size: int, hidden_act: str = "gelu",
+                 layernorm_positioning: str = "post",
+                 layernorm: str = "normal", feed_forward: str = "dense",
+                 attention_head_size: Optional[int] = None,
+                 has_bias: bool = True, with_scale: bool = True,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        dh = attention_head_size or hidden_size // heads_num
+        self.pre = layernorm_positioning == "pre"
+        self.self_attn = MultiHeadedAttention(hidden_size, heads_num, dh,
+                                              has_bias, with_scale, dtype,
+                                              device)
+        ffn_cls = (GatedFeedForward if feed_forward == "gated"
+                   else PositionwiseFeedForward)
+        self.feed_forward = ffn_cls(hidden_size, feedforward_size, hidden_act,
+                                    has_bias, dtype, device)
+        self.layer_norm_1 = make_layer_norm(layernorm, hidden_size, dtype,
+                                            device)
+        self.layer_norm_2 = make_layer_norm(layernorm, hidden_size, dtype,
+                                            device)
+
+    def forward(self, hidden: torch.Tensor, mask: Optional[torch.Tensor],
+                key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.pre:
+            inter = self.self_attn(hidden, hidden, hidden, mask, key_bias)
+            inter = self.layer_norm_1(inter + hidden)
+            return self.layer_norm_2(self.feed_forward(inter) + inter)
+        normed = self.layer_norm_1(hidden)
+        inter = self.self_attn(normed, normed, normed, mask, key_bias)
+        hidden = hidden + inter
+        return self.feed_forward(self.layer_norm_2(hidden)) + hidden

@@ -1,0 +1,88 @@
+"""Tower weights (counterpart of lr2ppo_tpu/towers/torch_import.py).
+
+The port's tower modules carry the TencentPretrain key layout, so a
+reference tower `.bin` needs no conversion: `load_tower_checkpoint` reads it
+and `encoder_state` keeps what `encode` reads. `tower_params_from_flax` is
+the weight bridge from the JAX package: a flax tower tree of numpy arrays
+into that layout, the inverse of the JAX package's `torch_tower_to_flax` for
+the embedding and transformer-encoder keys:
+
+  flax                                      torch
+  embedding/<kind>/embedding                embedding.<kind>.embedding.weight
+  embedding/patch/projection (C*P*P, E)     embedding.patch.projection.weight
+                                            (E, C, P, P)
+  encoder/transformer_<i>/.../kernel (in, out)
+                                            encoder.transformer.<i>...weight
+                                            (out, in)
+  .../linear_layers_<j>/...                 ...linear_layers.<j>...
+  gamma, beta, bias, cls_emb, 1-d weight    as they are
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+
+_INDEXED = re.compile(r"^(transformer|linear_layers)_(\d+)$")
+
+# the module prefixes encode reads; a reference .bin also holds the target
+# heads (`target.*`), which belong to pretraining
+ENCODE_PREFIXES = ("embedding.", "encoder.")
+
+
+def _flatten(node, path=()):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _flatten(v, path + (k,))
+    else:
+        yield path, node
+
+
+def tower_params_from_flax(tree: dict,
+                           channels_num: int = 3) -> Dict[str, torch.Tensor]:
+    """A JAX TowerModel param tree (optionally under "params") of numpy
+    arrays -> the port's reference-keyed state_dict. `channels_num` splits
+    the patch kernel's C*P*P rows back into (C, P, P)."""
+    tree = tree.get("params", tree)
+    out = {}
+    for path, arr in _flatten(tree):
+        if path[0] not in ("embedding", "encoder"):
+            raise KeyError(f"flax path {path} is outside the embedding and "
+                           "encoder this slice ports")
+        arr = np.asarray(arr)
+        parts = []
+        for p in path[:-1]:
+            m = _INDEXED.match(p)
+            parts += [m.group(1), m.group(2)] if m else [p]
+        leaf = path[-1]
+        if leaf == "kernel":
+            arr, leaf = arr.T, "weight"
+        elif leaf == "embedding":                  # a lookup table
+            parts, leaf = parts + ["embedding"], "weight"
+        elif leaf == "projection":                 # the patch kernel
+            rows, e = arr.shape
+            p = math.isqrt(rows // channels_num)
+            if channels_num * p * p != rows:
+                raise ValueError(f"patch kernel {arr.shape} does not split "
+                                 f"into {channels_num} channels of P x P")
+            arr = arr.T.reshape(e, channels_num, p, p)
+            parts, leaf = parts + ["projection"], "weight"
+        # a row-major copy that does not alias the caller's buffer
+        out[".".join(parts + [leaf])] = torch.from_numpy(
+            np.array(arr, copy=True, order="C"))
+    return out
+
+
+def load_tower_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference tower `.bin` (a torch state_dict) as it is."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def encoder_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The keys `TowerModel` holds: a reference checkpoint's target heads
+    are dropped, everything else must load with strict=True."""
+    return {k: v for k, v in state.items() if k.startswith(ENCODE_PREFIXES)}

@@ -20,7 +20,11 @@ import chip_smoke
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {"jax", "jaxlib", "flax", "optax",
                                        "orbax", "lr2ppo_tpu"})
-print(json.dumps({"modules": names, "loaded": loaded}))
+# imported at first use only: the card's machine has none of them
+lazy = sorted(m for m in sys.modules
+              if m.split(".")[0] in {"PIL", "h5py", "sentencepiece",
+                                     "tokenizers", "triton"})
+print(json.dumps({"modules": names, "loaded": loaded, "lazy": lazy}))
 """
 
 
@@ -38,8 +42,15 @@ def test_port_never_imports_jax():
             "lr2ppo_torch.ops.losses", "lr2ppo_torch.train.optim",
             "lr2ppo_torch.train.common", "lr2ppo_torch.train.ppo",
             "lr2ppo_torch.utils.guards",
-            "lr2ppo_torch.utils.logging"} <= set(res["modules"])
+            "lr2ppo_torch.utils.logging", "lr2ppo_torch.ops.attention",
+            "lr2ppo_torch.towers", "lr2ppo_torch.towers.model",
+            "lr2ppo_torch.towers.layers", "lr2ppo_torch.towers.embeddings",
+            "lr2ppo_torch.towers.encoders", "lr2ppo_torch.towers.extract",
+            "lr2ppo_torch.towers.torch_import",
+            "lr2ppo_torch.data.tokenizers",
+            "lr2ppo_torch.cli.preprocess"} <= set(res["modules"])
     assert res["loaded"] == [], f"the port imported {res['loaded']}"
+    assert res["lazy"] == [], f"imported at import time: {res['lazy']}"
 
 
 def test_chip_smoke_names_no_jax_package_module():
