@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port once on one CUDA card: the ranking service and
-the stage-3 LR2PPO trainer at the flagship width.
+"""Drive the PyTorch port once on one CUDA card: the ranking service, the
+three-stage LR2PPO recipe and feature extraction at the flagship width.
 
     python3 chip_smoke.py [--seed N]
 
@@ -43,7 +43,24 @@ Phases, each of which raises on failure (exit code other than 0):
      8 items of 5-20 tags and 16 frames of 224x224 through the CLI's
      per-item loop at batch 32; the attention kernel's launches (12 per
      encode), the features' shapes and values, the same items with the
-     kernel off, and the encode times with it on and off.
+     kernel off, and the encode times with it on and off;
+ 11. the narrow int8 GEMM (K2) against its plain version, bit for bit, at a
+     ragged 1,040 x 256 -> 128 (float32), the rollout's fc2 site (100,352 x
+     3072 -> 768, bfloat16), the serve site (200,704 rows, bfloat16 and
+     float32) and the corners of its shape gate; at the two fc2 sites its
+     time beside the plain version's, the dequant + bf16 route it replaces
+     by default, the unfused s8 route (quantize_rows + torch._int_mm +
+     epilogue), torch._int_mm alone and the bound;
+ 12. the three-stage recipe at the flagship width on synthetic batches:
+     stage 1 (PointwiseTrainer.fit, batch 32 x 32 tags, 4 steps) and stage
+     2 (RewardTrainer.fit, batch 32 pairs, 4 steps) under --profile fast,
+     each best `.bin` reloaded strict; stage 3 (PPOTrainer.fit from both
+     `.bin`s, batch 256 x 2 tags, 2 rollouts and 2 updates) with the fused
+     FFN off and the narrow sites on, 4 K2 launches a rollout and no K1,
+     and one rollout's time in that routing and in the default one; then
+     evaluate_cases (ppo_eval) on the stage-3 best `.bin`, its NDCG equal
+     to the trainer's best; and one served batch of phase 4's int8 model in
+     the narrow routing, 2 K2 launches, scores within phase 4's gate.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -61,6 +78,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -75,12 +93,17 @@ from lr2ppo_torch.models.scorer import ActorCritic, ScoreModel, SeqScoreModel
 from lr2ppo_torch.ops.attention import fused_attention, reference_attention
 from lr2ppo_torch.ops.dropout import philox_dropout, philox_dropout_reference
 from lr2ppo_torch.ops.hash_dropout import hash_dropout, hash_dropout_reference
-from lr2ppo_torch.ops.int8 import quantize_weight
+from lr2ppo_torch.ops import int8 as int8_ops
+from lr2ppo_torch.ops.int8 import quantize_rows, quantize_weight
+from lr2ppo_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
 from lr2ppo_torch.ops.int8_mlp import int8_mlp, int8_mlp_reference
 from lr2ppo_torch.train.checkpoints import load_any
 from lr2ppo_torch.train.common import init_state
-from lr2ppo_torch.train.evaluate import scores_and_ndcg
+from lr2ppo_torch.train.evaluate import evaluate_cases, scores_and_ndcg
 from lr2ppo_torch.train.optim import build_optimizer
+from lr2ppo_torch.train import pointwise, reward
+from lr2ppo_torch.train.pointwise import PointwiseTrainer
+from lr2ppo_torch.train.reward import RewardTrainer
 from lr2ppo_torch.towers import (TowerConfig, TowerModel,
                                  load_tower_checkpoint)
 from lr2ppo_torch.towers.extract import (ImageFeatureExtractor,
@@ -315,7 +338,12 @@ def main_path(args, dev, card_line: str) -> int:
                              f"spread {spread}")
     breakdown({"int8": int8_model, "bfloat16": bf16_model}, mcfg,
               args.seed + 2, dev, card_line)
-    return launches
+    # phase 12 serves one of these batches again in K2's routing
+    served = {"int8": int8_model, "bfloat16": bf16_model,
+              "batch": batches[0],
+              "ds": SyntheticItems([len(ds.examples[i][1])
+                                    for i in range(ITEMS)])}
+    return launches, served
 
 
 def _union_us(spans) -> float:
@@ -515,21 +543,11 @@ def dropout_kernels(seed: int, dev, card_line: str) -> dict:
     return out
 
 
-class SyntheticTrainLoader:
-    """What PPOTrainer.fit reads of a loader: TRAIN_BATCHES ppo-mode
-    batches (text (B, 2, S, D), img (B, I, D), tgts (B, 2)) made with numpy
-    from `seed`, float32 as a loader emits them without ml_dtypes."""
+class BatchList:
+    """What a trainer's fit reads of a loader, over a list of host batches."""
 
-    def __init__(self, mcfg: ModelConfig, seed: int):
-        rng = np.random.default_rng(seed)
-        self.batches = [{
-            "text": rng.standard_normal(
-                (TRAIN_BS, PAIR, mcfg.seq_length, mcfg.feat_size),
-                dtype=np.float32),
-            "img": rng.standard_normal(
-                (TRAIN_BS, mcfg.max_imgs, mcfg.feat_size), dtype=np.float32),
-            "tgts": rng.integers(0, 3, size=(TRAIN_BS, PAIR)).astype(
-                np.int32)} for _ in range(TRAIN_BATCHES)]
+    def __init__(self, batches):
+        self.batches = batches
 
     def __len__(self):
         return len(self.batches)
@@ -542,6 +560,31 @@ class SyntheticTrainLoader:
 
     def first_batch(self):
         return self.batches[0]
+
+
+def item_batches(n: int, mcfg: ModelConfig, seed: int, bs: int, tags: int,
+                 **extra) -> list:
+    """`n` training batches made with numpy from `seed`, float32 as a
+    loader emits them without ml_dtypes: text (bs, tags, S, D), img
+    (bs, I, D), tgts (bs, tags) in 0-2; `extra` maps a key to a function
+    of the numpy generator that makes it."""
+    rng = np.random.default_rng(seed)
+    return [{"text": rng.standard_normal(
+                 (bs, tags, mcfg.seq_length, mcfg.feat_size),
+                 dtype=np.float32),
+             "img": rng.standard_normal((bs, mcfg.max_imgs, mcfg.feat_size),
+                                        dtype=np.float32),
+             "tgts": rng.integers(0, 3, size=(bs, tags)).astype(np.int32),
+             **{k: fn(rng) for k, fn in extra.items()}} for _ in range(n)]
+
+
+class SyntheticTrainLoader(BatchList):
+    """What PPOTrainer.fit reads of a loader: `n` ppo-mode batches (text
+    (B, 2, S, D), img (B, I, D), tgts (B, 2)) made with numpy from
+    `seed`."""
+
+    def __init__(self, mcfg: ModelConfig, seed: int, n: int = TRAIN_BATCHES):
+        super().__init__(item_batches(n, mcfg, seed, TRAIN_BS, PAIR))
 
 
 def train_config(tmp: str, seed: int, **model_kw):
@@ -1023,6 +1066,406 @@ def extract_path(args, dev, card_line: str) -> int:
     return launches
 
 
+# (rows, K, N, x dtype, out dtype) of phase 11; the two fc2 sites are timed
+K2_SHAPES = {
+    "ragged": (1040, 256, 128, torch.float32, torch.float32),
+    "rollout": (ROLLOUT_ROWS, H, D, torch.bfloat16, torch.bfloat16),
+    "serve": (SERVE_ROWS, H, D, torch.bfloat16, torch.bfloat16),
+    "serve_f32": (SERVE_ROWS, H, D, torch.float32, torch.float32),
+    "corner_k": (512, 49152, 128, torch.bfloat16, torch.bfloat16),
+    "corner_n": (512, 2048, 3072, torch.bfloat16, torch.float32),
+    "corner_kn": (512, 6144, 1024, torch.float32, torch.bfloat16),
+}
+K2_TIMED = ("rollout", "serve")
+
+
+@contextmanager
+def int8_routing(**constants):
+    """Set ops/int8.py's routing constants (FUSED_FFN, NARROW_SITES, the
+    size gates) for the block and restore them after it."""
+    old = {k: getattr(int8_ops, k) for k in constants}
+    for k, v in constants.items():
+        setattr(int8_ops, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(int8_ops, k, v)
+
+
+def check_k2(name: str, seed: int, dev, card_line: str) -> dict:
+    """Phase 11, one shape: K2 against its plain version, bit for bit; at
+    the fc2 sites its time beside the plain version, the two routes of
+    int8_linear it stands beside (dequant + bf16 product, the default at a
+    narrow site; the unfused s8 route: quantize_rows, torch._int_mm and the
+    epilogue), torch._int_mm alone on operands already quantized, and the
+    bound."""
+    rows, k, n, in_dt, out_dt = K2_SHAPES[name]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, k, device=dev, generator=gen).to(in_dt)
+    q, s = quantize_weight(torch.randn(n, k, device=dev, generator=gen)
+                           * 0.05)
+    got = int8_matmul(x, q, s, out_dt)
+    torch.cuda.synchronize()
+    ref = int8_matmul_reference(x, q, s, out_dt)
+    res = {"shape": name, "rows": rows, "k": k, "n": n,
+           "x_dtype": str(in_dt).replace("torch.", ""),
+           "out_dtype": str(out_dt).replace("torch.", ""),
+           "bit_equal": bool(torch.equal(got, ref)),
+           "max_abs_err": float((got.float() - ref.float()).abs().max())}
+    del got, ref
+    if not res["bit_equal"]:
+        emit(phase="k2_vs_plain", failed=True, **res)
+        raise AssertionError(f"int8_matmul disagrees with its plain "
+                             f"version: {res}")
+    if name in K2_TIMED:
+        res["ms"] = cuda_ms(lambda: int8_matmul(x, q, s, out_dt))
+        res["plain_ms"] = cuda_ms(
+            lambda: int8_matmul_reference(x, q, s, out_dt), iters=3, warmup=1)
+        res["dequant_bf16_route_ms"] = cuda_ms(
+            lambda: int8_ops.int8_linear(x, q, s, out_dt))
+        with int8_routing(INT8_DYNQUANT_MIN_WIDTH=0):
+            res["s8_route_ms"] = cuda_ms(
+                lambda: int8_ops.int8_linear(x, q, s, out_dt))
+        xq, _ = quantize_rows(x.float())
+        res["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(xq, q.t()))
+        del xq
+        ops = 2 * rows * k * n
+        res["kernel_tops"] = ops / (res["ms"] * 1e-3) / 1e12
+        nbytes = (rows * k * x.element_size() + n * k + 4 * n
+                  + rows * n * torch.tensor([], dtype=out_dt).element_size())
+        res.update(bound(nbytes, ops, INT8_TENSOR_OPS_PER_S))
+        res["card"] = card_line
+    emit(phase="k2_vs_plain", **res)
+    return res
+
+
+def k2_kernel(seed: int, dev, card_line: str) -> dict:
+    """Phase 11: every shape; returns the runs by name."""
+    out = {name: check_k2(name, seed + i, dev, card_line)
+           for i, name in enumerate(K2_SHAPES)}
+    torch.cuda.empty_cache()
+    return out
+
+
+STAGE_BS, STAGE_STEPS = 32, 4          # stages 1 and 2 of phase 12
+NDCG_FULL = 100000000
+
+
+def stage_config(tmp: str, name: str, seed: int, tags: int):
+    """Stages 1 and 2 under --profile fast at batch 32, an eval after every
+    step, one epoch."""
+    return parse_config(["--profile", "fast", "--batch_size", str(STAGE_BS),
+                         "--max_tags", str(tags), "--epochs_num", "1",
+                         "--report_steps", "1", "--seed", str(seed),
+                         "--output_model_path",
+                         os.path.join(tmp, f"{name}.bin"),
+                         "--log_path", os.path.join(tmp, f"{name}.log")])
+
+
+def records(cfg) -> list:
+    with open(cfg.log_path + ".jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def watch_params(trainer, names):
+    """Wrap trainer.init_model to keep the model it builds and copies of
+    the parameters `names` as they start."""
+    seen = {}
+    real = trainer.init_model
+
+    def init_model(seed):
+        seen["model"] = model = real(seed)
+        params = dict(model.named_parameters())
+        seen["before"] = {k: params[k].detach().clone() for k in names}
+        return model
+
+    trainer.init_model = init_model
+    return seen
+
+
+def moved(seen) -> dict:
+    params = dict(seen["model"].named_parameters())
+    return {k: float((params[k].detach() - v).abs().max())
+            for k, v in seen["before"].items()}
+
+
+WATCHED = ("head.weight", "xit.0.0.1.fn.1.0.weight", "text_proj.fc2.weight")
+
+
+def stage1(tmp: str, seed: int, dev, card_line: str, evb) -> str:
+    """Phase 12, stage 1: PointwiseTrainer.fit at batch 32 x 32 tags, 4
+    steps ('reg': SmoothL1), 6 hash-dropout launches a step (3 XiT sites,
+    forward and backward); the best `.bin` reloaded strict."""
+    cfg = stage_config(tmp, "stage1", seed, BUCKET)
+    trainer = PointwiseTrainer(cfg, dev)
+    seen = watch_params(trainer, WATCHED)
+    loader = BatchList(item_batches(STAGE_STEPS, cfg.model, seed, STAGE_BS,
+                                    BUCKET))
+    hash_dropout.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, best = trainer.fit(loader, evb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, steps = hash_dropout.launches, state.step
+    recs = records(cfg)
+    losses = [r["loss"] for r in recs]
+    move = moved(seen)
+    ScoreModel(cfg.model, trainer.dtype, device="meta").load_state_dict(
+        load_any(cfg.output_model_path), strict=True, assign=True)
+    # one more step's time on a device-resident batch (CUDA events)
+    b = trainer.ctx.put(loader.batches[0])
+    train_step = pointwise.make_train_step(cfg.model.mode)
+    gen = torch.Generator().manual_seed(seed)
+    step_ms = cuda_ms(lambda: train_step(state, gen, b["text"], b["img"],
+                                         b["tgts"]), iters=3, warmup=1)
+    del b
+    emit(phase="stage1", steps=steps, losses=losses,
+         ndcg_full=[r["ndcg_full"] for r in recs], best_ndcg_full=best,
+         moved=move, hash_dropout_launches=launches, fit_seconds=wall,
+         step_ms=step_ms, card=card_line)
+    if not (steps == STAGE_STEPS and len(losses) == STAGE_STEPS
+            and np.isfinite(losses).all() and 0.0 <= best <= 1.0
+            and all(v > 0 for v in move.values())
+            and launches == 6 * STAGE_STEPS):
+        raise AssertionError(f"stage 1: {steps} steps, losses {losses}, "
+                             f"best {best}, moved {move}, {launches} hash "
+                             "dropout launches")
+    return cfg.output_model_path
+
+
+def reward_batches(n: int, mcfg: ModelConfig, seed: int, bs: int,
+                   eval_mode: bool) -> list:
+    """Stage-2 batches made with numpy: training pairs (2 tags, the chosen
+    and rejected 4-index orderings with a fair coin swap,
+    data/movienet.py's reward mode) or eval triples (one tag of each class,
+    its reward_eval mode)."""
+    def orderings(rng):
+        if eval_mode:
+            ch, rj = [], []
+            for _ in range(bs):
+                i, j = (int(v) for v in rng.permutation(3)[:2])
+                right, wrong = [i, j, i, j], [i, j, j, i]
+                ch.append(right if i >= j else wrong)
+                rj.append(wrong if i >= j else right)
+            return np.asarray(ch, np.int32), np.asarray(rj, np.int32)
+        swap = rng.random(bs) < 0.5
+        ch = np.where(swap[:, None], [1, 0, 0, 1], [0, 1, 0, 1])
+        rj = np.where(swap[:, None], [1, 0, 1, 0], [0, 1, 1, 0])
+        return ch.astype(np.int32), rj.astype(np.int32)
+
+    batches = item_batches(n, mcfg, seed, bs, 3 if eval_mode else 2)
+    rng = np.random.default_rng(seed + 1)
+    for b in batches:
+        b["chosen_index"], b["reject_index"] = orderings(rng)
+        if eval_mode:                   # targets 0, 1, 2 in tag order
+            b["tgts"] = np.broadcast_to(np.arange(3, dtype=np.int32),
+                                        (bs, 3)).copy()
+    return batches
+
+
+def stage2(tmp: str, seed: int, dev, card_line: str) -> str:
+    """Phase 12, stage 2: RewardTrainer.fit at batch 32 pairs, 4 steps, 24
+    hash-dropout launches a step (two forwards of 6 sites, and their
+    backward), the pairwise accuracy on 2 eval batches of 8; the best
+    `.bin` reloaded strict into a SeqScoreModel."""
+    cfg = stage_config(tmp, "stage2", seed, PAIR)
+    trainer = RewardTrainer(cfg, dev)
+    seen = watch_params(trainer, WATCHED)
+    loader = BatchList(reward_batches(STAGE_STEPS, cfg.model, seed,
+                                      STAGE_BS, False))
+    evb = reward_batches(2, cfg.model, seed + 7, 8, True)
+    hash_dropout.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, best = trainer.fit(loader, evb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, steps = hash_dropout.launches, state.step
+    recs = records(cfg)
+    losses = [r["loss"] for r in recs]
+    move = moved(seen)
+    SeqScoreModel(cfg.model, trainer.dtype, device="meta").load_state_dict(
+        load_any(cfg.output_model_path), strict=True, assign=True)
+    b = trainer.ctx.put(loader.batches[0])
+    train_step = reward.make_train_step(reward.MARGIN)
+    gen = torch.Generator().manual_seed(seed)
+    step_ms = cuda_ms(lambda: train_step(state, gen, b["text"], b["img"],
+                                         b["chosen_index"],
+                                         b["reject_index"]),
+                      iters=3, warmup=1)
+    del b
+    emit(phase="stage2", steps=steps, losses=losses,
+         accuracy=[r["acc"] for r in recs], best_accuracy=best, moved=move,
+         hash_dropout_launches=launches, fit_seconds=wall, step_ms=step_ms,
+         card=card_line)
+    if not (steps == STAGE_STEPS and len(losses) == STAGE_STEPS
+            and np.isfinite(losses).all() and 0.0 <= best <= 1.0
+            and all(v > 0 for v in move.values())
+            and launches == 24 * STAGE_STEPS):
+        raise AssertionError(f"stage 2: {steps} steps, losses {losses}, "
+                             f"best {best}, moved {move}, {launches} hash "
+                             "dropout launches")
+    return cfg.output_model_path
+
+
+NARROW = {"FUSED_FFN": False, "NARROW_SITES": True}
+
+
+def stage3(tmp: str, seed: int, dev, card_line: str, actor_bin: str,
+           reward_bin: str, evb, eval_items) -> int:
+    """Phase 12, stage 3 and ppo_eval: PPOTrainer.fit from the two `.bin`s,
+    2 rollouts and one sweep of 2 updates, in K2's routing (4 launches a
+    rollout, K1 none); one rollout timed in that routing and in the
+    default one (K1); then evaluate_cases on the best `.bin`. Returns K2's
+    launches."""
+    cfg = train_config(tmp, seed).replace(pretrained_model_path=actor_bin,
+                                          reward_model_path=reward_bin)
+    loader = SyntheticTrainLoader(cfg.model, seed, n=2)
+    trainer = PPOTrainer(cfg, dev)
+    built = {}
+
+    def init_params(s):
+        built["models"] = PPOTrainer.init_params(trainer, s)
+        return built["models"]
+
+    trainer.init_params = init_params
+    with int8_routing(**NARROW):
+        int8_matmul.launches = int8_mlp.launches = 0
+        t0 = time.perf_counter()
+        astate, cstate, best = trainer.fit(lambda epoch: loader, evb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"int8_matmul": int8_matmul.launches,
+                    "int8_mlp": int8_mlp.launches}
+    recs = records(cfg)
+    losses = [[r["policy_loss"], r["value_loss"]] for r in recs
+              if "policy_loss" in r]
+    if not (launches == {"int8_matmul": 4 * 2, "int8_mlp": 0}
+            and astate.step == cstate.step == 2 and len(losses) == 1
+            and np.isfinite(losses).all() and np.isfinite(best)):
+        raise AssertionError(f"stage 3: launches {launches}, "
+                             f"{astate.step}/{cstate.step} updates, losses "
+                             f"{losses}, best {best}")
+
+    actor, critic, reward = built["models"]
+    twin = frozen_copy(ScoreModel, cfg.model, actor.state_dict(),
+                       trainer.dtype, True)
+    roll = make_rollout_step(cfg.model.mode)
+    b = trainer.ctx.put(loader.batches[0])
+    st = trainer.ctx.put_array(np.broadcast_to(
+        np.arange(PAIR, dtype=np.int32), (TRAIN_BS, PAIR)).copy())
+
+    def rollout():
+        roll(twin, critic, reward, b["text"], b["img"], st)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rollout()
+            torch.cuda.synchronize()
+        return trace_summary(prof)
+
+    with int8_routing(**NARROW):
+        int8_matmul.launches = 0
+        rollout()
+        torch.cuda.synchronize()
+        per_rollout = int8_matmul.launches
+        narrow_ms = cuda_ms(rollout, iters=5, warmup=1)
+        narrow_trace = traced()
+    int8_mlp.launches = 0
+    rollout()
+    k1_per_rollout = int8_mlp.launches
+    default_ms = cuda_ms(rollout, iters=5, warmup=1)
+    default_trace = traced()
+    del twin, b
+    if per_rollout != 4 or k1_per_rollout != 4:
+        raise AssertionError(f"a rollout launched K2 {per_rollout} times "
+                             f"in its routing and K1 {k1_per_rollout} times "
+                             "in the default one; expected 4 each")
+
+    # ppo_eval: the stage-3 best .bin through load_any, strict
+    sd = load_any(cfg.output_model_path, kind="actor_critic")
+    model = ScoreModel(cfg.model, trainer.dtype, device=dev)
+    model.load_state_dict(sd["actor"], strict=True)
+    del sd
+    path = os.path.join(tmp, "cases.json")
+    result = evaluate_cases(model, eval_items, evb, path, trainer.ctx.put)
+    with open(path) as f:
+        cases = json.load(f)
+    keys = {"pred_order", "pred_scores", "gold", "gold_rearranged", "ndcg",
+            "id", "tags", "tags_rearranged"}
+    n_items = sum(int(np.asarray(bt["mask"]).any(1).sum()) for bt in evb)
+    good = all(set(c) == keys and sorted(c["pred_order"])
+               == list(range(len(c["gold"])))
+               and [c["gold"][j] for j in c["pred_order"]]
+               == c["gold_rearranged"] for c in cases)
+    emit(phase="stage3", rollouts=2, updates=int(astate.step),
+         kernel_launches=launches, sweep_losses=losses, best_ndcg_full=best,
+         fit_seconds=wall, k2_launches_per_rollout=per_rollout,
+         rollout_ms_narrow_k2=narrow_ms, rollout_ms_default_k1=default_ms,
+         ppo_eval_cases=len(cases), ppo_eval_ndcg_full=result[NDCG_FULL],
+         ppo_eval_vs_best=abs(result[NDCG_FULL] - best), card=card_line)
+    for routing, trace in (("narrow: K2, fused FFN off", narrow_trace),
+                           ("default: K1", default_trace)):
+        emit(phase="stage3_rollout_breakdown", routing=routing,
+             traced="one rollout at batch 256", card=card_line, **trace)
+    if not (len(cases) == n_items and good
+            and abs(result[NDCG_FULL] - best) <= 1e-6):
+        raise AssertionError(f"ppo_eval: {len(cases)} cases for {n_items} "
+                             f"items, schema ok {good}, NDCG "
+                             f"{result[NDCG_FULL]} against the best {best}")
+    return launches["int8_matmul"]
+
+
+def served_narrow(served: dict, dev, card_line: str) -> int:
+    """Phase 12, last: one served batch of phase 4's int8 model in K2's
+    routing (2 launches: text_proj and the XiT FFN's fc2), its scores
+    within phase 4's gate of the same weights served in bfloat16."""
+    ds = served["ds"]
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name in ("int8", "bfloat16"):
+            paths[name] = os.path.join(tmp, f"{name}.jsonl")
+            with int8_routing(**NARROW), open(paths[name], "w") as sink:
+                if name == "int8":
+                    int8_matmul.launches = 0
+                serve.serve_batches(served[name], [served["batch"]], ds,
+                                    sink, dev)
+                if name == "int8":
+                    launches = int8_matmul.launches
+        got = read_rankings(paths["int8"], ds)
+        ref = read_rankings(paths["bfloat16"], ds)
+    spread = max(float(np.abs(v).max()) for v in ref.values())
+    err = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
+    emit(phase="serve_narrow", kernel_launches=launches, items=len(got),
+         int8_vs_bf16_max_err=err, score_spread=spread, card=card_line)
+    if launches != 2 or not err < 0.05 * spread:
+        raise AssertionError(f"served batch in K2's routing: {launches} "
+                             f"launches, error {err}, spread {spread}")
+    return launches
+
+
+def recipe_path(args, dev, card_line: str, served: dict) -> int:
+    """Phase 12: stages 1, 2 and 3, ppo_eval and a served batch; returns
+    K2's launches on these paths."""
+    mcfg = ModelConfig()
+    evb, eval_items = synthetic_batches(2, mcfg, args.seed + 20, items=8,
+                                        bucket=8, tags=(2, 8))
+    with tempfile.TemporaryDirectory() as tmp:
+        actor_bin = stage1(tmp, args.seed + 21, dev, card_line, evb)
+        torch.cuda.empty_cache()
+        reward_bin = stage2(tmp, args.seed + 22, dev, card_line)
+        torch.cuda.empty_cache()
+        launches = stage3(tmp, args.seed + 23, dev, card_line, actor_bin,
+                          reward_bin, evb, eval_items)
+    torch.cuda.empty_cache()
+    return launches + served_narrow(served, dev, card_line)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1066,7 +1509,7 @@ def main(argv=None) -> None:
                               True, card_line)
     results += [*serve_shape.values(), rollout_k1]
 
-    serve_launches = main_path(args, dev, card_line)
+    serve_launches, served = main_path(args, dev, card_line)
     torch.cuda.empty_cache()
     drop = dropout_kernels(args.seed, dev, card_line)
     train_launches = train_path(args, dev, card_line)
@@ -1075,6 +1518,10 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
     attn = attention_kernels(args.seed, dev, card_line)
     extract_launches = extract_path(args, dev, card_line)
+    torch.cuda.empty_cache()
+    k2 = k2_kernel(args.seed, dev, card_line)
+    k2_launches = recipe_path(args, dev, card_line, served)
+    del served
 
     main_k1 = serve_shape[torch.bfloat16]       # the serving path's dtype
     kernels = [{
@@ -1106,6 +1553,18 @@ def main(argv=None) -> None:
         "ms": main_k4["ms"], "plain_ms": main_k4["plain_ms"],
         "bound_ms": main_k4["bound_ms"], "bound_by": main_k4["bound_by"],
         "library_ms": main_k4["library_ms"]})
+    main_k2 = k2["rollout"]            # the stage-3 rollout's fc2 site
+    kernels.append({
+        "name": "int8_matmul", "route": "cuda",
+        "source": "lr2ppo_torch/kernels/csrc/int8_matmul.cu",
+        "replaces": "lr2ppo_tpu/ops/pallas_int8_matmul.py:81",
+        "launches": k2_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in k2.values()),
+        "ms": main_k2["ms"], "plain_ms": main_k2["plain_ms"],
+        "bound_ms": main_k2["bound_ms"], "bound_by": main_k2["bound_by"],
+        # no one PyTorch call quantizes x per row and multiplies in s8;
+        # torch._int_mm on operands already quantized is in phase 11
+        "library_ms": None})
     print(card_line, flush=True)
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",

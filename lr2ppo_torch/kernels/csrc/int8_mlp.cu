@@ -64,44 +64,13 @@ __device__ __constant__ float kBeta[5] = {
     (float)-1.68282697438203e-03, (float)-7.37332916720468e-03,
     (float)-1.42647390514189e-02};
 
-template <typename T> __device__ __forceinline__ float to_f32(T v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T> __device__ __forceinline__ void store2(T* p, float a, float b);
-template <> __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, float a,
-                                                                  float b) {
-  __nv_bfloat162 v;
-  v.x = __float2bfloat16_rn(a);
-  v.y = __float2bfloat16_rn(b);
-  *reinterpret_cast<__nv_bfloat162*>(p) = v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// per-row scale: max(amax, 1e-8) / 127 as a true division
-__device__ __forceinline__ float row_scale(float amax) {
-  return __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
-}
-
-__device__ __forceinline__ int quant(float v, float scale) {
-  float q = rintf(__fdiv_rn(v, scale));   // rintf: round half to even
-  return (int)fminf(fmaxf(q, -127.0f), 127.0f);
-}
+using lr2ppo::from_f32;
+using lr2ppo::mma_s8;
+using lr2ppo::quant;
+using lr2ppo::row_scale;
+using lr2ppo::store2;
+using lr2ppo::to_f32;
+using lr2ppo::warp_max;
 
 __device__ __forceinline__ float erf_poly(float x) {
   x = fminf(fmaxf(x, -4.0f), 4.0f);
@@ -124,15 +93,6 @@ __device__ __forceinline__ float gelu(float x) {
 // ((acc * row_scale) * col_scale) + bias
 __device__ __forceinline__ float rescale(int acc, float rs, float cs, float b) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs), b);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2, int a3, int b0,
-                                       int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // acc[j] += A(16 x K, int8 rows `a_lo` = row g and `a_hi` = row g + 8, both

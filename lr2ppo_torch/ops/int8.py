@@ -24,6 +24,15 @@ INT8_DYNQUANT_MIN_WIDTH = 1024
 # partitioning rule; the port runs on one GPU, so it is on. Tests set it.
 FUSED_FFN = True
 
+# Route narrow compute-bound call sites (fc2-style, N < 1024) through the
+# narrow int8 GEMM (ops/int8_matmul.py, K2). Off by default, as in JAX
+# (lr2ppo_tpu/ops/int8.py:56-66): the TPU kernel won 1.45x in isolation at
+# the flagship fc2 but lost in the whole rollout (974.4 against 1000.7
+# samples/s), because its call boundary makes the gelu(fc1) input (~600 MB
+# at 100,352 rows) go through HBM where XLA fuses it into the bf16 product.
+# Both packages take the same route at the same shapes. Tests set it.
+NARROW_SITES = False
+
 
 def should_quantize(shape) -> bool:
     """True when a 2-D weight of this shape is worth storing as int8."""
@@ -42,6 +51,13 @@ def quantize_rows(xf: torch.Tensor):
     return q, scale
 
 
+def int_dot(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """s8 (rows, K) . s8 (N, K)^T as exact integer sums, as float32 rounded
+    from the integer like an int32 -> float32 cast. float64 holds every sum
+    exactly: 127 * 127 * K < 2**53."""
+    return (q.double() @ w.double().t()).float()
+
+
 def quantize_weight(w: torch.Tensor):
     """(out, in) float weight -> (int8 weight, float32 per-out-channel scale);
     the int8 weight is row-major, as the fused kernel reads it."""
@@ -51,11 +67,13 @@ def quantize_weight(w: torch.Tensor):
 
 def int8_linear(x: torch.Tensor, weight: torch.Tensor,
                 weight_scale: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """y = x @ weight.T with the JAX package's three routes
-    (lr2ppo_tpu/ops/int8.py:int8_matmul): an int8 weight that is not
-    compute-bound at this call site, or narrow, is dequantized to `out_dtype`
-    for a plain product; otherwise x is quantized per row and the s8 x s8
-    product accumulates in int32. A float weight is quantized first."""
+    """y = x @ weight.T with the JAX package's routes, in its order
+    (lr2ppo_tpu/ops/int8.py:int8_matmul): with NARROW_SITES on, a narrow
+    compute-bound site whose shapes the narrow int8 GEMM takes goes to it;
+    otherwise an int8 weight that is not compute-bound at this call site, or
+    narrow, is dequantized to `out_dtype` for a plain product; otherwise x
+    is quantized per row and the s8 x s8 product accumulates in int32. A
+    float weight is quantized first."""
     out_dtype = out_dtype or x.dtype
     if weight.dtype != torch.int8:
         weight, weight_scale = quantize_weight(weight)
@@ -63,6 +81,11 @@ def int8_linear(x: torch.Tensor, weight: torch.Tensor,
     rows = x.numel() // x.shape[-1]
     compute_bound = 2 * rows * k * n >= INT8_DYNQUANT_MIN_FLOPS
     narrow = n < INT8_DYNQUANT_MIN_WIDTH
+    if compute_bound and narrow and NARROW_SITES:
+        from lr2ppo_torch.ops import int8_matmul as k2
+
+        if k2.supported(x.shape, weight.shape):
+            return k2.int8_matmul(x, weight, weight_scale.float(), out_dtype)
     if not compute_bound or narrow:
         w = (weight.float() * weight_scale.float()[:, None]).to(out_dtype)
         return torch.matmul(x.to(out_dtype), w.t())

@@ -18,7 +18,7 @@ import math
 import torch
 
 from lr2ppo_torch.kernels import build
-from lr2ppo_torch.ops.int8 import quantize_rows
+from lr2ppo_torch.ops.int8 import int_dot, quantize_rows
 
 _BM = 256                       # the TPU kernel's row block: the row gate
 _MAX_WEIGHT_VMEM = 6 * 1024 * 1024
@@ -62,25 +62,18 @@ def gelu_poly(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + erf)
 
 
-def _int_dot(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """s8 (rows, K) . s8 (N, K)^T as exact integer sums, as float32 rounded
-    from the integer like an int32 -> float32 cast. float64 holds every sum
-    exactly: 127 * 127 * K < 2**53."""
-    return (q.double() @ w.double().t()).float()
-
-
 def int8_mlp_reference(x, w1, s1, b1, w2, s2, b2,
                        out_dtype=torch.bfloat16) -> torch.Tensor:
     """The plain version: the same operations in the same order as the
     kernel and as the TPU kernel's body."""
     *lead, d = x.shape
     xq, xs = quantize_rows(x.reshape(-1, d).float())
-    h = _int_dot(xq, w1) * xs * s1.float() + b1.float()
+    h = int_dot(xq, w1) * xs * s1.float() + b1.float()
     # the unfused path materializes gelu(fc1) in out_dtype before fc2's
     # quantization reads it
     h = gelu_poly(h).to(out_dtype).float()
     hq, hs = quantize_rows(h)
-    y = _int_dot(hq, w2) * hs * s2.float() + b2.float()
+    y = int_dot(hq, w2) * hs * s2.float() + b2.float()
     return y.to(out_dtype).reshape(*lead, d)
 
 

@@ -1,7 +1,7 @@
 """The weight bridge: JAX package checkpoints and reference `.bin` files
-into reference-keyed state_dicts, in numpy and torch only, and the save side
-of the trainer's best checkpoint (counterpart of
-lr2ppo_tpu/train/checkpoints.py).
+into reference-keyed state_dicts, in numpy and torch only; the save side of
+the trainers' best checkpoints; and the port's own resumable `.state`
+payload (counterpart of lr2ppo_tpu/train/checkpoints.py).
 
 The key map is the JAX package's (checkpoints.py:42-63, 148-187): flax
 `kernel` (in, out) becomes torch `weight` (out, in), `scale` becomes
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import zipfile
 from typing import Dict
 
 import numpy as np
@@ -97,19 +98,83 @@ def split_actor_critic(state_dict: dict):
     return actor, critic
 
 
+def _save(obj, path: str) -> None:
+    """torch.save through a temporary file and a rename, so a crash
+    mid-write leaves the previous file in place."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _host(sd: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in sd.items()}
+
+
+def save_model(path: str, model: torch.nn.Module) -> None:
+    """Write one model's reference-keyed state_dict as a `.bin`, as the
+    reference's model_saver.py does for stages 1 and 2; `load_any(path)`
+    reads it back, the JAX package's load_any too."""
+    _save(_host(model.state_dict()), path)
+
+
 def save_actor_critic(path: str, actor: torch.nn.Module,
                       critic: torch.nn.Module) -> None:
     """Write both models as one reference-keyed ActorCritic `.bin`
-    ('actor.'/'critic.' prefixes, reference ppo_eval.py:336-343), through a
-    temporary file and a rename, so a crash mid-write leaves the previous
-    best in place. `load_any(path, kind="actor_critic")` reads it back."""
-    sd = {f"{prefix}.{k}": v.detach().cpu()
-          for prefix, model in (("actor", actor), ("critic", critic))
-          for k, v in model.state_dict().items()}
-    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save(sd, tmp)
-    os.replace(tmp, path)
+    ('actor.'/'critic.' prefixes, reference ppo_eval.py:336-343).
+    `load_any(path, kind="actor_critic")` reads it back."""
+    _save({f"{prefix}.{k}": v
+           for prefix, model in (("actor", actor), ("critic", critic))
+           for k, v in _host(model.state_dict()).items()}, path)
+
+
+# the `format` entry of the port's .state payload
+STATE_FORMAT = "lr2ppo_torch.state/1"
+
+
+def check_backend(backend: str) -> None:
+    """The port writes every checkpoint with torch.save; the JAX package's
+    orbax backends raise, as load_any does for orbax directories."""
+    if backend != "pickle":
+        raise ValueError(
+            f"ckpt_backend {backend!r}: lr2ppo_torch writes torch.save "
+            "files only; the orbax backends are the JAX package's")
+
+
+def save_state(path: str, models: dict, optims: dict, generator, **counters
+               ) -> None:
+    """The resumable `.state` payload, the port's own format: each model's
+    state_dict and each AdamW's moments and count (by the same names), the
+    dropout generator's state and the counters (step, best, ...)."""
+    def host_optim(opt):
+        sd = opt.state_dict()
+        return {**sd, "mu": _host(sd["mu"]), "nu": _host(sd["nu"])}
+
+    _save({"format": STATE_FORMAT,
+           "models": {k: _host(m.state_dict()) for k, m in models.items()},
+           "optims": {k: host_optim(o) for k, o in optims.items()},
+           "generator": generator.get_state(), **counters}, path)
+
+
+def load_state(path: str) -> dict:
+    """Read a `.state` written by save_state. A JAX package `.state` (an
+    orbax directory, or a pickle of optax trees) raises: the port cannot
+    resume it, and loads nothing of it."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is an orbax checkpoint directory, a JAX package .state; "
+            "lr2ppo_torch resumes only its own .state files")
+    if not zipfile.is_zipfile(path):
+        raise ValueError(
+            f"{path} is not a .state of lr2ppo_torch (a torch.save file); a "
+            "JAX package .state is a pickle of optax trees, which the port "
+            "cannot resume. Resume it with lr2ppo_tpu, or start the port "
+            "from its best checkpoint with --pretrained_model_path")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(payload, dict) or payload.get("format") != STATE_FORMAT:
+        raise ValueError(f"{path} is a torch file but not a .state of "
+                         f"lr2ppo_torch (format {STATE_FORMAT!r})")
+    return payload
 
 
 def load_any(path: str, kind: str = "single"):

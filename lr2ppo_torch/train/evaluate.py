@@ -1,10 +1,14 @@
-"""NDCG evaluation (counterpart of lr2ppo_tpu/train/evaluate.py:
-_scores_and_ndcg, evaluate_ndcg and format_ndcg)."""
+"""NDCG evaluation and the ppo_eval case dump (counterpart of
+lr2ppo_tpu/train/evaluate.py: _scores_and_ndcg, evaluate_ndcg,
+evaluate_cases and format_ndcg)."""
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from lr2ppo_torch.ops.losses import cls_expected_scores
@@ -37,6 +41,61 @@ def evaluate_ndcg(model, eval_loader, put,
         keep = b["mask"].any(dim=1)
         if bool(keep.any()):
             meter.extend(rows[keep].cpu().numpy())
+    return meter.value()
+
+
+def evaluate_cases(model, dataset, eval_loader, out_path: str,
+                   put) -> Dict[int, float]:
+    """ppo_eval's evaluation (reference ppo_eval.py:401-471): NDCG plus a
+    per-item JSON case dump at `out_path` (ppo_eval.py:457-459): the
+    predicted order with its scores, the gold targets as given and
+    rearranged, the NDCG row, and the item's id and tag strings where the
+    dataset has them. Needs an EvalLoader, whose batches carry `_idx`."""
+    meter = AverageNDCGMeter()
+    cases = []
+    for batch in eval_loader:
+        if "_idx" not in batch:
+            raise ValueError(
+                "evaluate_cases needs per-row dataset indices; use an "
+                "EvalLoader (it emits '_idx'): a plain Loader would "
+                "silently produce an empty case dump")
+        idx = np.asarray(batch["_idx"])
+        b = put({k: batch[k] for k in ("text", "img", "tgts", "mask")})
+        scores, rows = scores_and_ndcg(model, b["text"], b["img"], b["tgts"],
+                                       b["mask"])
+        scores = scores.float().cpu().numpy()
+        rows = rows.float().cpu().numpy()
+        mask = np.asarray(batch["mask"])
+        for r in range(mask.shape[0]):
+            if not mask[r].any() or idx[r] < 0:
+                continue
+            t = int(mask[r].sum())
+            s = scores[r, :t]
+            gold = np.asarray(batch["tgts"][r, :t])
+            order = np.argsort(-s)
+            meter.extend(rows[r: r + 1])
+            case = {
+                "pred_order": order.tolist(),
+                "pred_scores": s[order].astype(float).tolist(),
+                "gold": gold.astype(int).tolist(),
+                "gold_rearranged": gold[order].astype(int).tolist(),
+                "ndcg": rows[r].astype(float).tolist(),
+            }
+            if dataset is not None and hasattr(dataset, "examples"):
+                iid = dataset.examples[int(idx[r])][0]
+                case["id"] = str(iid)
+                names = getattr(dataset, "tag_names", {}).get(iid)
+                if names:
+                    case["tags"] = [names[j] for j in
+                                    dataset.examples[int(idx[r])][1]]
+                    case["tags_rearranged"] = [case["tags"][j]
+                                               for j in order.tolist()]
+            cases.append(case)
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)) or ".",
+                    exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(cases, f)
     return meter.value()
 
 

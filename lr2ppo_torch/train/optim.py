@@ -148,6 +148,33 @@ class AdamW:
         for p in self.params.values():
             p.grad = None
 
+    def state_dict(self) -> dict:
+        """The moments, keyed by parameter name in their moment dtype, and
+        the step count: what a resume needs besides the parameters."""
+        return {"count": self.count,
+                "mu": {k: v.detach() for k, v in self.mu.items()},
+                "nu": {k: v.detach() for k, v in self.nu.items()}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a state_dict() into this optimizer's moments (each keeps its
+        device and dtype); the parameter names and shapes must match."""
+        for name in ("mu", "nu"):
+            have, got = getattr(self, name), state[name]
+            if set(got) != set(have):
+                raise KeyError(
+                    f"AdamW.{name}: the saved moments are for other "
+                    f"parameters (missing {sorted(set(have) - set(got))}, "
+                    f"unexpected {sorted(set(got) - set(have))})")
+            for k, v in got.items():
+                if v.shape != have[k].shape or v.dtype != have[k].dtype:
+                    raise ValueError(
+                        f"AdamW.{name}[{k!r}]: saved {v.dtype} "
+                        f"{tuple(v.shape)}, this optimizer holds "
+                        f"{have[k].dtype} {tuple(have[k].shape)}")
+                have[k].copy_(v)
+        self.count = int(state["count"])
+
 
 def build_optimizer(optim_cfg, named_params: Dict[str, torch.nn.Parameter],
                     train_steps: int, lr: Optional[float] = None,

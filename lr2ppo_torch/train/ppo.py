@@ -26,13 +26,14 @@ their FFNs run through the fused int8 kernel (ops/int8_mlp.py).
 from __future__ import annotations
 
 import dataclasses
+from itertools import islice
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from lr2ppo_torch.config import Config, rollout_int8_mode
-from lr2ppo_torch.device import compute_dtype, require_cuda
+from lr2ppo_torch.device import compute_dtype
 from lr2ppo_torch.models.layers import init_weights
 from lr2ppo_torch.models.scorer import ScoreModel, SeqScoreModel
 from lr2ppo_torch.ops.int8 import quantize_state_dict
@@ -42,7 +43,9 @@ from lr2ppo_torch.ops.losses import (categorical_entropy, categorical_kl,
                                      rank_hinge_loss)
 from lr2ppo_torch.train import checkpoints
 from lr2ppo_torch.train.common import (BestSaver, DeviceCtx, TrainState,
-                                       apply_updates, init_state, peek_batch)
+                                       apply_updates, check_single_device,
+                                       init_state, peek_batch,
+                                       restore_train_state, save_train_state)
 from lr2ppo_torch.train.evaluate import evaluate_ndcg, format_ndcg
 from lr2ppo_torch.train.optim import build_optimizer
 from lr2ppo_torch.utils import MetricLogger, check_finite, init_logger
@@ -146,14 +149,9 @@ class PPOTrainer:
     (raising where there is none); the CPU tests pass "cpu"."""
 
     def __init__(self, cfg: Config, device=None):
-        if cfg.mesh.dp > 1 or cfg.mesh.tp > 1:
-            raise ValueError(f"--dp {cfg.mesh.dp} --tp {cfg.mesh.tp}: the "
-                             "port trains on one GPU; multi-GPU is not "
-                             "ported yet")
+        self.device = check_single_device(cfg, device)
         self.dtype = compute_dtype(cfg.mesh.compute_dtype)
         self.cfg = cfg
-        self.device = require_cuda() if device is None else torch.device(
-            device)
         self.logger = init_logger(cfg.log_path)
         self.metrics = MetricLogger(
             cfg.log_path + ".jsonl" if cfg.log_path else None)
@@ -195,13 +193,17 @@ class PPOTrainer:
             train_steps: Optional[int] = None):
         """make_train_loader(epoch) -> Loader (the trainset is rebuilt per
         epoch for fresh pair sampling, ppo.py:816). Returns (actor state,
-        critic state, best NDCG@full)."""
+        critic state, best NDCG@full).
+
+        With --save_state_steps N, every Nth sweep writes
+        <output_model_path>.state at the next batch boundary with an empty
+        memory buffer; --resume_path restores both train states, the sweep
+        and rollout counters, the best watermark and the dropout generator,
+        and skips the batches already rolled out. The reward model is
+        rebuilt from reward_model_path (or the seed), and the int8 rollout
+        twins from the restored parameters."""
         cfg = self.cfg
         upd = cfg.ppo.update_timesteps
-        if cfg.resume_path or cfg.save_state_steps:
-            raise NotImplementedError(
-                "--resume_path/--save_state_steps: the .state resume is not "
-                "ported yet (ROADMAP.md, queue A)")
         if cfg.ppo.use_gae and upd % max(cfg.ppo.max_timesteps, 1) != 0:
             # GAE bootstraps V=0 at the sweep-window edge; a window that
             # cuts a trajectory mid-way would bias its tail advantages
@@ -247,23 +249,49 @@ class PPOTrainer:
                         self.dtype, True)
             return twins["actor"], twins.get("critic", critic)
 
-        saver = BestSaver(cfg.output_model_path, self.logger)
         generator = torch.Generator().manual_seed(cfg.seed + 2)
         time_ctr, step = 0, 0
+        start_epoch, skip_batches, resume_best = 1, 0, -np.inf
+        if cfg.resume_path:
+            payload = checkpoints.load_state(cfg.resume_path)
+            restore_train_state(astate, payload, "actor")
+            restore_train_state(cstate, payload, "critic")
+            generator.set_state(payload["generator"])
+            step, time_ctr = int(payload["step"]), int(payload["time_ctr"])
+            resume_best = float(payload["best"])
+            consumed = time_ctr // max(cfg.ppo.max_timesteps, 1)
+            # past the last epoch: the resume is a no-op (empty range)
+            start_epoch = consumed // steps_per_epoch + 1
+            skip_batches = consumed % steps_per_epoch
+            self.logger.info(
+                f"resumed PPO from {cfg.resume_path} @ sweep {step} "
+                f"(epoch {start_epoch}, skipping {skip_batches} batches)")
+        saver = BestSaver(cfg.output_model_path, self.logger)
+        saver.best = max(saver.best, resume_best)
+
+        def save_state():
+            save_train_state(cfg.output_model_path + ".state",
+                             {"actor": astate, "critic": cstate}, generator,
+                             step, saver.best, time_ctr=time_ctr)
+
         memories: List[dict] = []
+        pending_save = False
         self.logger.info(
             f"Start PPO: {steps_per_epoch} rollout steps/epoch, "
             f"update every {upd}")
 
         device_memories: Optional[bool] = None
-        for epoch in range(1, cfg.epochs_num + 1):
+        for epoch in range(start_epoch, cfg.epochs_num + 1):
             loader = make_train_loader(epoch)
             loader.set_epoch(epoch)
             # recycled-buffer loaders invalidate a batch after a few
             # yields; anything retained across the sweep must be copied
             must_copy = (getattr(loader, "shared_slots", False)
                          or getattr(loader, "reuse_buffers", False))
-            for batch in loader:
+            batch_iter = iter(loader)
+            if epoch == start_epoch and skip_batches:
+                batch_iter = islice(batch_iter, skip_batches, None)
+            for batch in batch_iter:
                 if device_memories is None:
                     device_memories = self._memory_policy(batch)
                 if (device_memories and must_copy
@@ -303,6 +331,12 @@ class PPOTrainer:
                                           generator, memories)
                         memories = []
                         step += 1
+                        if (cfg.save_state_steps
+                                and step % cfg.save_state_steps == 0):
+                            # saved at a batch boundary with an empty
+                            # memory buffer, so the counters describe a
+                            # clean resume point
+                            pending_save = True
                         check_finite(agg["policy_loss"], step, "policy_loss",
                                      cfg.output_model_path)
                         check_finite(agg["value_loss"], step, "value_loss",
@@ -315,11 +349,26 @@ class PPOTrainer:
                                            saver, agg, "Val")
                         else:
                             self.metrics.log(step, **agg)
-        if cfg.eval_steps > 0 and step > 0 and step % cfg.eval_steps != 0:
-            # a decoupled eval cadence still scores and saves the end-of-run
-            # model, unless the last sweep evaluated these exact params
-            self._evaluate(step, actor, critic, eval_loader, saver, {},
-                           "Final val")
+                if pending_save and not memories:
+                    save_state()
+                    pending_save = False
+        improved = False
+        try:
+            if (cfg.eval_steps > 0 and step > 0
+                    and step % cfg.eval_steps != 0):
+                # a decoupled eval cadence still scores and saves the
+                # end-of-run model, unless the last sweep evaluated these
+                # exact params; before the .state flush below, so a best
+                # found here reaches the resume state
+                improved = self._evaluate(step, actor, critic, eval_loader,
+                                          saver, {}, "Final val")
+        finally:
+            # a run that ended off a clean batch boundary, or whose final
+            # eval raised the best, flushes its .state (a stale lower best
+            # would let a resumed run overwrite the best .bin with worse
+            # params); only where .state files are kept at all
+            if pending_save or (improved and cfg.save_state_steps):
+                save_state()
         self.logger.info(f"Best NDCG: {saver.best}")
         return astate, cstate, saver.best
 
@@ -328,8 +377,8 @@ class PPOTrainer:
         result = evaluate_ndcg(actor, eval_loader, put=self.ctx.put)
         self.logger.info(f"{label} NDCG:" + format_ndcg(result))
         self.metrics.log(step, ndcg_full=result[100000000], **agg)
-        saver.maybe_save(result[100000000], {"actor": actor,
-                                             "critic": critic})
+        return saver.maybe_save(result[100000000], {"actor": actor,
+                                                    "critic": critic})
 
     def _check_geometry(self, batch) -> None:
         """The loader's batches must have the model's widths: (B, T, S, D)

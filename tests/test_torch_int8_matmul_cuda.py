@@ -1,0 +1,112 @@
+"""The narrow int8 GEMM kernel (K2) against its plain version, on a CUDA card.
+
+Imports torch and numpy only, so it runs on a machine with a card and no
+JAX: `python -m pytest --noconftest -q tests/test_torch_int8_matmul_cuda.py`.
+Elsewhere every test skips.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lr2ppo_torch.ops import int8 as int8_ops
+from lr2ppo_torch.ops.int8 import quantize_weight
+from lr2ppo_torch.ops.int8_matmul import (int8_matmul, int8_matmul_reference,
+                                          supported)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _operands(rows, k, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((rows, k), dtype=np.float32))
+    w = torch.from_numpy(rng.standard_normal((n, k), dtype=np.float32)
+                         * 0.05)
+    q, s = quantize_weight(w)
+    return x.to(dev), q.to(dev), s.to(dev)
+
+
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,k,n", [
+    (1040, 256, 128),        # ragged: not a multiple of the 128-row block
+    (513, 3072, 768),        # the flagship fc2 site's widths
+    (512, 49152, 128),       # the corners of `supported`
+    (512, 128, 49152),
+    (512, 2048, 3072),
+    (512, 6144, 1024),
+])
+def test_kernel_is_bit_equal_to_plain_version(dev, rows, k, n, in_dtype,
+                                              out_dtype):
+    """The kernel does the plain version's operations in the same order with
+    exact integer products, so every element is equal; every shape
+    `supported` admits launches."""
+    x, q, s = _operands(rows, k, n, rows + k + n, dev)
+    x = x.to(in_dtype)
+    assert supported(x.shape, q.shape)
+    before = int8_matmul.launches
+    got = int8_matmul(x, q, s, out_dtype)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    ref = int8_matmul_reference(x, q, s, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (rows, n)
+    assert torch.equal(got, ref)
+
+
+def test_leading_dims_and_an_offset_view(dev):
+    x, q, s = _operands(1040, 256, 128, 3, dev)
+    flat = int8_matmul(x, q, s, torch.float32)
+    assert torch.equal(int8_matmul(x.reshape(8, 130, 256), q, s,
+                                   torch.float32).reshape(1040, 128), flat)
+    # a view 4 bytes into its storage: copied to an aligned buffer first
+    buf = torch.empty(1040 * 256 + 1, device=dev)
+    view = buf[1:].view(1040, 256)
+    view.copy_(x)
+    assert view.data_ptr() % 16
+    assert torch.equal(int8_matmul(view, q, s, torch.float32), flat)
+
+
+def test_kernel_refuses_what_it_does_not_take(dev):
+    x, q, s = _operands(1040, 256, 128, 4, dev)
+    before = int8_matmul.launches
+    with pytest.raises(ValueError):                 # float16 x
+        int8_matmul(x.half(), q, s, torch.float32)
+    with pytest.raises(ValueError):                 # a float weight
+        int8_matmul(x, q.float(), s, torch.float32)
+    with pytest.raises(ValueError):                 # a bfloat16 scale
+        int8_matmul(x, q, s.bfloat16(), torch.float32)
+    with pytest.raises(ValueError):                 # non-contiguous weight
+        wide = torch.zeros(128, 512, dtype=torch.int8, device=dev)
+        int8_matmul(x, wide[:, ::2], s, torch.float32)
+    with pytest.raises(ValueError):                 # unaligned weight
+        buf = torch.zeros(128 * 256 + 1, dtype=torch.int8, device=dev)
+        int8_matmul(x, buf[1:].view(128, 256), s, torch.float32)
+    with pytest.raises(ValueError):                 # too few rows
+        int8_matmul(x[:64], q, s, torch.float32)
+    with pytest.raises(ValueError):                 # the weight on the CPU
+        int8_matmul(x, q.cpu(), s, torch.float32)
+    assert int8_matmul.launches == before
+
+
+def test_int8_linear_launches_k2_at_narrow_sites(dev, monkeypatch):
+    """With NARROW_SITES on, a narrow compute-bound site launches the kernel
+    once and equals the s8 route; off, it launches nothing."""
+    monkeypatch.setattr(int8_ops, "INT8_DYNQUANT_MIN_FLOPS", 0)
+    x, q, s = _operands(1040, 256, 128, 5, dev)
+    before = int8_matmul.launches
+    dequant = int8_ops.int8_linear(x, q, s, torch.float32)
+    assert int8_matmul.launches == before
+    monkeypatch.setattr(int8_ops, "NARROW_SITES", True)
+    got = int8_ops.int8_linear(x, q, s, torch.float32)
+    assert int8_matmul.launches == before + 1
+    assert torch.equal(got, int8_matmul_reference(x, q, s, torch.float32))
+    assert float((got - dequant).abs().max()) < 0.05 * float(
+        dequant.abs().max())

@@ -118,3 +118,54 @@ def test_adafactor_and_unknown_schedules_raise():
                                                  optimizer="adafactor"), p, 4)
     with pytest.raises(ValueError, match="scheduler"):
         topt.make_schedule("wavy", 1.0, 4, 0.1)
+
+
+@pytest.mark.parametrize("moments", [None, "bfloat16"])
+def test_state_dict_round_trip_continues_the_trajectory(moments):
+    """AdamW.state_dict() into a fresh optimizer (the .state resume): the
+    moments keep their dtype, and the next steps equal the uninterrupted
+    optimizer's bit for bit."""
+    params, grads = _inputs()
+    cfg = dataclasses.replace(TOptimConfig(), learning_rate=LR,
+                              scheduler="linear", moment_dtype=moments)
+
+    def make(values):
+        named = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+                 for k, v in values.items()}
+        return named, topt.build_optimizer(cfg, named, TRAIN_STEPS)
+
+    def step(named, opt, g):
+        for k, p in named.items():
+            p.grad = torch.from_numpy(g[k].copy())
+        opt.step()
+        opt.zero_grad()
+
+    named, opt = make(params)
+    for g in grads[:3]:
+        step(named, opt, g)
+    saved = {k: v.clone() for k, v in opt.state_dict()["mu"].items()}
+    state = opt.state_dict()
+    named2, opt2 = make({k: p.detach().numpy() for k, p in named.items()})
+    opt2.load_state_dict(state)
+    assert opt2.count == 3
+    for k, v in opt2.mu.items():
+        assert v.dtype == saved[k].dtype and torch.equal(v, saved[k])
+    for g in grads[3:]:
+        step(named, opt, g)
+        step(named2, opt2, g)
+    for k in named:
+        assert torch.equal(named[k], named2[k])
+
+
+def test_load_state_dict_refuses_other_parameters():
+    params, _ = _inputs()
+    named = {k: torch.nn.Parameter(torch.from_numpy(v))
+             for k, v in params.items()}
+    opt = topt.build_optimizer(TOptimConfig(), named, TRAIN_STEPS)
+    state = opt.state_dict()
+    other = {k: v for k, v in state["mu"].items() if k != "fc.bias"}
+    with pytest.raises(KeyError, match="fc.bias"):
+        opt.load_state_dict({**state, "mu": other})
+    wrong = {**state["nu"], "fc.bias": torch.zeros(3)}
+    with pytest.raises(ValueError, match="fc.bias"):
+        opt.load_state_dict({**state, "nu": wrong})
