@@ -48,7 +48,7 @@ ENTRIES = {
         "lr2ppo_fused_attention": (
             [_vp] * 5 + [_i32] * 4 + [_i64] * 9 + [ctypes.c_float, _i32, _vp],
             _i32),
-        "lr2ppo_fused_attention_rows": ([_i32, _i32, _i32], _i32)},
+        "lr2ppo_fused_attention_path": ([_i32, _i32, _i32], _i32)},
 }
 
 _libs: dict = {}

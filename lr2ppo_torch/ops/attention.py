@@ -4,7 +4,9 @@ in one kernel (counterpart of lr2ppo_tpu/ops/pallas_attention.py).
 Two parts:
   * `fused_attention`, the wrapper: a CUDA tensor launches the hand-written
     kernel (kernels/csrc/fused_attention.cu) and a CPU tensor takes the
-    plain version;
+    plain version. The kernel has two paths: the short one for S <= 256
+    (both tower shapes), whole score rows in registers, and the long one
+    for longer sequences, score rows in shared memory;
   * `reference_attention`, the plain PyTorch version of the same arithmetic.
 
 q, k and v are (B, H, S, dh), float32 or bfloat16; key_bias is (B, S)
@@ -25,6 +27,8 @@ import torch
 from lr2ppo_torch.kernels import build
 
 MAX_HEAD_DIM = 128
+# the C entry's codes for the kernel's paths (0: the shape is refused)
+PATHS = {1: "short", 2: "long"}
 
 
 def reference_attention(q, k, v, key_bias, scale: float) -> torch.Tensor:
@@ -76,7 +80,8 @@ def fused_attention(q, k, v, key_bias, scale: float) -> torch.Tensor:
     tensors transposed); the kernel reads them through their strides. A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel, and
     anything else raises, as does a sequence too long for the kernel's
-    score block. `fused_attention.launches` counts kernel launches."""
+    score block. `fused_attention.launches` counts kernel launches and
+    `fused_attention.path_launches` counts them by path ("short", "long")."""
     _check(q, k, v, key_bias)
     if q.device.type == "cpu":
         return reference_attention(q, k, v, key_bias, scale)
@@ -89,8 +94,8 @@ def fused_attention(q, k, v, key_bias, scale: float) -> torch.Tensor:
     lib = build.library("fused_attention")
     code = build.DTYPE_CODES[q.dtype]
     with torch.cuda.device(q.device):
-        rows = lib.lr2ppo_fused_attention_rows(s, dh, code)
-        if rows == 0:
+        path = PATHS.get(lib.lr2ppo_fused_attention_path(s, dh, code))
+        if path is None:
             raise ValueError(
                 f"fused_attention: sequence {s} at head dim {dh} does not "
                 "fit the kernel's float32 score block in shared memory")
@@ -101,7 +106,14 @@ def fused_attention(q, k, v, key_bias, scale: float) -> torch.Tensor:
             float(scale), code, torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "fused_attention launch")
     fused_attention.launches += 1
+    fused_attention.path_launches[path] += 1
     return out
 
 
-fused_attention.launches = 0
+def reset_launches() -> None:
+    """Set the launch counts, in total and by path, to 0."""
+    fused_attention.launches = 0
+    fused_attention.path_launches = dict.fromkeys(PATHS.values(), 0)
+
+
+reset_launches()

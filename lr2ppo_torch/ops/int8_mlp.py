@@ -118,20 +118,20 @@ def int8_mlp(x, w1, s1, b1, w2, s2, b2,
     *lead, d = x.shape
     hdn = w1.shape[0]
     x2 = x.reshape(-1, d).contiguous()
+    if x2.data_ptr() % 16:               # the kernel reads x in 16 bytes
+        x2 = x2.clone()
     y = torch.empty_like(x2)
     lib = build.library("int8_mlp")
     code = build.DTYPE_CODES[out_dtype]
     with torch.cuda.device(x.device):
-        # where the hidden row block does not fit in shared memory (float32
-        # out at large H), the kernel keeps it in this scratch
+        # each resident block keeps its tile's int8 x rows and its hidden
+        # rows (in out_dtype, then in int8) in a slice of this scratch
         nbytes = lib.lr2ppo_int8_mlp_scratch_bytes(x2.shape[0], d, hdn, code)
-        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
-                   if nbytes else None)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
         err = lib.lr2ppo_int8_mlp(
             x2.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), y.data_ptr(),
-            x2.shape[0], d, hdn, code,
-            None if scratch is None else scratch.data_ptr(),
+            x2.shape[0], d, hdn, code, scratch.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "int8_mlp launch")
     int8_mlp.launches += 1

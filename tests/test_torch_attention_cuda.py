@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from lr2ppo_torch.ops.attention import fused_attention, reference_attention
+from lr2ppo_torch.ops.attention import (fused_attention, reference_attention,
+                                        reset_launches)
 
 pytestmark = pytest.mark.cuda
 
@@ -47,48 +48,77 @@ def _close(got, ref, dtype):
     return bool((diff <= atol + rtol * ref.float().abs()).all())
 
 
+def _path(s):
+    return "short" if s <= 256 else "long"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 5, 77, 64), (2, 4, 130, 128),
                                    (2, 12, 514, 64), (1, 2, 9, 40),
-                                   (2, 1, 1, 8)])
+                                   (2, 1, 1, 8), (2, 3, 50, 9),
+                                   (2, 2, 200, 8), (2, 2, 256, 128),
+                                   (1, 2, 300, 128)])
 def test_kernel_matches_plain_version(dev, shape, dtype):
     """Ragged sequences (not multiples of a tile), padded keys, XLM-R's 514
-    positions, head dims 128, 64 and the odd 40 and 8 (padded in the
-    kernel to the mma depth)."""
+    positions, head dims 128, 64 and the odd 40, 9 and 8 (padded in the
+    kernel to the mma depth; 9 also leaves the 16-byte copies), on both
+    sides of the short path's 256 keys."""
     q, k, v, bias = _inputs(shape, dtype, 7, dev)
     scale = 1.0 / math.sqrt(shape[-1])
-    before = fused_attention.launches
+    reset_launches()
     with torch.inference_mode():
         got = fused_attention(q, k, v, bias, scale)
         torch.cuda.synchronize()
         ref = reference_attention(q, k, v, bias, scale)
-    assert fused_attention.launches == before + 1
+    assert fused_attention.launches == 1
+    assert fused_attention.path_launches[_path(shape[2])] == 1
     assert got.dtype == dtype and got.shape == q.shape
     assert _close(got, ref, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_reads_strided_views(dev, dtype):
+@pytest.mark.parametrize("s", [1, 255, 256, 257])
+def test_path_boundary(dev, s, dtype):
+    """Both sides of the short path's limit: S <= 256 takes the short
+    path, 257 the long one, and each agrees with the plain version."""
+    q, k, v, bias = _inputs((2, 3, s, 64), dtype, 11 + s, dev)
+    reset_launches()
+    with torch.inference_mode():
+        got = fused_attention(q, k, v, bias, 0.125)
+        torch.cuda.synchronize()
+        ref = reference_attention(q, k, v, bias, 0.125)
+    other = "long" if _path(s) == "short" else "short"
+    assert fused_attention.path_launches == {_path(s): 1, other: 0}
+    assert fused_attention.launches == 1
+    assert _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [37, 197, 300])
+def test_kernel_reads_strided_views(dev, s, dtype):
     """The encoder hands (B, S, H, dh) tensors transposed to (B, H, S, dh):
-    the kernel reads them through their strides."""
-    b, s, h, dh = 2, 37, 3, 64
+    the kernel reads them through their strides, on either path."""
+    b, h, dh = 2, 3, 64
     rng = np.random.RandomState(1)
     q, k, v = (torch.from_numpy(rng.randn(b, s, h, dh).astype(np.float32))
                .to(dev, dtype).transpose(1, 2) for _ in range(3))
     assert not q.is_contiguous()
     bias = torch.zeros(b, s, device=dev)
     bias[1, 20:] = -10000.0
+    reset_launches()
     with torch.no_grad():
         got = fused_attention(q, k, v, bias, 0.125)
         want = fused_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), bias, 0.125)
     torch.cuda.synchronize()
+    assert fused_attention.path_launches[_path(s)] == 2
     assert torch.equal(got, want)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     q, k, v, bias = _inputs((1, 2, 16, 64), torch.float32, 3, dev)
     before = fused_attention.launches
+    long_before = fused_attention.path_launches["long"]
     with pytest.raises(RuntimeError, match="inference-only"):
         fused_attention(q.clone().requires_grad_(True), k, v, bias, 0.125)
     big = torch.zeros(1, 2, 16, 136, device=dev)
@@ -100,6 +130,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         fused_attention(long, long, long, torch.zeros(1, 3000, device=dev),
                         0.1)
     assert fused_attention.launches == before
+    assert fused_attention.path_launches["long"] == long_before
     # nothing left behind: the next launch runs
     with torch.no_grad():
         out = fused_attention(q, k, v, bias, 0.125)
