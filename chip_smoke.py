@@ -54,7 +54,8 @@ Phases, each of which raises on failure (exit code other than 0):
      float32) and the corners of its shape gate; at the two fc2 sites its
      time beside the plain version's, the dequant + bf16 route it replaces
      by default, the unfused s8 route (quantize_rows + torch._int_mm +
-     epilogue), torch._int_mm alone and the bound;
+     epilogue), torch._int_mm alone, the bound and the share of it
+     reached;
  12. the three-stage recipe at the flagship width on synthetic batches:
      stage 1 (PointwiseTrainer.fit, batch 32 x 32 tags, 4 steps) and stage
      2 (RewardTrainer.fit, batch 32 pairs, 4 steps) under --profile fast,
@@ -64,7 +65,8 @@ Phases, each of which raises on failure (exit code other than 0):
      and one rollout's time in that routing and in the default one; then
      evaluate_cases (ppo_eval) on the stage-3 best `.bin`, its NDCG equal
      to the trainer's best; and one served batch of phase 4's int8 model in
-     the narrow routing, 2 K2 launches, scores within phase 4's gate.
+     the narrow routing, 2 K2 launches, scores within phase 4's gate, and
+     that batch's host-to-host time in the narrow and the default routing.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -1170,6 +1172,7 @@ def check_k2(name: str, seed: int, dev, card_line: str) -> dict:
         nbytes = (rows * k * x.element_size() + n * k + 4 * n
                   + rows * n * torch.tensor([], dtype=out_dt).element_size())
         res.update(bound(nbytes, ops, INT8_TENSOR_OPS_PER_S))
+        res["bound_share"] = res["bound_ms"] / res["ms"]
         res["card"] = card_line
     emit(phase="k2_vs_plain", **res)
     return res
@@ -1476,8 +1479,19 @@ def served_narrow(served: dict, dev, card_line: str) -> int:
         ref = read_rankings(paths["bfloat16"], ds)
     spread = max(float(np.abs(v).max()) for v in ref.values())
     err = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
+    # the batch's host-to-host ms (H2D included) in K2's routing and in the
+    # default one (K1), 3 batches each, in turns
+    batch_ms = {"narrow": [], "default": []}
+    for routing in ("narrow", "default", "default", "narrow") * 2:
+        with int8_routing(**(NARROW if routing == "narrow" else {})):
+            sec = serve.serve_batches(served["int8"], [served["batch"]], ds,
+                                      None, dev)["batch_seconds"]
+        batch_ms[routing] += [1e3 * t for t in sec]
     emit(phase="serve_narrow", kernel_launches=launches, items=len(got),
-         int8_vs_bf16_max_err=err, score_spread=spread, card=card_line)
+         int8_vs_bf16_max_err=err, score_spread=spread,
+         batch_ms_narrow_k2=statistics.median(batch_ms["narrow"]),
+         batch_ms_default_k1=statistics.median(batch_ms["default"]),
+         card=card_line)
     if launches != 2 or not err < 0.05 * spread:
         raise AssertionError(f"served batch in K2's routing: {launches} "
                              f"launches, error {err}, spread {spread}")

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Time the fused int8 FFN (K1) and the tower attention kernel (K4) of one
-or more checkouts of this repository on one CUDA card, in the order given:
+"""Time the fused int8 FFN (K1), the narrow int8 GEMM (K2), the tower
+attention kernel (K4) and hash dropout of one or more checkouts of this
+repository on one CUDA card, in the order given:
 
     python3 kernel_ab.py _tree/parent . . _tree/parent
 
 Each tree must lie inside this checkout (unpack another commit with `git
 archive` into a git-ignored directory such as `_tree/`). Each runs in a
 process of its own, imports its own `chip_smoke.py` and calls its
-`check_kernel` (phase 3) and `check_attention` (phase 9), so its kernels
-build from its own sources and the shapes, inputs and checks are that
-phase's: K1 at the rollout's 100,352 and a served batch's 200,704 rows (D
-768, H 3072, bfloat16), K4 at the text (32, 12, 196, 64) and image (32, 12,
-197, 64) shapes in float32 and bfloat16. Only the timing is made alike for
-every tree: each timed run of the tree's `cuda_ms` is n calls back to back
-(3 for K1, 20 for K4), divided by n, so a time is the device's and not the
+`check_kernel` (phase 3), `check_k2` (phase 11), `check_attention` (phase
+9) and `check_dropout` (phase 6), so its kernels build from its own sources
+and the shapes, inputs and checks are that phase's: K1 at the rollout's
+100,352 and a served batch's 200,704 rows (D 768, H 3072, bfloat16), K2 at
+the rollout and serve fc2 sites (those rows x 3072 -> 768, bfloat16), K4 at
+the text (32, 12, 196, 64) and image (32, 12, 197, 64) shapes in float32
+and bfloat16, hash dropout at the update's 100,352 x 3072 site in
+bfloat16. Only the timing is made alike for every tree: each timed run of
+the tree's `cuda_ms` is n calls back to back (3 for K1, K2 and hash
+dropout, 20 for K4), divided by n, so a time is the device's and not the
 host's time to launch. Prints the card's name and power limit, then each
 tree's name and its phases' JSON lines.
 """
@@ -25,7 +29,8 @@ import os
 import subprocess
 import sys
 
-REPS = {"int8_mlp": 3, "fused_attention": 20}
+REPS = {"int8_mlp": 3, "int8_matmul": 3, "fused_attention": 20,
+        "hash_dropout": 3}
 
 
 def back_to_back(cuda_ms, n: int):
@@ -52,10 +57,17 @@ def child(tree: str) -> None:
     for rows in (cs.ROLLOUT_ROWS, cs.SERVE_ROWS):
         cs.check_kernel(rows, torch.bfloat16, 0, dev, True, card_line)
         torch.cuda.empty_cache()
+    cs.cuda_ms = back_to_back(own, REPS["int8_matmul"])
+    for name in ("rollout", "serve"):
+        cs.check_k2(name, 0, dev, card_line)
+        torch.cuda.empty_cache()
     cs.cuda_ms = back_to_back(own, REPS["fused_attention"])
     for name in ("text", "image"):
         for dtype in (torch.float32, torch.bfloat16):
             cs.check_attention(name, dtype, 0, dev, card_line)
+    cs.cuda_ms = back_to_back(own, REPS["hash_dropout"])
+    cs.check_dropout("hash_dropout", (cs.ROLLOUT_ROWS, cs.H), torch.bfloat16,
+                     1, dev, True, card_line)
 
 
 def main(argv: list) -> None:

@@ -41,7 +41,9 @@ ENTRIES = {
                             _i32),
         "lr2ppo_int8_mlp_scratch_bytes": ([_i64, _i32, _i32, _i32], _i64)},
     "int8_matmul": {
-        "lr2ppo_int8_matmul": ([_vp] * 4 + [_i64] + [_i32] * 4 + [_vp], _i32)},
+        "lr2ppo_int8_matmul": ([_vp] * 4 + [_i64] + [_i32] * 4 + [_vp, _vp],
+                               _i32),
+        "lr2ppo_int8_matmul_scratch_bytes": ([_i64, _i32], _i64)},
     "hash_dropout": {"lr2ppo_hash_dropout": _ELEMENTWISE},
     "philox_dropout": {"lr2ppo_philox_dropout": _ELEMENTWISE},
     "fused_attention": {

@@ -89,10 +89,14 @@ def int8_matmul(x, w, w_scale, out_dtype=torch.bfloat16) -> torch.Tensor:
     y = torch.empty(x2.shape[0], n, dtype=out_dtype, device=x.device)
     lib = build.library("int8_matmul")
     with torch.cuda.device(x.device):
+        # each resident block quantizes its tile's rows of x into a slice
+        # of this scratch, which the kernel's TMA loads read back
+        nbytes = lib.lr2ppo_int8_matmul_scratch_bytes(x2.shape[0], k)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
         err = lib.lr2ppo_int8_matmul(
             x2.data_ptr(), w.data_ptr(), w_scale.data_ptr(), y.data_ptr(),
             x2.shape[0], k, n, build.DTYPE_CODES[x.dtype],
-            build.DTYPE_CODES[out_dtype],
+            build.DTYPE_CODES[out_dtype], scratch.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "int8_matmul launch")
     int8_matmul.launches += 1

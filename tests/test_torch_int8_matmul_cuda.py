@@ -34,15 +34,37 @@ def _operands(rows, k, n, seed, dev):
     return x.to(dev), q.to(dev), s.to(dev)
 
 
+# 16-byte words of an x row the kernel holds in a warp's registers
+# (int8_matmul.cu:HELD, 12 a lane): rows of up to 6,144 bytes are read
+# once, wider ones in two streamed passes
+HELD_ROW_BYTES = 32 * 12 * 16
+SMS = 132                    # an H100 SXM: the persistent grid's blocks
+
+
+def _check(x, q, s, out_dtype):
+    """One launch, counted, bit-equal to the plain version."""
+    before = int8_matmul.launches
+    got = int8_matmul(x, q, s, out_dtype)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    ref = int8_matmul_reference(x, q, s, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (*x.shape[:-1], q.shape[0])
+    assert torch.equal(got, ref)
+    return got
+
+
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,k,n", [
-    (1040, 256, 128),        # ragged: not a multiple of the 128-row block
+    (1040, 256, 128),        # ragged: not a multiple of the 128-row tile
     (513, 3072, 768),        # the flagship fc2 site's widths
     (512, 49152, 128),       # the corners of `supported`
     (512, 128, 49152),
     (512, 2048, 3072),
     (512, 6144, 1024),
+    (512, 128, 384),         # K = 128; N ends on half a 256-column chunk
+    (128 * SMS - 1, 3072, 768),   # one tile a block, the last one ragged
+    (128 * SMS + 1, 3072, 768),   # one block takes a second, 1-row tile
 ])
 def test_kernel_is_bit_equal_to_plain_version(dev, rows, k, n, in_dtype,
                                               out_dtype):
@@ -52,13 +74,46 @@ def test_kernel_is_bit_equal_to_plain_version(dev, rows, k, n, in_dtype,
     x, q, s = _operands(rows, k, n, rows + k + n, dev)
     x = x.to(in_dtype)
     assert supported(x.shape, q.shape)
-    before = int8_matmul.launches
-    got = int8_matmul(x, q, s, out_dtype)
-    torch.cuda.synchronize()
-    assert int8_matmul.launches == before + 1
-    ref = int8_matmul_reference(x, q, s, out_dtype)
-    assert got.dtype == out_dtype and got.shape == (rows, n)
-    assert torch.equal(got, ref)
+    _check(x, q, s, out_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("above", [0, 128])
+def test_rows_held_in_registers_and_streamed(dev, dtype, above):
+    """K at the widest row a warp holds in registers, and 128 above it,
+    where the row is read twice (amax, then values)."""
+    k = HELD_ROW_BYTES // torch.tensor([], dtype=dtype).element_size() + above
+    x, q, s = _operands(700, k, 256, k + above, dev)
+    _check(x.to(dtype), q, s, torch.bfloat16)
+
+
+@pytest.mark.parametrize("rows", [511, 512, 513])
+def test_row_gate(dev, rows):
+    """The TPU kernel's 512-row block is the gate: 511 rows raise before
+    any launch, 512 and 513 launch."""
+    x, q, s = _operands(rows, 256, 128, rows, dev)
+    if rows < 512:
+        before = int8_matmul.launches
+        with pytest.raises(ValueError):
+            int8_matmul(x, q, s, torch.float32)
+        assert int8_matmul.launches == before
+    else:
+        _check(x, q, s, torch.float32)
+
+
+def test_float32_in_bfloat16_out_on_a_second_stream(dev):
+    """A launch on another stream than the current one's default gives the
+    same bits, and counts once."""
+    x, q, s = _operands(2000, 1024, 384, 6, dev)
+    want = _check(x, q, s, torch.bfloat16)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        before = int8_matmul.launches
+        got = int8_matmul(x, q, s, torch.bfloat16)
+        assert int8_matmul.launches == before + 1
+    side.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_leading_dims_and_an_offset_view(dev):
