@@ -66,7 +66,21 @@ Phases, each of which raises on failure (exit code other than 0):
      evaluate_cases (ppo_eval) on the stage-3 best `.bin`, its NDCG equal
      to the trainer's best; and one served batch of phase 4's int8 model in
      the narrow routing, 2 K2 launches, scores within phase 4's gate, and
-     that batch's host-to-host time in the narrow and the default routing.
+     that batch's host-to-host time in the narrow and the default routing;
+ 13. the tabular (LETOR) recipe at full width (768, 8 heads, one XiT block,
+     trad_dims [46, 136]) on synthetic data in the published shapes of
+     MQ2008 (9,630 rows x 46 features, labels 0-2) and MSLR-Web10K (cut to
+     60,000 rows x 136 features, labels 0-4): hash dropout against its
+     plain version at the tabular sites (512 x 3072, 512 x 768, 640 x
+     3072); preprocess_data svm2tsv (the native parse equal to the numpy
+     parse), disjoint and check, grouping to 20 documents; the 2-data
+     trainer (4 steps of each domain) and project_tsv of MQ2008 to 768
+     wide, combined with 50 projected Web10K queries into the merged set;
+     stages 1 and 2 (4 steps each) and stage 3 (4 rollouts, 4 updates)
+     under --profile fast, hash dropout's launches counted at every stage,
+     no K1 launch and every int8 site on the dequant route; one rollout's
+     and one update's times and a trace of the two; ppo_eval_trad's
+     evaluate_cases, its NDCG equal to stage 3's best.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -85,17 +99,26 @@ import sys
 import tempfile
 import time
 from contextlib import contextmanager
+from itertools import islice
 
 import numpy as np
 import torch
 
-from lr2ppo_torch.cli import preprocess, serve
+from lr2ppo_torch.cli import preprocess, preprocess_data, serve
+from lr2ppo_torch.cli._common import (force_family, letor_pointwise_loaders,
+                                      letor_ppo_loaders,
+                                      letor_reward_loaders,
+                                      letor_two_data_loaders)
 from lr2ppo_torch.config import ModelConfig, parse_config
+from lr2ppo_torch.data.letor import (LetorQueries, group_queries,
+                                     parse_svmlight_file, read_tsv, write_tsv)
 from lr2ppo_torch.data.tokenizers import XLMRobertaTokenizer
 from lr2ppo_torch.device import require_cuda
+from lr2ppo_torch import native as native_parser
 from lr2ppo_torch.kernels import build
 from lr2ppo_torch.models.layers import init_weights
-from lr2ppo_torch.models.scorer import ActorCritic, ScoreModel, SeqScoreModel
+from lr2ppo_torch.models.scorer import (ActorCritic, ScoreModel,
+                                        SeqScoreModel, TwoDataScoreModel)
 from lr2ppo_torch.ops.attention import (fused_attention, reference_attention,
                                         reset_launches)
 from lr2ppo_torch.ops.dropout import philox_dropout, philox_dropout_reference
@@ -104,12 +127,13 @@ from lr2ppo_torch.ops import int8 as int8_ops
 from lr2ppo_torch.ops.int8 import quantize_rows, quantize_weight
 from lr2ppo_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
 from lr2ppo_torch.ops.int8_mlp import int8_mlp, int8_mlp_reference
-from lr2ppo_torch.train.checkpoints import load_any
+from lr2ppo_torch.train.checkpoints import load_any, trad_dims_from_state_dict
 from lr2ppo_torch.train.common import init_state
 from lr2ppo_torch.train.evaluate import evaluate_cases, scores_and_ndcg
 from lr2ppo_torch.train.optim import build_optimizer
 from lr2ppo_torch.train import pointwise, reward
-from lr2ppo_torch.train.pointwise import PointwiseTrainer
+from lr2ppo_torch.train.pointwise import (PointwiseTrainer, TwoDataTrainer,
+                                          project_tsv)
 from lr2ppo_torch.train.reward import RewardTrainer
 from lr2ppo_torch.towers import (TowerConfig, TowerModel,
                                  load_tower_checkpoint)
@@ -448,8 +472,8 @@ def kernel_class(name: str) -> str:
 def trace_summary(prof) -> dict:
     """A torch.profiler trace summed by kernel name: the traced device
     window, host-to-device copy time, kernel time (and that of each of the
-    port's kernels), the share of the window in which no kernel ran, and
-    the ten kernels that took longest."""
+    port's kernels), the count of kernels launched, the share of the window
+    in which no kernel ran, and the ten kernels that took longest."""
     from torch.autograd import DeviceType
 
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -475,6 +499,7 @@ def trace_summary(prof) -> dict:
         "traced_window_ms": window / 1e3,
         "traced_h2d_ms": sum(e.time_range.elapsed_us() for e in h2d) / 1e3,
         "traced_kernel_ms": sum(ms for ms, _ in by_kernel.values()),
+        "traced_kernels": len(kernels),
         **{f"traced_{name}_ms": sum(ms for k, (ms, _) in by_kernel.items()
                                     if name in k)
            for name in build.ENTRIES},
@@ -488,7 +513,7 @@ def trace_summary(prof) -> dict:
 
 DROPOUT_KERNELS = {
     "hash_dropout": (hash_dropout, hash_dropout_reference,
-                     "lr2ppo_tpu/ops/hash_dropout.py:88"),
+                     "lr2ppo_tpu/ops/hash_dropout.py:89"),
     "philox_dropout": (philox_dropout, philox_dropout_reference,
                        "lr2ppo_tpu/ops/pallas_dropout.py:70"),
 }
@@ -1327,7 +1352,7 @@ def stage2(tmp: str, seed: int, dev, card_line: str) -> str:
     SeqScoreModel(cfg.model, trainer.dtype, device="meta").load_state_dict(
         load_any(cfg.output_model_path), strict=True, assign=True)
     b = trainer.ctx.put(loader.batches[0])
-    train_step = reward.make_train_step(reward.MARGIN)
+    train_step = reward.make_train_step(trainer.margin)
     gen = torch.Generator().manual_seed(seed)
     step_ms = cuda_ms(lambda: train_step(state, gen, b["text"], b["img"],
                                          b["chosen_index"],
@@ -1515,6 +1540,456 @@ def recipe_path(args, dev, card_line: str, served: dict) -> int:
     return launches + served_narrow(served, dev, card_line)
 
 
+# Phase 13: the tabular (LETOR) recipe. MQ2008 and MSLR-Web10K in their
+# published shapes (SURVEY.md section 5): (training rows, features,
+# relevance labels, mean documents a query). The Web10K file is cut from
+# 723,412 rows to 60,000 (about 500 queries of ~120 documents) to keep the
+# phase inside the time limit; every query is resampled to 20 documents, as
+# convert_to_h5py.py does.
+LETOR_SHAPES = {"mq2008": (9630, 46, 3, 20), "web10k": (60000, 136, 5, 120)}
+LETOR_DOCS = 20
+TAB_BS, TAB_STEPS = 32, 4        # the 2-data trainer and stages 1 and 2
+TAB_ROLLOUTS = 4                 # stage 3: 2 sweeps of 2 updates
+WEB10K_PROJECTED = 50            # Web10K queries projected for the merged set
+XIT_SITES = 3                    # dropout sites of one XiT block
+TAB_WATCHED = ("head.weight", "xit.0.0.1.fn.1.0.weight",
+               "out_layer.fc1.weight")
+
+
+class Capped:
+    """A loader's first `n` batches of every epoch: the phase caps each
+    trainer's run by its loader, as phase 7 caps PPO's with its list of
+    batches. Everything else is the loader's."""
+
+    def __init__(self, loader, n: int):
+        self.loader, self.n = loader, n
+
+    def __len__(self):
+        return min(self.n, len(self.loader))
+
+    def __iter__(self):
+        return islice(iter(self.loader), self.n)
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+
+def letor_svmlight(path: str, name: str, seed: int) -> None:
+    """Write an svmlight file in the shape of LETOR dataset `name`: queries
+    of half to one and a half times the mean document count, standard
+    normal features, and each query's labels the quantiles of a hidden
+    linear score plus noise, so that NDCG can move."""
+    rows, feat, labels, mean = LETOR_SHAPES[name]
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < rows:
+        sizes.append(int(rng.integers(mean // 2, mean * 3 // 2 + 1)))
+    sizes[-1] -= sum(sizes) - rows
+    x = rng.standard_normal((rows, feat)).astype(np.float32)
+    w = rng.standard_normal(feat)
+    score = x @ w + 0.5 * np.linalg.norm(w) * rng.standard_normal(rows)
+    label = np.zeros(rows)
+    for start, n in zip(np.cumsum([0] + sizes[:-1]), sizes):
+        rank = np.argsort(np.argsort(-score[start:start + n])) / n
+        label[start:start + n] = labels - 1 - np.floor(rank * labels)
+    qid = np.repeat(np.arange(1, len(sizes) + 1), sizes)
+    np.savetxt(path, np.column_stack([label, qid, x]), delimiter=" ",
+               fmt=["%d", "qid:%d"] + [f"{j + 1}:%.6g" for j in range(feat)])
+
+
+def split_queries(groups: dict, test_qids=None):
+    """(train, test) LetorQueries: the queries of `test_qids`, or every
+    tenth query, held out."""
+    qids = sorted(groups)
+    test = set(qids[::10] if test_qids is None else test_qids)
+    return (LetorQueries({q: g for q, g in groups.items() if q not in test}),
+            LetorQueries({q: g for q, g in groups.items() if q in test}))
+
+
+def letor_offline(tmp: str, seed: int, card_line: str) -> dict:
+    """Phase 13, step 1: both svmlight files through preprocess_data
+    svm2tsv (the native parser, built first), each parse equal to the
+    numpy parser's on the same file; disjoint on MQ2008's qids, then check; grouping to 20
+    documents. Returns the tsv paths and the grouped (train, test) queries
+    of each dataset."""
+    t0 = time.perf_counter()
+    native_parser.load()                 # g++ builds it here, untimed below
+    res, out = {"parser_build_seconds": time.perf_counter() - t0}, {}
+    for i, name in enumerate(LETOR_SHAPES):
+        rows, feat, labels, _ = LETOR_SHAPES[name]
+        svm, tsv = (os.path.join(tmp, f"{name}.{ext}")
+                    for ext in ("svm", "tsv"))
+        letor_svmlight(svm, name, seed + i)
+        t0 = time.perf_counter()
+        native = parse_svmlight_file(svm, feat)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = parse_svmlight_file(svm, feat, use_native=False)
+        numpy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        preprocess_data.main(["svm2tsv", svm, tsv, "--num_features",
+                              str(feat)])
+        svm2tsv_s = time.perf_counter() - t0
+        arr = read_tsv(tsv)
+        res[name] = {"rows": rows, "features": feat,
+                     "queries": len(np.unique(native[:, 1])),
+                     "native_equals_numpy": bool(np.array_equal(native,
+                                                                plain)),
+                     "tsv_equals_parse": bool(np.array_equal(arr, native)),
+                     "labels": sorted(np.unique(native[:, 0]).tolist()),
+                     "native_rows_per_s": rows / native_s,
+                     "numpy_rows_per_s": rows / numpy_s,
+                     "svm2tsv_seconds": svm2tsv_s}
+        out[name] = (tsv, arr)
+        if not (res[name]["native_equals_numpy"]
+                and res[name]["tsv_equals_parse"]
+                and native.shape == (rows, 2 + feat)
+                and res[name]["labels"] == list(range(labels))):
+            raise AssertionError(f"the {name} parse: {res[name]}")
+    disjoint = os.path.join(tmp, "mq2008_disjoint.tsv")
+    preprocess_data.main(["disjoint", out["mq2008"][0], disjoint])
+    out["mq2008"] = (disjoint, read_tsv(disjoint))
+    # exits 1 where the two share a qid
+    preprocess_data.main(["check", disjoint, out["web10k"][0]])
+    for name, (tsv, arr) in out.items():
+        out[name] = (tsv, split_queries(group_queries(arr, LETOR_DOCS)))
+    emit(phase="tabular_offline", **res, card=card_line)
+    return out
+
+
+def tab_config(tmp: str, name: str, seed: int, *flags):
+    """A tabular stage under --profile fast, one epoch."""
+    return force_family(parse_config(
+        ["--profile", "fast", "--epochs_num", "1", "--seed", str(seed),
+         "--output_model_path", os.path.join(tmp, f"{name}.bin"),
+         "--log_path", os.path.join(tmp, f"{name}.log"), *flags]), "tabular")
+
+
+def tab_fit(phase: str, trainer, fit, model_cls, step, batch,
+            want_steps: int, xit_blocks: int, card_line: str,
+            watched=TAB_WATCHED, **extra):
+    """One tabular training stage: `fit()` with hash dropout's count set to
+    0 just before it and read just after; the best `.bin` reloaded strict
+    into `model_cls`; `step(state, generator, batch)` timed once more on a
+    device-resident batch (CUDA events); the stage's line. Checks every
+    step taken with a finite loss, the watched parameters moved, and 2 ·
+    3 hash dropout launches a step for each XiT block a step runs
+    (forward and backward, 3 sites a block). Returns (state, launches)."""
+    seen = watch_params(trainer, watched)
+    hash_dropout.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, best = fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, steps = hash_dropout.launches, state.step
+    recs = records(trainer.cfg)
+    losses = [r["loss"] for r in recs if "loss" in r]
+    move = moved(seen)
+    model_cls(trainer.cfg.model, trainer.dtype, device="meta").load_state_dict(
+        load_any(trainer.cfg.output_model_path), strict=True, assign=True)
+    b = trainer.ctx.put(batch)
+    gen = torch.Generator().manual_seed(0)
+    ms = cuda_ms(lambda: step(state, gen, b), iters=3, warmup=1)
+    evals = {k: [r[k] for r in recs if k in r] for k in ("ndcg_full", "acc")}
+    emit(phase=phase, params=sum(p.numel() for p in state.model.parameters()),
+         steps=steps, losses=losses, **{k: v for k, v in evals.items() if v},
+         best=best, moved=move, hash_dropout_launches=launches,
+         fit_seconds=wall, step_ms=ms, card=card_line, **extra)
+    want_launches = 2 * XIT_SITES * xit_blocks * want_steps
+    if not (steps == want_steps == len(losses) and np.isfinite(losses).all()
+            and 0.0 <= best <= 1.0 and all(v > 0 for v in move.values())
+            and launches == want_launches):
+        raise AssertionError(
+            f"{phase}: {steps} steps, losses {losses}, best {best}, moved "
+            f"{move}, {launches} hash dropout launches (expected "
+            f"{want_steps} steps and {want_launches} launches)")
+    return state, launches
+
+
+def pointwise_step(state, gen, b):
+    return pointwise.make_train_step(state.model.cfg.mode)(
+        state, gen, b["text"], None, b["tgts"])
+
+
+def two_data(tmp: str, seed: int, dev, card_line: str, data: dict):
+    """Phase 13, step 2: TwoDataTrainer.fit_two on the two datasets at
+    batch 32 queries x 20 documents, 4 steps of each in turns (MQ2008's 46
+    features through text_proj, Web10K's 136 through text_proj3), an eval
+    of the mean NDCG@full over both test splits; a Web10K step timed.
+    Returns the config, the best `.bin` and hash dropout's launches."""
+    cfg = tab_config(tmp, "two_data", seed, "--batch_size", str(TAB_BS),
+                     "--report_steps", "1")
+    cfg, loaders, evs = letor_two_data_loaders(
+        cfg, [data[n][1][0] for n in LETOR_SHAPES],
+        [data[n][1][1] for n in LETOR_SHAPES])
+    if list(cfg.model.trad_dims) != [LETOR_SHAPES[n][1]
+                                     for n in LETOR_SHAPES]:
+        raise AssertionError(f"trad_dims {cfg.model.trad_dims}")
+    trainer = TwoDataTrainer(cfg, dev)
+    _, launches = tab_fit(
+        "tabular_two_data", trainer, lambda: trainer.fit_two(
+            [Capped(l, TAB_STEPS) for l in loaders], evs),
+        TwoDataScoreModel, pointwise_step, loaders[1].first_batch(),
+        2 * TAB_STEPS, 1, card_line,
+        watched=TAB_WATCHED + ("text_proj.fc1.weight",
+                               "text_proj3.fc1.weight"),
+        trad_dims=cfg.model.trad_dims)
+    return cfg, cfg.output_model_path, launches
+
+
+def projection(tmp: str, cfg, two_bin: str, dev, card_line: str,
+               data: dict):
+    """Phase 13, step 3: project_tsv of MQ2008's 9,630 rows and of the
+    first 50 Web10K queries to 768 wide, with the 2-data `.bin`'s dims;
+    preprocess_data combine of the two into the merged set, grouped to 20
+    documents. Returns the merged (train, test) queries: test is MQ2008's
+    held-out queries, as the reference's merged test split is the
+    target's."""
+    sd = load_any(two_bin)
+    dims = trad_dims_from_state_dict(sd)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, trad_dims=dims))
+    web_tsv = data["web10k"][0]
+    web = read_tsv(web_tsv)
+    keep = np.isin(web[:, 1], np.unique(web[:, 1])[:WEB10K_PROJECTED])
+    write_tsv(web[keep], os.path.join(tmp, "web10k_part.tsv"))
+    res, projected = {}, []
+    for name, src in (("mq2008", data["mq2008"][0]),
+                      ("web10k", os.path.join(tmp, "web10k_part.tsv"))):
+        out = os.path.join(tmp, f"{name}_768.tsv")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        project_tsv(cfg, sd, src, out, device=dev)
+        seconds = time.perf_counter() - t0
+        arr, rows = read_tsv(out), read_tsv(src)
+        res[name] = {"shape": list(arr.shape), "seconds": seconds,
+                     "rows_per_s": arr.shape[0] / seconds,
+                     "finite": bool(np.isfinite(arr).all()),
+                     "head_kept": bool(np.array_equal(arr[:, :2],
+                                                      rows[:, :2]))}
+        if not (arr.shape == (rows.shape[0], 2 + D) and res[name]["finite"]
+                and res[name]["head_kept"]):
+            raise AssertionError(f"projected {name}: {res[name]}")
+        projected.append(out)
+    merged_tsv = os.path.join(tmp, "merged_768.tsv")
+    preprocess_data.main(["combine", *projected, merged_tsv])
+    merged = group_queries(read_tsv(merged_tsv), LETOR_DOCS)
+    train, test = split_queries(merged, data["mq2008"][1][1].qids)
+    emit(phase="tabular_projection", trad_dims=dims, **res,
+         merged_queries={"train": len(train.qids), "test": len(test.qids)},
+         card=card_line)
+    if res["mq2008"]["shape"] != [LETOR_SHAPES["mq2008"][0], 2 + D]:
+        raise AssertionError(f"projected MQ2008 {res['mq2008']['shape']}")
+    return train, test
+
+
+def tab_stage1(tmp: str, seed: int, dev, card_line: str, train, test):
+    """Phase 13, step 4: PointwiseTrainer.fit on the merged set at batch 32
+    queries x 20 documents, 4 steps ('reg'), an eval after each. Returns
+    the best `.bin` and hash dropout's launches."""
+    cfg = tab_config(tmp, "tab_stage1", seed, "--batch_size", str(TAB_BS),
+                     "--report_steps", "1")
+    trainer = PointwiseTrainer(cfg, dev)
+    loader, ev = letor_pointwise_loaders(cfg, train, test)
+    _, launches = tab_fit(
+        "tabular_stage1", trainer,
+        lambda: trainer.fit(Capped(loader, TAB_STEPS), ev), ScoreModel,
+        pointwise_step, loader.first_batch(), TAB_STEPS, 1, card_line)
+    return cfg.output_model_path, launches
+
+
+def tab_stage2(tmp: str, seed: int, dev, card_line: str, train, test):
+    """Phase 13, step 5: RewardTrainer.fit (margin 0.01) on the merged set
+    at batch 32 pairs, 4 steps, the pairwise accuracy on 20 pairs of each
+    test query after each; each step runs two forwards of the trunk's XiT
+    and `xitt`. Returns the best `.bin` and hash dropout's launches."""
+    cfg = tab_config(tmp, "tab_stage2", seed, "--batch_size", str(TAB_BS),
+                     "--report_steps", "1")
+    trainer = RewardTrainer(cfg, dev)
+    if trainer.margin != 0.01:
+        raise AssertionError(f"tabular margin {trainer.margin}")
+    loader, ev = letor_reward_loaders(cfg, train_q=train, eval_q=test)
+    train_step = reward.make_train_step(trainer.margin)
+    _, launches = tab_fit(
+        "tabular_stage2", trainer,
+        lambda: trainer.fit(Capped(loader, TAB_STEPS), ev), SeqScoreModel,
+        lambda state, gen, b: train_step(state, gen, b["text"], None,
+                                         b["chosen_index"],
+                                         b["reject_index"]),
+        loader.first_batch(), TAB_STEPS, 4, card_line)
+    return cfg.output_model_path, launches
+
+
+@contextmanager
+def int8_sites():
+    """The (rows, in, out) of every int8_linear call in the block."""
+    seen, real = [], int8_ops.int8_linear
+
+    def spy(x, weight, *a, **k):
+        seen.append((x.numel() // x.shape[-1], weight.shape[1],
+                     weight.shape[0]))
+        return real(x, weight, *a, **k)
+
+    int8_ops.int8_linear = spy
+    try:
+        yield seen
+    finally:
+        int8_ops.int8_linear = real
+
+
+def tab_stage3(tmp: str, seed: int, dev, card_line: str, train, test,
+               actor_bin: str, reward_bin: str) -> int:
+    """Phase 13, steps 6 and 7: PPOTrainer.fit from both `.bin`s at batch
+    256 x 2 documents, 4 rollouts and 2 sweeps of 2 updates, an eval after
+    each sweep, under --profile fast (int8 actor twin, int8 reward, hash
+    dropout: 9 forward and 9 backward launches an update); no K1 and every
+    int8 site on the dequant route; one rollout's and one update's times
+    and a trace of the two; then ppo_eval_trad's evaluate_cases on the best
+    `.bin`, its NDCG equal to the trainer's best. Returns hash dropout's
+    launches in the fit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = tab_config(tmp, "tab_stage3", seed, "--batch_size", str(TRAIN_BS),
+                     "--max_tags", "20", "--max_timesteps", "1",
+                     "--update_timesteps", "2", "--eval_steps", "1",
+                     "--pretrained_model_path", actor_bin,
+                     "--reward_model_path", reward_bin)
+    make_train_loader, ev = letor_ppo_loaders(cfg, train, test)
+    trainer = PPOTrainer(cfg, dev)
+    built = {}
+
+    def init_params(s):
+        built["models"] = models = PPOTrainer.init_params(trainer, s)
+        built["before"] = {k: dict(m.named_parameters())[k].detach().clone()
+                           for m, k in ((models[0], "head.weight"),
+                                        (models[1], "xitt.0.0.1.fn.1.0.weight"))}
+        return models
+
+    trainer.init_params = init_params
+    hash_dropout.launches = 0
+    t0 = time.perf_counter()
+    astate, cstate, best = trainer.fit(
+        lambda epoch: Capped(make_train_loader(epoch), TAB_ROLLOUTS), ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = hash_dropout.launches
+    updates = astate.step
+    recs = [r for r in records(cfg) if "policy_loss" in r]
+    losses = [[r["policy_loss"], r["value_loss"]] for r in recs]
+    actor, critic, reward_model = built["models"]
+    now = {"head.weight": actor.head.weight,
+           "xitt.0.0.1.fn.1.0.weight": dict(critic.named_parameters())[
+               "xitt.0.0.1.fn.1.0.weight"]}
+    move = {k: float((now[k].detach() - v).abs().max())
+            for k, v in built["before"].items()}
+    if not (updates == cstate.step == TAB_ROLLOUTS and len(losses) == 2
+            and np.isfinite(losses).all() and np.isfinite(best)
+            and all(v > 0 for v in move.values())
+            and launches == 2 * XIT_SITES * 3 * updates):
+        raise AssertionError(f"tabular stage 3: {updates} updates, losses "
+                             f"{losses}, best {best}, moved {move}, "
+                             f"{launches} hash dropout launches")
+
+    # one rollout and one update on the trained models, as phase 7 times them
+    batch = next(iter(make_train_loader(1)))
+    b = trainer.ctx.put(batch)
+    st = trainer.ctx.put_array(np.broadcast_to(
+        np.arange(PAIR, dtype=np.int32), (TRAIN_BS, PAIR)).copy())
+    twin = frozen_copy(ScoreModel, cfg.model, actor.state_dict(),
+                       trainer.dtype, True)
+    roll = make_rollout_step(cfg.model.mode)
+    upd = make_update_step(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    with int8_sites() as sites:
+        out = roll(twin, critic, reward_model, b["text"], None, st)
+    dequant = all(2 * r * k * n < int8_ops.INT8_DYNQUANT_MIN_FLOPS
+                  for r, k, n in sites)
+    rollout_ms = cuda_ms(lambda: roll(twin, critic, reward_model, b["text"],
+                                      None, st), iters=5, warmup=1)
+
+    def one_update():
+        upd(astate, cstate, gen, b["text"], None, st, out[2], out[0], out[3],
+            out[1])
+    update_ms = cuda_ms(one_update, iters=5, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        roll(twin, critic, reward_model, b["text"], None, st)
+        one_update()
+        torch.cuda.synchronize()
+    trace = trace_summary(prof)
+
+    # ppo_eval_trad: the stage-3 best .bin through load_any, strict
+    sd = load_any(cfg.output_model_path, kind="actor_critic")
+    model = ScoreModel(cfg.model, trainer.dtype, device=dev)
+    model.load_state_dict(sd["actor"], strict=True)
+    path = os.path.join(tmp, "tab_cases.json")
+    result = evaluate_cases(model, ev.ds, ev, path, trainer.ctx.put)
+    with open(path) as f:
+        cases = json.load(f)
+    keys = {"pred_order", "pred_scores", "gold", "gold_rearranged", "ndcg",
+            "id"}
+    good = all(set(c) == keys and len(c["gold"]) == LETOR_DOCS
+               and sorted(c["pred_order"]) == list(range(LETOR_DOCS))
+               and [c["gold"][j] for j in c["pred_order"]]
+               == c["gold_rearranged"] for c in cases)
+    emit(phase="tabular_stage3", rollouts=TAB_ROLLOUTS, updates=updates,
+         sweep_losses=losses, ndcg_full=[r["ndcg_full"] for r in recs],
+         best_ndcg_full=best, moved=move, hash_dropout_launches=launches,
+         int8_mlp_launches=int8_mlp.launches, int8_sites=sorted(set(sites)),
+         int8_sites_dequant=dequant, fit_seconds=wall,
+         rollout_ms=rollout_ms, update_ms=update_ms,
+         ppo_eval_cases=len(cases), ppo_eval_ndcg_full=result[NDCG_FULL],
+         ppo_eval_vs_best=abs(result[NDCG_FULL] - best), card=card_line)
+    emit(phase="tabular_train_breakdown", traced="one rollout + one update "
+         "at batch 256 x 2 documents", card=card_line, **trace)
+    if not (dequant and sites and len(cases) == len(test.qids) and good
+            and abs(result[NDCG_FULL] - best) <= 1e-6):
+        raise AssertionError(f"int8 sites {sites} (dequant {dequant}); "
+                             f"ppo_eval: {len(cases)} cases for "
+                             f"{len(test.qids)} queries, schema ok {good}, "
+                             f"NDCG {result[NDCG_FULL]} against the best "
+                             f"{best}")
+    return launches
+
+
+# hash dropout at the tabular sites: a stage-3 update's (256 x 2 documents,
+# the FFN-inner and the residual widths) and a stage-1 step's (32 x 20)
+TAB_DROPOUT_SITES = ((TRAIN_BS * PAIR, H), (TRAIN_BS * PAIR, D),
+                     (TAB_BS * LETOR_DOCS, H))
+
+
+def tabular_path(args, dev, card_line: str) -> dict:
+    """Phase 13: hash dropout at the tabular sites, then the tabular recipe
+    on synthetic LETOR data: the offline pipeline, the 2-data trainer and
+    the projection, stages 1, 2 and 3 and ppo_eval_trad. K1 is never
+    launched: no int8 site of the path is compute-bound. Returns hash
+    dropout's launches on the path and its runs at the tabular sites."""
+    sites = [check_dropout("hash_dropout", shape, dt, args.seed + 30 + i,
+                           dev, dt == torch.bfloat16, card_line)
+             for i, shape in enumerate(TAB_DROPOUT_SITES)
+             for dt in (torch.float32, torch.bfloat16)]
+    int8_mlp.launches = int8_matmul.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        data = letor_offline(tmp, args.seed + 31, card_line)
+        cfg, two_bin, n_two = two_data(tmp, args.seed + 32, dev, card_line,
+                                       data)
+        train, test = projection(tmp, cfg, two_bin, dev, card_line, data)
+        del data
+        actor_bin, n1 = tab_stage1(tmp, args.seed + 33, dev, card_line,
+                                   train, test)
+        reward_bin, n2 = tab_stage2(tmp, args.seed + 34, dev, card_line,
+                                    train, test)
+        n3 = tab_stage3(tmp, args.seed + 35, dev, card_line, train, test,
+                        actor_bin, reward_bin)
+    if int8_mlp.launches or int8_matmul.launches:
+        raise AssertionError(
+            f"the tabular path launched K1 {int8_mlp.launches} and K2 "
+            f"{int8_matmul.launches} times; its int8 sites are not "
+            "compute-bound")
+    torch.cuda.empty_cache()
+    return {"launches": n_two + n1 + n2 + n3, "sites": sites}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1567,6 +2042,7 @@ def main(argv=None) -> None:
     k2 = k2_kernel(args.seed, dev, card_line)
     k2_launches = recipe_path(args, dev, card_line, served)
     del served
+    tab = tabular_path(args, dev, card_line)
 
     main_k1 = serve_shape[torch.bfloat16]       # the serving path's dtype
     kernels = [{
@@ -1578,14 +2054,20 @@ def main(argv=None) -> None:
         "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
         "bound_ms": main_k1["bound_ms"], "bound_by": main_k1["bound_by"],
         "library_ms": None}]
-    for name, launches in (("hash_dropout", train_launches["hash_dropout"]),
-                           ("philox_dropout", k3_launches)):
+    # hash dropout's launches: phase 7's and the tabular path's
+    for name, launches, err in (
+            ("hash_dropout",
+             train_launches["hash_dropout"] + tab["launches"],
+             max([drop["hash_dropout"]["max_abs_err"]]
+                 + [r["max_abs_err"] for r in tab["sites"]])),
+            ("philox_dropout", k3_launches,
+             drop["philox_dropout"]["max_abs_err"])):
         r = drop[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"lr2ppo_torch/kernels/csrc/{name}.cu",
             "replaces": DROPOUT_KERNELS[name][2], "launches": launches,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "max_abs_err": err, "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     main_k4 = attn[("text", torch.float32)]     # the extraction path's dtype

@@ -2,9 +2,12 @@
 
 The JAX package stays the reference. This package imports no module of it,
 and never jax, flax, optax or orbax: it keeps its own copies of the host
-side it needs (`config`, `data`, `cli._common`).
+side it needs (`config`, `data`, `native`, `cli._common`).
 
-Slice 1 is the ranking service on one GPU: `python -m lr2ppo_torch.cli.serve`.
-Slice 2 is the stage-3 LR²PPO trainer on one GPU:
-`python -m lr2ppo_torch.cli.ppo`.
+The entry points, `python -m lr2ppo_torch.cli <entry>` (listed in
+lr2ppo_torch/cli/__init__.py), serve rankings, extract tower features,
+train and evaluate the three LR²PPO stages of both families (LRMovieNet
+multimodal, LETOR tabular, with the 2-data unification trainer and its
+projection exporter) on one GPU, and run the LETOR offline pipeline on the
+host.
 """

@@ -1,17 +1,28 @@
-"""MovieNet dataset and loader builders for the port's CLIs (the MovieNet
-half of lr2ppo_tpu/cli/_common.py, copied).
+"""Dataset and loader builders of the port's CLIs, for both families (the
+port's own copy of lr2ppo_tpu/cli/_common.py).
 
 The port runs on one GPU, so the loaders take no process shard.
-ml_dtypes is imported only where a bfloat16 item dtype asks for it.
+ml_dtypes is imported only where a bfloat16 item dtype asks for it, h5py
+only where a grouped LETOR .h5 is read. The LETOR builders take the grouped
+queries in memory (`train_q`, `eval_q`) where the caller has them, and read
+them from the configured paths otherwise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+from typing import Optional
 
 from lr2ppo_torch.config import Config
-from lr2ppo_torch.data import EvalLoader, Loader, MovieNetDataset
+from lr2ppo_torch.data import (EvalLoader, LetorQueries, Loader,
+                               LTRPointwiseDataset, LTRPPODataset,
+                               LTRRewardDataset, MovieNetDataset)
 from lr2ppo_torch.data.pipeline import ProcessLoader
+
+
+def force_family(cfg: Config, family: str) -> Config:
+    return cfg.replace(model=dataclasses.replace(cfg.model, family=family))
 
 
 def h5_path_for(json_path: str, cfg: Config) -> str:
@@ -99,3 +110,91 @@ def movienet_eval_loader(cfg: Config, mode: str = "eval",
         return EvalLoader(ds, cfg.data.eval_tag_buckets, cfg.batch_size)
     return Loader(ds, cfg.batch_size, shuffle=False,
                   num_workers=cfg.data.num_workers)
+
+
+def letor_queries(path: str, split: str = "train") -> LetorQueries:
+    """`path` is either a grouped .h5 file or a directory holding
+    {train,test}.h5 (reference ppo_trad.py:64-68); `split` picks the file
+    for directory paths — eval callers MUST pass 'test' or validation
+    silently runs on training queries."""
+    if os.path.isdir(path):
+        return LetorQueries.from_dir(path, split)
+    return LetorQueries.from_h5(path)
+
+
+def letor_eval_loader(cfg: Config, ds_cls, path: str = "",
+                      queries: Optional[LetorQueries] = None) -> EvalLoader:
+    """Test-split EvalLoader with one bucket sized to the largest query
+    (the shared recipe of every tabular evaluator)."""
+    evq = queries or letor_queries(
+        path or cfg.data.dev_path or cfg.data.test_path, "test")
+    docs = max(g.shape[0] for g in evq.groups.values())
+    ds = (ds_cls(evq, False) if ds_cls is LTRPPODataset else ds_cls(evq))
+    return EvalLoader(ds, buckets=[docs], batch_size=cfg.batch_size)
+
+
+def letor_pointwise_loaders(cfg: Config,
+                            train_q: Optional[LetorQueries] = None,
+                            eval_q: Optional[LetorQueries] = None):
+    train = Loader(
+        LTRPointwiseDataset(train_q or letor_queries(cfg.data.train_path)),
+        cfg.batch_size, shuffle=True, seed=cfg.seed,
+        num_workers=cfg.data.num_workers, reuse_buffers=True)
+    ev = letor_eval_loader(cfg, LTRPointwiseDataset, queries=eval_q)
+    return train, ev
+
+
+def letor_two_data_loaders(cfg: Config, train_qs=None, eval_qs=None):
+    """The 2-data unification trainer's inputs: domain A (--train_path,
+    --dev_path) and domain B (--train_path2, --dev_path2). Returns the
+    config with trad_dims set to the two domains' raw feature widths
+    (pointwise_2data_trad.py:136-151), a training Loader and a test-split
+    EvalLoader of each domain."""
+    qs = train_qs or [letor_queries(p) for p in (cfg.data.train_path,
+                                                 cfg.data.train_path2)]
+    dims = [next(iter(q.groups.values())).shape[1] - 2 for q in qs]
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, trad_dims=dims))
+    # reuse_buffers: fit_two consumes each batch before the next yield
+    loaders = [Loader(LTRPointwiseDataset(q), cfg.batch_size, shuffle=True,
+                      seed=cfg.seed, num_workers=cfg.data.num_workers,
+                      reuse_buffers=True) for q in qs]
+    evs = [letor_eval_loader(cfg, LTRPointwiseDataset, path=p,
+                             queries=eval_qs[i] if eval_qs else None)
+           for i, p in enumerate((cfg.data.dev_path, cfg.data.dev_path2))]
+    return cfg, loaders, evs
+
+
+def letor_reward_loaders(cfg: Config, relevance_classes: int = 5,
+                         train_q: Optional[LetorQueries] = None,
+                         eval_q: Optional[LetorQueries] = None):
+    train_ds = LTRRewardDataset(
+        train_q or letor_queries(cfg.data.train_path),
+        max_tags=cfg.data.max_tags, relevance_classes=relevance_classes,
+        seed=cfg.seed)
+    # eval width is the reference's FIXED 20 pairs/query (its dataset
+    # ctor default — reward_trad.py:88 never threads args.max_tags), so
+    # reported accuracies are comparable at the same variance
+    ev_ds = LTRRewardDataset(
+        eval_q or letor_queries(cfg.data.dev_path or cfg.data.test_path,
+                                "test"),
+        max_tags=20, relevance_classes=relevance_classes,
+        seed=cfg.seed + 999)
+    return (Loader(train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                   num_workers=cfg.data.num_workers, reuse_buffers=True),
+            Loader(ev_ds, cfg.batch_size, shuffle=False,
+                   num_workers=cfg.data.num_workers, reuse_buffers=True))
+
+
+def letor_ppo_loaders(cfg: Config, train_q: Optional[LetorQueries] = None,
+                      eval_q: Optional[LetorQueries] = None):
+    q = train_q or letor_queries(cfg.data.train_path)
+
+    def make_train_loader(epoch: int) -> Loader:
+        ds = LTRPPODataset(q, True, max_tags=cfg.data.max_tags,
+                           seed=cfg.seed + epoch)
+        return Loader(ds, cfg.batch_size, shuffle=True,
+                      seed=cfg.seed + epoch,
+                      num_workers=cfg.data.num_workers)
+
+    ev = letor_eval_loader(cfg, LTRPPODataset, queries=eval_q)
+    return make_train_loader, ev

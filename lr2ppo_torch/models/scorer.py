@@ -1,6 +1,8 @@
 """Task models (counterpart of lr2ppo_tpu/models/scorer.py): the pointwise
 scorer `ScoreModel` (reference Classifier/Actor), the sequence scorer
-`SeqScoreModel` (reference Critic/Reward) and the `ActorCritic` pair.
+`SeqScoreModel` (reference Critic/Reward), the `ActorCritic` pair and the
+2-data feature-unification scorer `TwoDataScoreModel`, for the multimodal
+family (LRMovieNet) and the tabular one (LETOR).
 
 State_dict keys are the reference's: `text_proj.*`, `img_proj.*`, `xit.*`,
 `out_layer.*`, `head.*`, and for the sequence scorer `pos_emb.weight` and
@@ -34,19 +36,22 @@ def _xit(cfg: ModelConfig, dtype, device, causal: bool = False) -> XiT:
 
 
 class FusionTrunk(nn.Module):
-    """text_proj and img_proj MLPs -> XiT cross-attention -> concat with the
-    image tokens -> the wide out_layer MLP -> one D-wide feature per tag.
+    """Projections -> XiT attention -> concat -> the wide out_layer MLP ->
+    one D-wide feature per tag (or document).
 
-    Multimodal family: text (B, T, S, D) and img (B, I, D). Text and image
-    embeddings both come at feat_size wide, as the data loaders emit them."""
+    multimodal: text (B, T, S, D) through text_proj, cross-attending img
+                (B, I, D) through img_proj (ppo.py:214-227); the XiT output
+                is concatenated with the image tokens.
+    tabular:    text (B, T, D), one doc vector a token, self-attended
+                (ppo_trad.py:157-167); the XiT output is concatenated with
+                the token itself. There are no projections: `tokens=` takes
+                pre-projected (B, T, 1, D) tokens (the 2-data model's)."""
 
     def __init__(self, cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
                  device=None):
         super().__init__()
-        if cfg.family != "multimodal":
-            raise NotImplementedError(
-                f"lr2ppo_torch ports the multimodal family only, not "
-                f"{cfg.family!r}")
+        if cfg.family not in ("multimodal", "tabular"):
+            raise ValueError(f"unknown model family {cfg.family!r}")
         if cfg.remat:
             raise NotImplementedError(
                 "remat (activation recomputation) is not ported yet "
@@ -59,14 +64,25 @@ class FusionTrunk(nn.Module):
             return Mlp(fan_in, hidden, d, cfg.init_style, dtype, cfg.int8,
                        device)
 
-        self.text_proj = mlp(d)
-        self.img_proj = mlp(d)
+        if cfg.family == "multimodal":
+            self.text_proj = mlp(d)
+            self.img_proj = mlp(d)
         self.xit = _xit(cfg, dtype, device)
         self.out_layer = mlp(cfg.fusion_tokens * d)
 
-    def trunk(self, text_emb: torch.Tensor, img_emb: torch.Tensor,
+    def trunk(self, text_emb: Optional[torch.Tensor],
+              img_emb: Optional[torch.Tensor] = None,
               deterministic: bool = True,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None,
+              tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.cfg.family == "tabular":
+            if tokens is None:
+                tokens = cast(text_emb, self.dtype)[:, :, None, :]
+            b, t = tokens.shape[:2]
+            x = self.xit(tokens, tokens, deterministic, generator)
+            x = torch.cat([x, tokens], dim=2)               # (B, T, 2, D)
+            return self.out_layer(x.reshape(b, t, -1), deterministic,
+                                  generator)                # (B, T, D)
         b, t = text_emb.shape[:2]
         tfeat = self.text_proj(cast(text_emb, self.dtype), deterministic,
                                generator)
@@ -92,7 +108,8 @@ class ScoreModel(FusionTrunk):
         self.head = Linear(cfg.feat_size, out, cfg.init_style, dtype=dtype,
                            int8=cfg.int8, device=device)
 
-    def forward(self, text_emb: torch.Tensor, img_emb: torch.Tensor,
+    def forward(self, text_emb: torch.Tensor,
+                img_emb: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         logits = self.head(self.trunk(text_emb, img_emb, deterministic,
@@ -117,7 +134,8 @@ class SeqScoreModel(FusionTrunk):
         self.head = Linear(cfg.feat_size, 1, cfg.init_style, dtype=dtype,
                            int8=cfg.int8, device=device)
 
-    def forward(self, text_emb: torch.Tensor, img_emb: torch.Tensor,
+    def forward(self, text_emb: torch.Tensor,
+                img_emb: Optional[torch.Tensor],
                 index: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.trunk(text_emb, img_emb, deterministic, generator)
@@ -127,6 +145,48 @@ class SeqScoreModel(FusionTrunk):
         x = x + self.pos_emb.weight[:k].to(x.dtype)[None]
         x = self.xitt(x, x, deterministic, generator)
         return self.head(x)[:, -1, 0]
+
+
+class TwoDataScoreModel(FusionTrunk):
+    """The feature-unification scorer of the tabular family
+    (pointwise_2data_trad.py:130-176): one projection MLP per raw feature
+    dim of `cfg.trad_dims`, under the reference's names (`text_proj` for
+    the first, `text_proj3` for the second, MQ2008's 46 and Web10K's 136);
+    the input's last dim picks the projection, whose (B, T, 1, D) token runs
+    the tabular trunk and the head. `project` is the projection alone, for
+    the tsv exporter (pointwise_2data_infer_trad.py:428-446)."""
+
+    def __init__(self, cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__(cfg, dtype, device)
+        d = cfg.feat_size
+        for dim in cfg.trad_dims:
+            self.add_module(self.proj_name(dim), Mlp(
+                dim, cfg.mlp_ratio * d, d, cfg.init_style, dtype, cfg.int8,
+                device))
+        out = 1 if cfg.mode == "reg" else cfg.labels_num
+        self.head = Linear(d, out, cfg.init_style, dtype=dtype,
+                           int8=cfg.int8, device=device)
+
+    def proj_name(self, dim: int) -> str:
+        i = list(self.cfg.trad_dims).index(dim)
+        return "text_proj" if i == 0 else f"text_proj{i + 2}"
+
+    def project(self, text_emb: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """raw (..., dim) -> unified (..., D) features."""
+        proj = getattr(self, self.proj_name(text_emb.shape[-1]))
+        return proj(cast(text_emb, self.dtype), deterministic, generator)
+
+    def forward(self, text_emb: torch.Tensor,
+                img_emb: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        tokens = self.project(text_emb[:, :, None, :], deterministic,
+                              generator)
+        logits = self.head(self.trunk(None, None, deterministic, generator,
+                                      tokens=tokens))
+        return logits[..., 0] if self.cfg.mode == "reg" else logits
 
 
 class ActorCritic(nn.Module):

@@ -84,6 +84,18 @@ def params_from_flax(tree: dict) -> Dict[str, torch.Tensor]:
     return out
 
 
+def trad_dims_from_state_dict(state_dict: dict) -> list:
+    """The raw feature dims of a 2-data checkpoint's projections, from the
+    in-dim of their fc1 weights (out, in): text_proj for trad_dims[0],
+    text_proj3 for trad_dims[1] (the reference naming,
+    pointwise_2data_trad.py:136-137; lr2ppo_tpu/cli/
+    pointwise_2data_infer_trad.py:_dims_from_params). Empty where the
+    checkpoint has neither."""
+    return [int(state_dict[f"{name}.fc1.weight"].shape[1])
+            for name in ("text_proj", "text_proj3")
+            if f"{name}.fc1.weight" in state_dict]
+
+
 def split_actor_critic(state_dict: dict):
     """Split an ActorCritic checkpoint ('actor.'/'critic.' prefixes,
     reference ppo_eval.py:336-343) into two single-model state_dicts."""

@@ -16,8 +16,14 @@ from lr2ppo_torch.ops.ndcg import (NDCG_AT_K_DEFAULT, AverageNDCGMeter,
                                    ndcg_from_scores)
 
 
+def _model_inputs(batch: dict) -> dict:
+    """What the eval moves to the device: a LETOR batch has no "img"."""
+    return {k: batch[k] for k in ("text", "img", "tgts", "mask")
+            if k in batch}
+
+
 @torch.inference_mode()
-def scores_and_ndcg(model, text: torch.Tensor, img: torch.Tensor,
+def scores_and_ndcg(model, text: torch.Tensor, img: Optional[torch.Tensor],
                     tgts: torch.Tensor, mask: torch.Tensor):
     """(B, T) scores and (B, len(NDCG_AT_K_DEFAULT)) NDCG rows; cls-mode
     logits become expected relevance first."""
@@ -35,8 +41,8 @@ def evaluate_ndcg(model, eval_loader, put,
     model-selection metric, ppo.py:679)."""
     meter = meter or AverageNDCGMeter()
     for batch in eval_loader:
-        b = put({k: batch[k] for k in ("text", "img", "tgts", "mask")})
-        _, rows = scores_and_ndcg(model, b["text"], b["img"], b["tgts"],
+        b = put(_model_inputs(batch))
+        _, rows = scores_and_ndcg(model, b["text"], b.get("img"), b["tgts"],
                                   b["mask"])
         keep = b["mask"].any(dim=1)
         if bool(keep.any()):
@@ -60,9 +66,9 @@ def evaluate_cases(model, dataset, eval_loader, out_path: str,
                 "EvalLoader (it emits '_idx'): a plain Loader would "
                 "silently produce an empty case dump")
         idx = np.asarray(batch["_idx"])
-        b = put({k: batch[k] for k in ("text", "img", "tgts", "mask")})
-        scores, rows = scores_and_ndcg(model, b["text"], b["img"], b["tgts"],
-                                       b["mask"])
+        b = put(_model_inputs(batch))
+        scores, rows = scores_and_ndcg(model, b["text"], b.get("img"),
+                                       b["tgts"], b["mask"])
         scores = scores.float().cpu().numpy()
         rows = rows.float().cpu().numpy()
         mask = np.asarray(batch["mask"])

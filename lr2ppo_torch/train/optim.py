@@ -116,7 +116,11 @@ class AdamW:
 
     @torch.no_grad()
     def step(self) -> None:
-        grads = {k: p.grad for k, p in self.params.items()}
+        # a parameter the step's graph did not reach (the 2-data model's
+        # other projection) takes a zero gradient, as jax.grad gives it:
+        # its moments decay and its weight decay applies
+        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+                 for k, p in self.params.items()}
         norm = None
         if self.grad_clip:
             # optax.clip_by_global_norm: g / ||g|| * max_norm where

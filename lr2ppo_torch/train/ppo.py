@@ -1,5 +1,6 @@
-"""Stage 3 — the LR2PPO actor-critic trainer on one GPU (counterpart of
-lr2ppo_tpu/train/ppo.py; reference finetune/ppo.py).
+"""Stage 3 — the LR2PPO actor-critic trainer on one GPU, both families
+(counterpart of lr2ppo_tpu/train/ppo.py; reference finetune/ppo.py and
+finetune/ppo_trad.py, whose batches carry no images).
 
 The recipe (ppo.py:815-915): per batch of 2-tag pairs,
 
@@ -20,7 +21,9 @@ The rollout runs under torch.inference_mode(). Memories keep the batch on
 the device when a sweep's batches fit under ppo.device_memory_gb, else on
 the host. Under ppo.rollout_int8 the rollout's actor (and with '1' the
 critic) are int8 twins requantized from the live params once per sweep;
-their FFNs run through the fused int8 kernel (ops/int8_mlp.py).
+their FFNs run through the fused int8 kernel (ops/int8_mlp.py) where the
+site is compute-bound, as at the multimodal batch 256; the tabular sites
+(one token a document) are not, and dequantize as in JAX.
 """
 
 from __future__ import annotations
@@ -311,9 +314,9 @@ class PPOTrainer:
                 for _t in range(cfg.ppo.max_timesteps):
                     ra, rc = rollout_models()
                     scores, value, next_state, rew = rollout_step(
-                        ra, rc, reward, b["text"], b["img"], state)
-                    dev = (b["text"], b["img"], state, next_state, scores,
-                           rew, value)
+                        ra, rc, reward, b["text"], b.get("img"), state)
+                    dev = (b["text"], b.get("img"), state, next_state,
+                           scores, rew, value)
                     if device_memories:
                         memories.append({"dev": dev, "t": _t})
                     else:
@@ -382,15 +385,22 @@ class PPOTrainer:
 
     def _check_geometry(self, batch) -> None:
         """The loader's batches must have the model's widths: (B, T, S, D)
-        text and (B, I, D) images."""
+        text and (B, I, D) images (multimodal), or (B, T, D) text and no
+        images (tabular)."""
         m = self.cfg.model
-        want = {"text": (m.seq_length, m.feat_size),
-                "img": (m.max_imgs, m.feat_size)}
-        for k, tail in want.items():
+        if m.family == "tabular":
+            if "img" in batch:
+                raise ValueError("a tabular batch carries no 'img'")
+            want = {"text": ("B", "T", m.feat_size)}
+        else:
+            want = {"text": ("B", "T", m.seq_length, m.feat_size),
+                    "img": ("B", m.max_imgs, m.feat_size)}
+        for k, dims in want.items():
             got = tuple(np.asarray(batch[k]).shape)
-            if got[-len(tail):] != tail:
+            tail = tuple(d for d in dims if isinstance(d, int))
+            if len(got) != len(dims) or got[len(got) - len(tail):] != tail:
                 raise ValueError(f"batch {k!r} is {got}; the model takes "
-                                 f"(..., {tail[0]}, {tail[1]})")
+                                 f"{dims}")
 
     def _memory_policy(self, batch) -> bool:
         """Keep the memory buffer's batches on the device when a sweep's
@@ -428,8 +438,9 @@ class PPOTrainer:
         def put(mem):
             if "dev" in mem:          # device-resident: nothing to move
                 return mem["dev"]
-            b = self.ctx.put({k: mem["batch"][k] for k in ("text", "img")})
-            return (b["text"], b["img"],
+            b = self.ctx.put({k: mem["batch"][k] for k in ("text", "img")
+                              if k in mem["batch"]})
+            return (b["text"], b.get("img"),
                     *(v.to(self.device) for v in mem["small"]))
 
         gae_kw = [{} for _ in memories]

@@ -1,14 +1,15 @@
-"""Stage 2 — the pairwise reward trainer on one GPU, multimodal family
+"""Stage 2 — the pairwise reward trainer on one GPU, both families
 (counterpart of lr2ppo_tpu/train/reward.py; reference
-finetune/reward_pair_dataloader.py).
+finetune/reward_pair_dataloader.py and finetune/reward_trad.py).
 
 One step runs both forwards of the SeqScoreModel, on the chosen and on the
 rejected 4-index ordering of the item's pair, each in training mode with its
 dropout seeds drawn from one CPU generator (chosen first), then the hinge
-relu(margin - (s_chosen - s_rejected)) with margin 1.0 (:355-357), and one
-AdamW step. The eval is pairwise accuracy, the share of eval pairs with
-s_chosen > s_rejected. The best model is saved as a reference-keyed `.bin`,
-which stage 3 loads strict into both its critic and its frozen reward model.
+relu(margin - (s_chosen - s_rejected)) with the family's margin (1.0
+multimodal, 0.01 tabular), and one AdamW step. The eval is pairwise
+accuracy, the share of eval pairs with s_chosen > s_rejected. The best model
+is saved as a reference-keyed `.bin`, which stage 3 loads strict into both
+its critic and its frozen reward model.
 The `.state` is written after the step's eval, as in stage 1
 (train/pointwise.py).
 """
@@ -34,9 +35,9 @@ from lr2ppo_torch.train.common import (BestSaver, DeviceCtx, TrainState,
 from lr2ppo_torch.train.optim import build_optimizer
 from lr2ppo_torch.utils import MetricLogger, check_finite, init_logger
 
-# the reference's hinge margin for the multimodal family (:355-357); the
-# tabular family's 0.01 (reward_trad.py:273) comes with that family
-MARGIN = 1.0
+# the reference's hinge margin of each family: reward_pair_dataloader.py:
+# 355-357 (multimodal), reward_trad.py:273 (tabular)
+MARGINS = {"multimodal": 1.0, "tabular": 0.01}
 
 
 def make_train_step(margin: float):
@@ -65,9 +66,9 @@ def evaluate_pairwise(model, eval_loader, put) -> float:
         valid = np.asarray(batch.get(
             "_valid", np.ones(batch["tgts"].shape[0], bool)))
         b = put({k: batch[k] for k in ("text", "img", "chosen_index",
-                                       "reject_index")})
-        cs = model(b["text"], b["img"], b["chosen_index"])
-        rs = model(b["text"], b["img"], b["reject_index"])
+                                       "reject_index") if k in batch})
+        cs = model(b["text"], b.get("img"), b["chosen_index"])
+        rs = model(b["text"], b.get("img"), b["reject_index"])
         hits = (cs > rs).cpu().numpy()[valid]
         correct += float(hits.sum())
         total += hits.size
@@ -86,6 +87,7 @@ class RewardTrainer:
         self.metrics = MetricLogger(
             cfg.log_path + ".jsonl" if cfg.log_path else None)
         self.ctx = DeviceCtx(self.device, cast_dtype=cfg.mesh.compute_dtype)
+        self.margin = MARGINS[cfg.model.family]
 
     def init_model(self, seed: int) -> SeqScoreModel:
         """The reward model from pretrained_model_path (strict) or seeded
@@ -116,7 +118,7 @@ class RewardTrainer:
         if cfg.resume_path:
             step, start_epoch, skip_batches, resume_best = resume_fit_state(
                 cfg, state, generator, steps_per_epoch, self.logger)
-        train_step = make_train_step(MARGIN)
+        train_step = make_train_step(self.margin)
         saver = BestSaver(cfg.output_model_path, self.logger)
         saver.best = max(saver.best, resume_best)
 
@@ -135,8 +137,9 @@ class RewardTrainer:
                 it = islice(it, skip_batches, None)
             for batch in it:
                 b = self.ctx.put(batch)
-                loss, acc = train_step(state, generator, b["text"], b["img"],
-                                       b["chosen_index"], b["reject_index"])
+                loss, acc = train_step(state, generator, b["text"],
+                                       b.get("img"), b["chosen_index"],
+                                       b["reject_index"])
                 step += 1
                 if step % cfg.report_steps == 0:
                     loss_v = check_finite(

@@ -71,3 +71,26 @@ def test_refuses_what_it_does_not_take(dev):
         hash_dropout(torch.ones(8, device=dev, dtype=torch.float16), 1, 0.1)
     with pytest.raises(ValueError):
         philox_dropout(torch.ones(8, device=dev, dtype=torch.float64), 1, 0.1)
+
+
+# the tabular family's sites: a stage-3 update at batch 256 x 2 documents
+# (512 rows, the FFN-inner and the residual widths) and a stage-1 step of
+# 32 queries x 20 documents (640 rows)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(512, 3072), (512, 768), (640, 3072)])
+def test_hash_dropout_at_the_tabular_sites(dev, shape, dtype):
+    """Hash dropout at the XiT sites of a tabular step, with the seeds a
+    step draws (any int32): bit for bit with its plain version, forward and
+    backward, one launch each."""
+    rng = np.random.RandomState(shape[0] + shape[1])
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
+    for seed in (int(rng.randint(-2**31, 2**31 - 1)), 7):
+        before = hash_dropout.launches
+        xr = x.clone().requires_grad_(True)
+        y = hash_dropout(xr, seed, 0.1)
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert hash_dropout.launches == before + 2
+        assert torch.equal(y, hash_dropout_reference(x, seed, 0.1))
+        assert torch.equal(xr.grad, hash_dropout_reference(g, seed, 0.1))

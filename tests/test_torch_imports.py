@@ -52,7 +52,14 @@ def test_port_never_imports_jax():
             "lr2ppo_torch.train.pointwise", "lr2ppo_torch.train.reward",
             "lr2ppo_torch.cli.pointwise",
             "lr2ppo_torch.cli.reward_pair_dataloader",
-            "lr2ppo_torch.cli.ppo_eval"} <= set(res["modules"])
+            "lr2ppo_torch.cli.ppo_eval", "lr2ppo_torch.data.letor",
+            "lr2ppo_torch.native", "lr2ppo_torch.cli.__main__",
+            "lr2ppo_torch.cli.preprocess_data",
+            "lr2ppo_torch.cli.pointwise_trad",
+            "lr2ppo_torch.cli.pointwise_2data_trad",
+            "lr2ppo_torch.cli.pointwise_2data_infer_trad",
+            "lr2ppo_torch.cli.reward_trad", "lr2ppo_torch.cli.ppo_trad",
+            "lr2ppo_torch.cli.ppo_eval_trad"} <= set(res["modules"])
     assert res["loaded"] == [], f"the port imported {res['loaded']}"
     assert res["lazy"] == [], f"imported at import time: {res['lazy']}"
 
