@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port once on one CUDA card: the ranking service, the
-three-stage LR2PPO recipe and feature extraction at the flagship width.
+three-stage LR2PPO recipe of both families, feature extraction and tower
+pretraining at full width.
 
     python3 chip_smoke.py [--seed N]
 
@@ -80,7 +81,20 @@ Phases, each of which raises on failure (exit code other than 0):
      under --profile fast, hash dropout's launches counted at every stage,
      no K1 launch and every int8 site on the dequant route; one rollout's
      and one update's times and a trace of the two; ppo_eval_trad's
-     evaluate_cases, its NDCG equal to stage 3's best.
+     evaluate_cases, its NDCG equal to stage 3's best;
+ 14. tower pretraining: hash dropout against its plain version at the two
+     tower sites of XLM-R base MLM at batch 32 x 128 ((32, 128, 768) and
+     (32, 12, 128, 128), float32), with its event-pair time, its device
+     time a launch from a trace, the plain version's and F.dropout's; then
+     `lr2ppo_torch.cli.pretrain.main` at XLM-R base's full width (12 x 768,
+     12 heads, FFN 3072, a 250,002-entry space vocabulary with the specials
+     first, a synthetic Zipf corpus), --data_processor mlm --hash_dropout,
+     batch 32 x 128, 2 accumulated micro-batches, 4 steps, float32: finite
+     losses, moved parameters, hash dropout launched at every site forward
+     and backward (592), the -best and final checkpoints reloaded strict
+     and one encode of the final one through the extraction path; one
+     optimizer step's CUDA-event time, tokens/s and a trace of one step;
+     and 2 steps of the same trainer under Adafactor.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -104,7 +118,7 @@ from itertools import islice
 import numpy as np
 import torch
 
-from lr2ppo_torch.cli import preprocess, preprocess_data, serve
+from lr2ppo_torch.cli import preprocess, preprocess_data, pretrain, serve
 from lr2ppo_torch.cli._common import (force_family, letor_pointwise_loaders,
                                       letor_ppo_loaders,
                                       letor_reward_loaders,
@@ -112,7 +126,7 @@ from lr2ppo_torch.cli._common import (force_family, letor_pointwise_loaders,
 from lr2ppo_torch.config import ModelConfig, parse_config
 from lr2ppo_torch.data.letor import (LetorQueries, group_queries,
                                      parse_svmlight_file, read_tsv, write_tsv)
-from lr2ppo_torch.data.tokenizers import XLMRobertaTokenizer
+from lr2ppo_torch.data.tokenizers import SpaceTokenizer, XLMRobertaTokenizer
 from lr2ppo_torch.device import require_cuda
 from lr2ppo_torch import native as native_parser
 from lr2ppo_torch.kernels import build
@@ -143,6 +157,7 @@ from lr2ppo_torch.towers.model import init_weights as init_tower_weights
 from lr2ppo_torch.towers.torch_import import encoder_state
 from lr2ppo_torch.train.ppo import (PPOTrainer, frozen_copy,
                                     make_rollout_step, make_update_step)
+from lr2ppo_torch.train.pretrain import PretrainTrainer, make_pretrain_step
 
 D, H = 768, 3072
 SERVE_ROWS = 32 * 32 * 196            # items x tag bucket x text tokens
@@ -476,7 +491,9 @@ def trace_summary(prof) -> dict:
     in which no kernel ran, and the ten kernels that took longest."""
     from torch.autograd import DeviceType
 
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a profiler schedule's "ProfilerStep#" spans are annotations, not work
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("ProfilerStep")]
     if not device:
         raise AssertionError("the profiler traced no device activity")
     copies = [e for e in device if e.name.startswith("Memcpy")]
@@ -1990,6 +2007,268 @@ def tabular_path(args, dev, card_line: str) -> dict:
     return {"launches": n_two + n1 + n2 + n3, "sites": sites}
 
 
+# Phase 14: MLM pretraining of XLM-R base (XLMR_BASE) at full width on a
+# synthetic corpus, as lr2ppo_torch.cli.pretrain runs it
+PRE_BS, PRE_ACCUM, PRE_SEQ, PRE_STEPS, ADA_STEPS = 32, 2, 128, 4, 2
+PRE_VOCAB = 250002                     # XLM-R's vocabulary, specials first
+PRE_SPECIALS = ["<s>", "<pad>", "</s>", "<unk>", "<mask>"]
+PRE_ROWS = 320                         # corpus rows of 128 tokens (5 steps)
+PRE_WATCHED = ("embedding.word.embedding.weight",
+               "encoder.transformer.0.self_attn.linear_layers.0.weight",
+               "encoder.transformer.11.feed_forward.linear_2.weight",
+               "target.mlm.linear_2.weight")
+# the tower's two dropout shapes at batch 32 x 128: the embedding and the
+# residual branches (B, S, 768), the attention probabilities (B, 12, S, S)
+PRE_SITES = {"residual": (PRE_BS, PRE_SEQ, 768),
+             "probs": (PRE_BS, 12, PRE_SEQ, PRE_SEQ)}
+
+
+def pretrain_corpus(tmp: str, seed: int) -> dict:
+    """The vocabulary (PRE_VOCAB lines: the specials, then synthetic words)
+    and a corpus of Zipf-distributed words of it, about PRE_ROWS rows of
+    PRE_SEQ tokens once packed; the tower config is XLMR_BASE."""
+    rng = np.random.default_rng(seed)
+    words = PRE_SPECIALS + [f"w{i}" for i in range(PRE_VOCAB
+                                                     - len(PRE_SPECIALS))]
+    paths = {k: os.path.join(tmp, f) for k, f in (
+        ("vocab", "vocab.txt"), ("corpus", "corpus.txt"),
+        ("tower", "xlmr_base_config.json"))}
+    with open(paths["vocab"], "w", encoding="utf-8") as f:
+        f.write("\n".join(words) + "\n")
+    # a word's rank follows Zipf's law with exponent 1.1 over the vocabulary
+    n_words = PRE_ROWS * PRE_SEQ
+    ranks = rng.zipf(1.1, size=3 * n_words)
+    ranks = ranks[ranks <= PRE_VOCAB - len(PRE_SPECIALS)][:n_words]
+    lens = rng.integers(20, 120, size=n_words // 20)
+    lines, start = [], 0
+    for n in lens:
+        if start >= len(ranks):
+            break
+        lines.append(" ".join(words[len(PRE_SPECIALS) - 1 + r]
+                              for r in ranks[start:start + n]))
+        start += n
+    with open(paths["corpus"], "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(paths["tower"], "w") as f:
+        json.dump(XLMR_BASE, f)
+    return paths
+
+
+def pretrain_argv(paths: dict, out: str, steps: int) -> list:
+    return ["--corpus_path", paths["corpus"], "--tower_config",
+            paths["tower"], "--data_processor", "mlm", "--tokenizer",
+            "space", "--vocab_path", paths["vocab"], "--hash_dropout",
+            "--batch_size", str(PRE_BS), "--accumulation_steps",
+            str(PRE_ACCUM), "--seq_length", str(PRE_SEQ), "--total_steps",
+            str(steps), "--report_steps", "1", "--output_model_path", out,
+            "--log_path", out + ".log"]
+
+
+@contextmanager
+def watched_init():
+    """PretrainTrainer.init_model keeps copies of PRE_WATCHED as they
+    start, for each trainer built inside the block."""
+    seen, real = [], PretrainTrainer.init_model
+
+    def init_model(self):
+        model = real(self)
+        params = dict(model.named_parameters())
+        seen.append({k: params[k].detach().cpu().clone()
+                     for k in PRE_WATCHED})
+        return model
+
+    PretrainTrainer.init_model = init_model
+    try:
+        yield seen
+    finally:
+        PretrainTrainer.init_model = real
+
+
+def steady_trace(fn):
+    """A torch.profiler trace of fn's second call: the first runs in the
+    profiler's warm-up cycle, whose device records are not kept (a trace
+    late in a long process can miss kernels of its first records)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof
+
+
+def traced_ms(prof, name: str) -> list:
+    """The device times (ms) of the traced kernels whose name holds
+    `name`, in launch order."""
+    from torch.autograd import DeviceType
+
+    return [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.device_type == DeviceType.CUDA and name in e.name]
+
+
+def hash_trace_ms(x, n: int = 20) -> tuple:
+    """The hash dropout kernel's median device time a launch over a trace
+    of n launches on x, and the count of launches the trace holds."""
+    times = traced_ms(steady_trace(
+        lambda: [hash_dropout(x, i, DROP_RATE) for i in range(n)]),
+        "hash_dropout")
+    if not times:
+        raise AssertionError(f"the trace of {n} hash dropout launches holds "
+                             "no kernel")
+    return statistics.median(times), len(times)
+
+
+def pretrain_sites(seed: int, dev, card_line: str) -> dict:
+    """Phase 14, first: hash dropout against its plain version at the two
+    tower shapes, float32, forward and backward, with the event-pair time
+    (one call between two events, the wrapper's host path included) and the
+    device time a launch from a trace."""
+    out = {}
+    for i, (name, shape) in enumerate(PRE_SITES.items()):
+        res = check_dropout("hash_dropout", shape, torch.float32, seed + i,
+                            dev, True, card_line)
+        x = torch.randn(shape, device=dev)
+        res["trace_ms"], res["traced_launches"] = hash_trace_ms(x)
+        res["bound_share_trace"] = res["bound_ms"] / res["trace_ms"]
+        out[name] = res
+        emit(phase="pretrain_dropout_site", site=name, **res)
+        del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def pretrain_path(args, dev, card_line: str) -> dict:
+    """Phase 14: the pretraining CLI at XLM-R base's width (4 steps), its
+    checkpoints, one step's time and trace, and the Adafactor leg. Returns
+    hash dropout's launches in the CLI's run and the sites' runs."""
+    sites = pretrain_sites(args.seed + 40, dev, card_line)
+    cfg = TowerConfig.from_dict(XLMR_BASE)
+    per_pass = 1 + 3 * cfg.layers_num        # the embedding + 3 a layer
+    want = per_pass * 2 * PRE_ACCUM * PRE_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = pretrain_corpus(tmp, args.seed + 41)
+        out = os.path.join(tmp, "mlm")
+        argv = pretrain_argv(paths, out, PRE_STEPS)
+        reset_launches()
+        hash_dropout.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with watched_init() as seen:
+            best = pretrain.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = hash_dropout.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        with open(out + ".log.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        final = load_tower_checkpoint(out)
+        move = {k: float((final[k] - v).abs().max())
+                for k, v in seen[0].items()}
+        n_params = sum(v.numel() for v in final.values())
+        n_tower = sum(v.numel() for k, v in final.items()
+                      if not k.startswith("target."))
+        losses = [r["loss"] for r in recs]
+        if not (len(recs) == PRE_STEPS and np.isfinite(losses).all()
+                and all(v > 0 for v in move.values())
+                and launches == want and fused_attention.launches == 0):
+            raise AssertionError(
+                f"pretrain: losses {losses}, moved {move}, {launches} hash "
+                f"dropout launches (want {want}), "
+                f"{fused_attention.launches} K4 launches")
+        # the -best and final checkpoints load strict into a fresh tower
+        # with its target; the final one's encoder keys feed extraction
+        tcfg = dataclasses.replace(cfg, vocab_size=PRE_VOCAB,
+                                   hash_dropout=True)
+        for path in (out + "-best", out):
+            TowerModel(tcfg, device="meta", with_target=True).load_state_dict(
+                load_tower_checkpoint(path), strict=True, assign=True)
+        tok = SpaceTokenizer(paths["vocab"])
+        with open(paths["corpus"], encoding="utf-8") as f:
+            texts = [next(f).strip() for _ in range(4)]
+        text_x = TextFeatureExtractor(tcfg, encoder_state(final), tok,
+                                      PRE_SEQ, device=dev)
+        feats = text_x(texts, EXTRACT_BATCH)
+        del final, text_x
+        if not (feats.shape == (4, PRE_SEQ, cfg.hidden_size)
+                and np.isfinite(feats).all()):
+            raise AssertionError(f"encode of the pretrained tower: "
+                                 f"{feats.shape}, finite "
+                                 f"{np.isfinite(feats).all()}")
+        torch.cuda.empty_cache()
+
+        # one optimizer step on a device-resident batch: CUDA events and a
+        # trace
+        trainer, loader = pretrain.build(pretrain.parser().parse_args(argv),
+                                         dev)
+        model = trainer.init_model()
+        state = init_state(model, build_optimizer(
+            trainer.cfg.optim, dict(model.named_parameters()), PRE_STEPS))
+        gen = torch.Generator().manual_seed(args.seed)
+        batch = trainer.ctx.put({k: v for k, v in next(iter(loader)).items()
+                                 if not k.startswith("_")})
+        step = make_pretrain_step(PRE_ACCUM)
+        step(state, gen, batch)
+        tokens = PRE_BS * PRE_ACCUM * PRE_SEQ
+        clocks_before = clocks()
+        step_ms = cuda_ms(lambda: step(state, gen, batch), iters=3,
+                          warmup=1)
+        clocks_after = clocks()
+        prof = steady_trace(lambda: step(state, gen, batch))
+        trace = trace_summary(prof)
+        # the probability sites move twice the residual sites' bytes: a
+        # complete trace's longest launches are theirs, 12 a pass
+        hash_ms = sorted(traced_ms(prof, "hash_dropout"))
+        n_probs = cfg.layers_num * 2 * PRE_ACCUM
+        trace["hash_dropout_traced_launches"] = len(hash_ms)
+        if len(hash_ms) == per_pass * 2 * PRE_ACCUM:
+            trace["hash_dropout_ms_a_launch"] = {
+                "residual": statistics.median(hash_ms[:-n_probs]),
+                "probs": statistics.median(hash_ms[-n_probs:])}
+        del trainer, loader, model, state, batch, prof
+        torch.cuda.empty_cache()
+
+        # Adafactor: the same trainer with cfg.optim.optimizer set
+        ada_out = os.path.join(tmp, "ada")
+        trainer, loader = pretrain.build(pretrain.parser().parse_args(
+            pretrain_argv(paths, ada_out, ADA_STEPS)), dev)
+        trainer.cfg.optim.optimizer = "adafactor"
+        with watched_init() as ada_seen:
+            ada_state, _ = trainer.fit(loader, ADA_STEPS)
+        ada_params = dict(ada_state.model.named_parameters())
+        ada_move = {k: float((ada_params[k].detach().cpu() - v).abs().max())
+                    for k, v in ada_seen[0].items()}
+        with open(ada_out + ".log.jsonl") as f:
+            ada_losses = [json.loads(line)["loss"] for line in f]
+        ada_opt = type(ada_state.opt).__name__
+        del trainer, loader, ada_state, ada_params
+        torch.cuda.empty_cache()
+    if not (ada_opt == "Adafactor" and len(ada_losses) == ADA_STEPS
+            and np.isfinite(ada_losses).all()
+            and all(v > 0 for v in ada_move.values())):
+        raise AssertionError(f"adafactor: {ada_opt}, losses {ada_losses}, "
+                             f"moved {ada_move}")
+    emit(phase="pretrain", params=n_params, tower_params=n_tower,
+         head_params=n_params - n_tower, vocab=PRE_VOCAB,
+         micro_batch=[PRE_BS, PRE_SEQ], accumulation=PRE_ACCUM,
+         steps=PRE_STEPS, losses=losses, accs=[r["acc"] for r in recs],
+         logged_tokens_s=[r["tokens_s"] for r in recs], best_acc=best,
+         moved=move, hash_dropout_launches=launches,
+         hash_dropout_launches_expected=want,
+         hash_dropout_sites_a_pass=per_pass, fit_seconds=wall,
+         peak_mem_gb=peak_gb, encode_shape=list(feats.shape),
+         step_ms=step_ms, tokens_a_step=tokens,
+         tokens_s=tokens / (step_ms / 1e3), clocks_before=clocks_before,
+         clocks_after=clocks_after, adafactor_losses=ada_losses,
+         adafactor_moved=ada_move, card=card_line)
+    emit(phase="pretrain_breakdown", traced="one optimizer step (2 micro-"
+         "batches of 32 x 128, XLM-R base MLM, float32), the second of two "
+         "under the profiler", card=card_line, **trace)
+    return {"launches": launches, "sites": sites}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2043,6 +2322,8 @@ def main(argv=None) -> None:
     k2_launches = recipe_path(args, dev, card_line, served)
     del served
     tab = tabular_path(args, dev, card_line)
+    torch.cuda.empty_cache()
+    pre = pretrain_path(args, dev, card_line)
 
     main_k1 = serve_shape[torch.bfloat16]       # the serving path's dtype
     kernels = [{
@@ -2054,12 +2335,15 @@ def main(argv=None) -> None:
         "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
         "bound_ms": main_k1["bound_ms"], "bound_by": main_k1["bound_by"],
         "library_ms": None}]
-    # hash dropout's launches: phase 7's and the tabular path's
+    # hash dropout's launches: phase 7's, the tabular path's and the
+    # pretraining run's
     for name, launches, err in (
             ("hash_dropout",
-             train_launches["hash_dropout"] + tab["launches"],
+             train_launches["hash_dropout"] + tab["launches"]
+             + pre["launches"],
              max([drop["hash_dropout"]["max_abs_err"]]
-                 + [r["max_abs_err"] for r in tab["sites"]])),
+                 + [r["max_abs_err"] for r in tab["sites"]]
+                 + [r["max_abs_err"] for r in pre["sites"].values()])),
             ("philox_dropout", k3_launches,
              drop["philox_dropout"]["max_abs_err"])):
         r = drop[name]

@@ -3,7 +3,7 @@
 attention kernel (K4) and hash dropout of one or more checkouts of this
 repository on one CUDA card, in the order given:
 
-    python3 kernel_ab.py _tree/parent . . _tree/parent
+    python3 kernel_ab.py [--only hash_dropout] _tree/parent . . _tree/parent
 
 Each tree must lie inside this checkout (unpack another commit with `git
 archive` into a git-ignored directory such as `_tree/`). Each runs in a
@@ -18,8 +18,12 @@ and bfloat16, hash dropout at the update's 100,352 x 3072 site in
 bfloat16. Only the timing is made alike for every tree: each timed run of
 the tree's `cuda_ms` is n calls back to back (3 for K1, K2 and hash
 dropout, 20 for K4), divided by n, so a time is the device's and not the
-host's time to launch. Prints the card's name and power limit, then each
-tree's name and its phases' JSON lines.
+host's time to launch. Hash dropout is also timed one call between two
+events, so the wrapper's host path counts, at a tabular site (512 x 3072,
+bfloat16) and at the tower pretraining sites ((32, 128, 768) and
+(32, 12, 128, 128), float32). `--only hash_dropout` times hash dropout
+alone. Prints the card's name and power limit, then each tree's name and
+its phases' JSON lines.
 """
 
 from __future__ import annotations
@@ -31,6 +35,9 @@ import sys
 
 REPS = {"int8_mlp": 3, "int8_matmul": 3, "fused_attention": 20,
         "hash_dropout": 3}
+# hash dropout's sites beside the update's: (shape, dtype), one call a run
+HASH_ONE_CALL = (((512, 3072), "bfloat16"), ((32, 128, 768), "float32"),
+                 ((32, 12, 128, 128), "float32"))
 
 
 def back_to_back(cuda_ms, n: int):
@@ -40,7 +47,7 @@ def back_to_back(cuda_ms, n: int):
     return timed
 
 
-def child(tree: str) -> None:
+def child(tree: str, only: str = "") -> None:
     """Time one tree's kernels through its own chip_smoke.py."""
     sys.path.insert(0, tree)
     import torch
@@ -53,27 +60,37 @@ def child(tree: str) -> None:
     dev = torch.device("cuda", 0)
     card_line = cs.card()
     own = cs.cuda_ms
-    cs.cuda_ms = back_to_back(own, REPS["int8_mlp"])
-    for rows in (cs.ROLLOUT_ROWS, cs.SERVE_ROWS):
-        cs.check_kernel(rows, torch.bfloat16, 0, dev, True, card_line)
-        torch.cuda.empty_cache()
-    cs.cuda_ms = back_to_back(own, REPS["int8_matmul"])
-    for name in ("rollout", "serve"):
-        cs.check_k2(name, 0, dev, card_line)
-        torch.cuda.empty_cache()
-    cs.cuda_ms = back_to_back(own, REPS["fused_attention"])
-    for name in ("text", "image"):
-        for dtype in (torch.float32, torch.bfloat16):
-            cs.check_attention(name, dtype, 0, dev, card_line)
+    if only not in ("", "hash_dropout"):
+        raise SystemExit(f"--only {only}: only hash_dropout is selectable")
+    if not only:
+        cs.cuda_ms = back_to_back(own, REPS["int8_mlp"])
+        for rows in (cs.ROLLOUT_ROWS, cs.SERVE_ROWS):
+            cs.check_kernel(rows, torch.bfloat16, 0, dev, True, card_line)
+            torch.cuda.empty_cache()
+        cs.cuda_ms = back_to_back(own, REPS["int8_matmul"])
+        for name in ("rollout", "serve"):
+            cs.check_k2(name, 0, dev, card_line)
+            torch.cuda.empty_cache()
+        cs.cuda_ms = back_to_back(own, REPS["fused_attention"])
+        for name in ("text", "image"):
+            for dtype in (torch.float32, torch.bfloat16):
+                cs.check_attention(name, dtype, 0, dev, card_line)
     cs.cuda_ms = back_to_back(own, REPS["hash_dropout"])
     cs.check_dropout("hash_dropout", (cs.ROLLOUT_ROWS, cs.H), torch.bfloat16,
                      1, dev, True, card_line)
+    cs.cuda_ms = own
+    for shape, dtype in HASH_ONE_CALL:
+        cs.check_dropout("hash_dropout", shape, getattr(torch, dtype), 2,
+                         dev, True, card_line)
 
 
 def main(argv: list) -> None:
     if argv[:1] == ["--child"]:
-        child(argv[1])
+        child(*argv[1:])
         return
+    only = ""
+    if argv[:1] == ["--only"]:
+        only, argv = argv[1], argv[2:]
     if not argv:
         raise SystemExit(__doc__)
     here = os.path.dirname(os.path.abspath(__file__))
@@ -89,7 +106,7 @@ def main(argv: list) -> None:
         timeout=60).stdout.strip(), flush=True)
     for tree in trees:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
-                        tree], check=True, cwd=tree)
+                        tree, only], check=True, cwd=tree)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """The port's CLI entry points, each the counterpart of the JAX package's
 CLI of the same name (lr2ppo_tpu/cli/__init__.py), with its flags. Run as
 `python -m lr2ppo_torch.cli.<name> --flags`, or
-`python -m lr2ppo_torch.cli <name> --flags`. `pretrain` is not ported yet
-(ROADMAP.md, queue A)."""
+`python -m lr2ppo_torch.cli <name> --flags`: all 14 of the JAX package's
+entries."""
 
 ENTRY_POINTS = (
     "pointwise",
@@ -17,5 +17,6 @@ ENTRY_POINTS = (
     "ppo_eval_trad",
     "preprocess_data",
     "preprocess",
+    "pretrain",
     "serve",
 )

@@ -1,0 +1,217 @@
+"""Tower pretraining CLI (counterpart of lr2ppo_tpu/cli/pretrain.py): MLM,
+causal LM or classification pretraining of a tower config on one GPU.
+
+    python -m lr2ppo_torch.cli pretrain --corpus_path corpus.txt \\
+        --tower_config models/xlm-roberta/base_config.json \\
+        --data_processor mlm --tokenizer space --vocab_path vocab.txt \\
+        --hash_dropout --output_model_path ckpt/mlm --total_steps 10000
+
+It takes the JAX CLI's flags. The mlm, lm and cls processors run; every
+other processor, the image tokenizers and every multi-GPU flag (--dp/--tp
+above 1, --pp, --sp, --zero1, --fsdp, --distributed) raise, naming ROADMAP.md.
+It runs on the GPU unless `--device cpu` is given, and raises where there
+is no GPU. The checkpoints are reference-keyed `.bin` files.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from lr2ppo_torch.config import Config, _parse_bool
+from lr2ppo_torch.data.pipeline import Loader
+from lr2ppo_torch.data.pretrain_data import (ClsTsvDataset, LmCorpusDataset,
+                                             MlmCorpusDataset)
+from lr2ppo_torch.data.tokenizers import str2tokenizer
+from lr2ppo_torch.towers.model import TowerConfig
+from lr2ppo_torch.train.pretrain import PretrainTrainer
+
+# the JAX CLI's processors that wait (ROADMAP.md, queue A)
+NOT_PORTED_PROCESSORS = ("bert", "albert", "cls_mlm", "bilm", "mt", "t5",
+                         "gsg", "bart", "prefixlm", "vit", "clip", "vilt",
+                         "s2t", "beit", "dalle")
+
+
+def _special_ids(tok):
+    """(cls, pad, sep) ids from the tokenizer's resolved specials,
+    falling back to the XLM-R layout (0/1/2) when the vocab has none
+    (e.g. GPT-2 BPE)."""
+    v = tok.vocab or {}
+
+    def gid(key, default):
+        t = tok.specials.get(key)
+        return v[t] if t in v else default
+
+    return gid("cls_token", 0), gid("pad_token", 1), gid("sep_token", 2)
+
+
+def _special_ids_csp(tok):
+    """(cls, sep, pad) — the pretrain_data constructors' arg order."""
+    c, p, sep = _special_ids(tok)
+    return c, sep, p
+
+
+def _mask_id(tok):
+    name = tok.specials.get("mask_token", "<mask>")
+    mid = tok.vocab.get(name)
+    if mid is None:
+        # a silent fallback would conflate a real token with the mask
+        raise SystemExit(
+            f"tokenizer vocab has no mask token ({name!r}); masked "
+            f"pretraining needs one — add it to the vocab or pick a "
+            f"tokenizer that defines it")
+    return mid
+
+
+# data_processor -> dataset builder; each gives the 'simple' batch form
+# (src, tgt, seg) of the JAX trainer
+str2dataset = {
+    "mlm": lambda path, tok, args, cfg: MlmCorpusDataset(
+        path, tok, args.seq_length, cfg.vocab_size, _mask_id(tok),
+        *_special_ids_csp(tok), seed=args.seed),
+    "lm": lambda path, tok, args, cfg: LmCorpusDataset(
+        path, tok, args.seq_length + 1, cfg.vocab_size, 0,
+        *_special_ids_csp(tok)),
+    "cls": lambda path, tok, args, cfg: ClsTsvDataset(
+        path, tok, args.seq_length, *_special_ids_csp(tok)),
+}
+
+
+def parser() -> argparse.ArgumentParser:
+    """The JAX CLI's flags, and --device."""
+    p = argparse.ArgumentParser(description="lr2ppo-torch tower pretraining")
+    p.add_argument("--corpus_path", required=True)
+    p.add_argument("--tower_config", required=True)
+    p.add_argument("--data_processor", default="mlm",
+                   choices=sorted((*str2dataset, *NOT_PORTED_PROCESSORS)))
+    p.add_argument("--tokenizer", default="bpe",
+                   choices=["char", "space", "bert", "bpe", "xlmroberta"])
+    p.add_argument("--vocab_path", default=None)
+    p.add_argument("--merges_path", default=None)
+    p.add_argument("--spm_model_path", default=None)
+    p.add_argument("--tokenizer_json", default=None)
+    p.add_argument("--output_model_path", default="ckpt/pretrained")
+    p.add_argument("--pretrained_model_path", default=None)
+    p.add_argument("--resume_path", default=None,
+                   help="step-numbered .state checkpoint to resume from")
+    p.add_argument("--log_path", default=None)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--accumulation_steps", type=int, default=1)
+    p.add_argument("--seq_length", type=int, default=128)
+    p.add_argument("--tgt_seq_length", type=int, default=128)
+    p.add_argument("--short_seq_prob", type=float, default=0.1)
+    p.add_argument("--dup_factor", type=int, default=1)
+    p.add_argument("--sentinel_start", type=int, default=None)
+    p.add_argument("--sentence_selection_strategy", default="random",
+                   choices=["random", "lead"])
+    p.add_argument("--vqgan_model_path", default=None)
+    p.add_argument("--max_audio_frames", type=int, default=None)
+    p.add_argument("--total_steps", type=int, default=None)
+    p.add_argument("--epochs_num", type=int, default=1)
+    p.add_argument("--report_steps", type=int, default=100)
+    p.add_argument("--save_checkpoint_steps", type=int, default=0)
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--dp", type=int, default=-1)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--zero1", action="store_true")
+    p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--pp", type=int, default=1)
+    p.add_argument("--pp_microbatches", type=int, default=0)
+    p.add_argument("--compute_dtype", default="float32")
+    p.add_argument("--hash_dropout", action="store_true",
+                   help="hash dropout at every tower dropout site "
+                        "(ops/hash_dropout.py, the CUDA kernel on a GPU)")
+    p.add_argument("--sp", action="store_true")
+    p.add_argument("--ckpt_backend", default="pickle",
+                   choices=["pickle", "orbax", "orbax_async"])
+    p.add_argument("--distributed", type=_parse_bool, nargs="?",
+                   const=True, default=False)
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--jax_platform", default="",
+                   help="the JAX package's backend flag; the port refuses it "
+                        "(pass --device)")
+    p.add_argument("--device", default=None,
+                   help="torch device; default the GPU (raises without one)")
+    return p
+
+
+def build(args, device=None):
+    """(trainer, loader) from parsed flags; raises on what is not ported."""
+    if args.data_processor in NOT_PORTED_PROCESSORS:
+        raise SystemExit(
+            f"--data_processor {args.data_processor}: not ported yet "
+            "(ROADMAP.md, queue A: the rest of the pretraining processors; "
+            "mlm, lm and cls run)")
+    if args.jax_platform:
+        raise SystemExit("--jax_platform names a JAX backend; lr2ppo_torch "
+                         "takes --device")
+    if args.tokenizer == "bpe":
+        tok = str2tokenizer["bpe"](args.vocab_path, args.merges_path)
+    elif args.tokenizer == "xlmroberta":
+        tok = str2tokenizer["xlmroberta"](
+            spm_model_path=args.spm_model_path,
+            tokenizer_json_path=args.tokenizer_json)
+    else:
+        tok = str2tokenizer[args.tokenizer](args.vocab_path)
+
+    vocab_size = max(len(tok.vocab), 1)
+    # grow-only max_seq_length: keep the JSON's own value (XLM-R's 514)
+    with open(args.tower_config) as f:
+        raw = json.load(f)
+    raw_msl = raw.get("max_seq_length", TowerConfig().max_seq_length)
+    maf = (args.max_audio_frames if args.max_audio_frames is not None
+           else raw.get("max_audio_frames", 256))
+    args.max_audio_frames = maf
+    if args.sp and args.tp <= 1:
+        raise SystemExit("--sp shards the sequence over tp; pass --tp > 1")
+    tower_cfg = TowerConfig.from_json(
+        args.tower_config, vocab_size=vocab_size,
+        max_seq_length=max(args.seq_length, raw_msl), max_audio_frames=maf,
+        **({"hash_dropout": True} if args.hash_dropout else {}),
+        **({"seq_parallel": True} if args.sp else {}))
+
+    cfg = Config()
+    cfg = cfg.replace(
+        epochs_num=args.epochs_num, batch_size=args.batch_size,
+        report_steps=args.report_steps, seed=args.seed,
+        output_model_path=args.output_model_path, log_path=args.log_path,
+        pretrained_model_path=args.pretrained_model_path,
+        resume_path=args.resume_path, ckpt_backend=args.ckpt_backend)
+    cfg.optim.learning_rate = args.learning_rate
+    cfg.mesh.dp = args.dp
+    cfg.mesh.tp = args.tp
+    cfg.mesh.zero1 = args.zero1
+    cfg.mesh.fsdp = args.fsdp
+    cfg.mesh.pp = args.pp
+    cfg.mesh.pp_microbatches = args.pp_microbatches
+    cfg.mesh.compute_dtype = args.compute_dtype
+    cfg.mesh.distributed = args.distributed
+    # refuses what is not ported before the corpus is read
+    trainer = PretrainTrainer(cfg, tower_cfg, args.accumulation_steps,
+                              device=device)
+
+    ds = str2dataset[args.data_processor](args.corpus_path, tok, args,
+                                          tower_cfg)
+    # each optimizer step takes accumulation_steps micro-batches of
+    # batch_size rows (the trainer folds them)
+    loader = Loader(ds, args.batch_size * args.accumulation_steps,
+                    shuffle=True, seed=args.seed, reuse_buffers=True,
+                    shard_chunks=max(args.accumulation_steps, 1))
+    return trainer, loader
+
+
+def main(argv=None, device=None) -> float:
+    """Returns the best accuracy. `device` (or --device) defaults to the
+    GPU."""
+    args = parser().parse_args(argv)
+    trainer, loader = build(args, device or args.device)
+    _state, best = trainer.fit(loader, args.total_steps,
+                               args.save_checkpoint_steps)
+    return best
+
+
+if __name__ == "__main__":
+    main()

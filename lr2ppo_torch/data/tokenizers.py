@@ -1,7 +1,10 @@
-"""Tokenizers the feature-extraction path needs (the port's own copy of part
-of lr2ppo_tpu/data/tokenizers.py): the special-token map, the vocab-file
-base tokenizer, CharTokenizer, the pure-Python sentencepiece Unigram model
-and XLMRobertaTokenizer.
+"""The text tokenizers (the port's own copy of lr2ppo_tpu/data/
+tokenizers.py): the special-token map, the vocab-file base tokenizer, char,
+space, bert (wordpiece), bpe (GPT-2 byte-level, which needs the `regex`
+package, imported at first use), the pure-Python sentencepiece Unigram model
+and XLMRobertaTokenizer, with `str2tokenizer` naming them as the JAX
+package's does. The virtual, image and text_image tokenizers raise
+(ROADMAP.md, queue A: the image processors).
 
 XLMRobertaTokenizer's backends, in preference order: the `sentencepiece`
 package, the HF `tokenizers` runtime (tokenizer.json), and the
@@ -16,6 +19,7 @@ from __future__ import annotations
 import json
 import os
 import unicodedata
+from functools import lru_cache
 from typing import Dict, List, Optional
 
 DEFAULT_SPECIALS = {
@@ -101,6 +105,177 @@ class CharTokenizer(BaseTokenizer):
         if use_vocab:
             return [t if t in self.vocab else self.unk for t in toks]
         return toks
+
+
+class SpaceTokenizer(BaseTokenizer):
+    def tokenize(self, text, use_vocab=True):
+        toks = text.strip().split(" ")
+        if use_vocab:
+            return [t if t in self.vocab else self.unk for t in toks]
+        return toks
+
+
+class BertTokenizer(BaseTokenizer):
+    """Basic (whitespace + punctuation + CJK) split then greedy wordpiece
+    (reference tokenizers.py:251-270 path)."""
+
+    def __init__(self, vocab_path=None, special_tokens_path=None,
+                 lower: bool = True, max_chars_per_word: int = 100):
+        super().__init__(vocab_path, special_tokens_path)
+        self.lower = lower
+        self.max_chars = max_chars_per_word
+
+    @staticmethod
+    def _is_punct(ch: str) -> bool:
+        cp = ord(ch)
+        if (33 <= cp <= 47 or 58 <= cp <= 64 or 91 <= cp <= 96
+                or 123 <= cp <= 126):
+            return True
+        return unicodedata.category(ch).startswith("P")
+
+    @staticmethod
+    def _is_cjk(ch: str) -> bool:
+        # full reference BasicTokenizer range set incl. Extensions B-F +
+        # compatibility ideographs (tokenizers.py _is_chinese_char)
+        cp = ord(ch)
+        return (0x4E00 <= cp <= 0x9FFF or 0x3400 <= cp <= 0x4DBF
+                or 0x20000 <= cp <= 0x2A6DF or 0x2A700 <= cp <= 0x2B73F
+                or 0x2B740 <= cp <= 0x2B81F or 0x2B820 <= cp <= 0x2CEAF
+                or 0xF900 <= cp <= 0xFAFF or 0x2F800 <= cp <= 0x2FA1F)
+
+    def _basic(self, text: str) -> List[str]:
+        if self.lower:
+            text = text.lower()
+        text = unicodedata.normalize("NFD", text)
+        # strip accents (Mn) and control chars (Cc/Cf, keeping \t\n\r as
+        # whitespace) like the reference BasicTokenizer._clean_text
+        text = "".join(
+            c for c in text
+            if unicodedata.category(c) != "Mn"
+            and (c in "\t\n\r"
+                 or not unicodedata.category(c).startswith("C")))
+        out, cur = [], []
+        for ch in text:
+            if ch.isspace():
+                if cur:
+                    out.append("".join(cur))
+                    cur = []
+            elif self._is_punct(ch) or self._is_cjk(ch):
+                if cur:
+                    out.append("".join(cur))
+                    cur = []
+                out.append(ch)
+            else:
+                cur.append(ch)
+        if cur:
+            out.append("".join(cur))
+        return out
+
+    def _wordpiece(self, word: str) -> List[str]:
+        if len(word) > self.max_chars:
+            return [self.unk]
+        pieces, start = [], 0
+        while start < len(word):
+            end = len(word)
+            piece = None
+            while start < end:
+                sub = word[start:end]
+                if start > 0:
+                    sub = "##" + sub
+                if sub in self.vocab:
+                    piece = sub
+                    break
+                end -= 1
+            if piece is None:
+                return [self.unk]
+            pieces.append(piece)
+            start = end
+        return pieces
+
+    def tokenize(self, text, use_vocab=True):
+        out: List[str] = []
+        for word in self._basic(text.strip()):
+            out.extend(self._wordpiece(word) if use_vocab else [word])
+        return out
+
+
+@lru_cache()
+def bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2 reversible byte <-> printable-unicode map."""
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(ord("\xa1"), ord("\xac") + 1))
+          + list(range(ord("\xae"), ord("\xff") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, [chr(c) for c in cs]))
+
+
+class BPETokenizer(BaseTokenizer):
+    """GPT-2 byte-level BPE (reference tokenizers.py:272-338), reading the
+    shipped huggingface_gpt2_vocab.txt / _merges.txt assets."""
+
+    def __init__(self, vocab_path=None, merges_path=None,
+                 special_tokens_path=None):
+        super().__init__(vocab_path, special_tokens_path)
+        import regex
+
+        self.byte_encoder = bytes_to_unicode()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
+        self.bpe_ranks: Dict[tuple, int] = {}
+        if merges_path:
+            with open(merges_path, encoding="utf-8") as f:
+                merges = f.read().split("\n")[1:-1]
+            self.bpe_ranks = {tuple(m.split()): i
+                              for i, m in enumerate(merges)}
+        self._cache: Dict[str, str] = {}
+        self.pat = regex.compile(
+            r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+"""
+            r"""| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+""")
+
+    def _bpe(self, token: str) -> str:
+        if token in self._cache:
+            return self._cache[token]
+        word = tuple(token)
+        while len(word) > 1:
+            pairs = {(word[i], word[i + 1]) for i in range(len(word) - 1)}
+            bigram = min(pairs,
+                         key=lambda p: self.bpe_ranks.get(p, float("inf")))
+            if bigram not in self.bpe_ranks:
+                break
+            first, second = bigram
+            merged, i = [], 0
+            while i < len(word):
+                if (i < len(word) - 1 and word[i] == first
+                        and word[i + 1] == second):
+                    merged.append(first + second)
+                    i += 2
+                else:
+                    merged.append(word[i])
+                    i += 1
+            word = tuple(merged)
+        out = " ".join(word)
+        self._cache[token] = out
+        return out
+
+    def tokenize(self, text, use_vocab=True):
+        import regex
+
+        out: List[str] = []
+        for token in regex.findall(self.pat, text):
+            mapped = "".join(self.byte_encoder[b]
+                             for b in token.encode("utf-8"))
+            out.extend(self._bpe(mapped).split(" "))
+        return out
+
+    def decode(self, tokens: List[str]) -> str:
+        text = "".join(tokens)
+        return bytearray(self.byte_decoder[c] for c in text).decode(
+            "utf-8", errors="replace")
 
 
 class SentencePieceUnigram:
@@ -470,3 +645,22 @@ class XLMRobertaTokenizer(BaseTokenizer):
         unk_id = self.vocab.get(self.unk, 0)
         return [self.vocab.get(t, unk_id) for t in tokens]
 
+
+def _not_ported(name: str):
+    def make(*args, **kwargs):
+        raise NotImplementedError(
+            f"the {name!r} tokenizer is not ported yet (ROADMAP.md, queue A: "
+            "the image pretraining processors)")
+    return make
+
+
+str2tokenizer = {
+    "char": CharTokenizer,
+    "space": SpaceTokenizer,
+    "bert": BertTokenizer,
+    "bpe": BPETokenizer,
+    "xlmroberta": XLMRobertaTokenizer,
+    "virtual": _not_ported("virtual"),
+    "image": _not_ported("image"),
+    "text_image": _not_ported("text_image"),
+}

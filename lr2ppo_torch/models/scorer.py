@@ -24,6 +24,7 @@ from torch import nn
 
 from lr2ppo_torch.config import ModelConfig
 from lr2ppo_torch.models.layers import Linear, Mlp, XiT, cast
+from lr2ppo_torch.utils.remat import remat
 
 
 def _xit(cfg: ModelConfig, dtype, device, causal: bool = False) -> XiT:
@@ -45,17 +46,18 @@ class FusionTrunk(nn.Module):
     tabular:    text (B, T, D), one doc vector a token, self-attended
                 (ppo_trad.py:157-167); the XiT output is concatenated with
                 the token itself. There are no projections: `tokens=` takes
-                pre-projected (B, T, 1, D) tokens (the 2-data model's)."""
+                pre-projected (B, T, 1, D) tokens (the 2-data model's).
+
+    With `cfg.remat`, a trunk pass that records gradients runs under
+    utils/remat.py: its activations are recomputed in the backward with the
+    dropout seeds of the forward (the JAX package's nn.remat of the
+    trunk)."""
 
     def __init__(self, cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
                  device=None):
         super().__init__()
         if cfg.family not in ("multimodal", "tabular"):
             raise ValueError(f"unknown model family {cfg.family!r}")
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat (activation recomputation) is not ported yet "
-                "(ROADMAP.md, queue A)")
         self.cfg, self.dtype = cfg, dtype
         d = cfg.feat_size
         hidden = cfg.mlp_ratio * d
@@ -75,6 +77,16 @@ class FusionTrunk(nn.Module):
               deterministic: bool = True,
               generator: Optional[torch.Generator] = None,
               tokens: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.cfg.remat and torch.is_grad_enabled():
+            return remat(self._trunk, text_emb, img_emb, deterministic,
+                         tokens, generator=generator)
+        return self._trunk(text_emb, img_emb, deterministic, tokens,
+                           generator)
+
+    def _trunk(self, text_emb: Optional[torch.Tensor],
+               img_emb: Optional[torch.Tensor], deterministic: bool,
+               tokens: Optional[torch.Tensor],
+               generator: Optional[torch.Generator]) -> torch.Tensor:
         if self.cfg.family == "tabular":
             if tokens is None:
                 tokens = cast(text_emb, self.dtype)[:, :, None, :]

@@ -1,5 +1,6 @@
 """Zero-residual hash dropout (counterpart of lr2ppo_tpu/ops/hash_dropout.py)
-and `module_dropout`, the one dropout site of the fusion models.
+and `module_dropout`, the one dropout site of the fusion models and the
+towers.
 
 Element i (its flat row-major position in x) is kept iff
     fmix32(uint32(i) ^ uint32(seed) * 0x9E3779B9) < threshold(rate),
@@ -15,8 +16,9 @@ Three parts:
   * `hash_dropout_reference`, the plain PyTorch version: uint32 arithmetic
     emulated in int64 masked to 32 bits, bit-equal to the JAX `_apply` and
     to the kernel;
-  * `module_dropout`: hash > fast > pallas-size-gated (Philox kernel,
-    ops/dropout.py) > canonical, the JAX package's precedence.
+  * `module_dropout`: hash > fast (packed bits, ops/fast_dropout.py) >
+    pallas-size-gated (Philox kernel, ops/dropout.py) > canonical, the JAX
+    package's precedence.
 
 Per-site seeds are Python ints drawn on the host from the caller's CPU
 `torch.Generator` (`draw_seed`), so choosing a seed never waits on the card.
@@ -24,6 +26,7 @@ Per-site seeds are Python ints drawn on the host from the caller's CPU
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional
 
 import torch
@@ -38,6 +41,7 @@ _MASK32 = 0xFFFFFFFF
 _CHUNK = 1 << 24
 
 
+@lru_cache(maxsize=None)
 def threshold(rate: float) -> int:
     """keep iff hash < threshold; exact at 32-bit granularity."""
     t = int(round((1.0 - rate) * 4294967296.0))
@@ -50,9 +54,11 @@ def seed_mix(seed: int) -> int:
     return ((int(seed) & _MASK32) * _GOLDEN) & _MASK32
 
 
+@lru_cache(maxsize=None)
 def scale_for(rate: float, dtype: torch.dtype) -> float:
     """1 / keep_eff rounded to `dtype`, as the JAX version's np.asarray(...,
-    dtype=x.dtype); for bfloat16 at rate 0.1 that is 1.109375."""
+    dtype=x.dtype); for bfloat16 at rate 0.1 that is 1.109375. Cached: a
+    training step asks for it at every dropout site."""
     keep_eff = float(threshold(rate)) / 4294967296.0
     return float(torch.tensor(1.0 / keep_eff, dtype=dtype))
 
@@ -123,16 +129,23 @@ def check_elementwise(x: torch.Tensor, what: str) -> torch.Tensor:
 
 def launch_elementwise(entry: str, x: torch.Tensor, key: int, thr: int,
                        scale: float) -> torch.Tensor:
-    """y = the kernel of csrc/<entry>.cu over x, on the current stream."""
+    """y = the kernel of csrc/<entry>.cu over x, on x's device's current
+    stream. The launch is made on x's device: the device context is entered
+    only where another device is current."""
     x = check_elementwise(x, entry)
     y = torch.empty_like(x)
-    lib = build.library(entry)
-    with torch.cuda.device(x.device):
-        err = getattr(lib, f"lr2ppo_{entry}")(
-            x.data_ptr(), y.data_ptr(), x.numel(), key, thr, scale,
+    fn = getattr(build.library(entry), f"lr2ppo_{entry}")
+    index = x.device.index
+    args = (x.data_ptr(), y.data_ptr(), x.numel(), key, thr, scale,
             build.DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    build.check(lib, err, f"{entry} launch")
+            torch._C._cuda_getCurrentRawStream(index))
+    if index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
+    if err:
+        build.check(build.library(entry), err, f"{entry} launch")
     return y
 
 
@@ -194,9 +207,9 @@ def module_dropout(x: torch.Tensor, rate: float, deterministic: bool,
                    use_fast: bool = False, use_pallas: bool = False,
                    pallas_min_elements: int = 128 * 1024 * 1024
                    ) -> torch.Tensor:
-    """THE dropout site of the fusion models. Precedence: hash > fast >
-    pallas (the Philox kernel, size-gated) > canonical. Every active site
-    draws one seed from `generator`."""
+    """THE dropout site of the fusion models and the towers. Precedence:
+    hash > fast > pallas (the Philox kernel, size-gated) > canonical. Every
+    active site draws one seed from `generator`."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
@@ -205,8 +218,9 @@ def module_dropout(x: torch.Tensor, rate: float, deterministic: bool,
     if use_hash:
         return hash_dropout(x, draw_seed(generator), rate)
     if use_fast:
-        raise NotImplementedError(
-            "fast_dropout is not ported yet (ROADMAP.md, queue A)")
+        from lr2ppo_torch.ops import fast_dropout
+
+        return fast_dropout.packed_dropout(x, draw_seed(generator), rate)
     if use_pallas and x.numel() >= pallas_min_elements:
         from lr2ppo_torch.ops.dropout import philox_dropout
 

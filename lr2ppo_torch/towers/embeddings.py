@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from lr2ppo_torch.ops.hash_dropout import module_dropout
 from lr2ppo_torch.towers.layers import NOT_PORTED, RefLayerNorm
 
 
@@ -110,12 +111,13 @@ _EMB_KINDS = {
 class CompositeEmbedding(nn.Module):
     """The sum of the configured kinds, each a submodule named by its kind
     (`embedding.word...`, `embedding.patch...`), then `layer_norm` unless
-    `remove_embedding_layernorm`. Embedding dropout is the identity on the
-    deterministic path this slice runs."""
+    `remove_embedding_layernorm`, then the dropout site of embedding.py:
+    19-34 in training mode (its seed drawn from the caller's generator)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
         self.kinds = list(cfg.embedding)
+        self.dropout, self.hash_dropout = cfg.dropout, cfg.hash_dropout
         for kind in self.kinds:
             if kind not in _EMB_KINDS:
                 raise NotImplementedError(f"the {kind!r} embedding is "
@@ -125,9 +127,13 @@ class CompositeEmbedding(nn.Module):
             None if cfg.remove_embedding_layernorm
             else RefLayerNorm(cfg.emb_size, device=device))
 
-    def forward(self, src, seg: torch.Tensor) -> torch.Tensor:
+    def forward(self, src, seg: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         emb = None
         for kind in self.kinds:
             cur = getattr(self, kind)(src, seg)
             emb = cur if emb is None else emb + cur
-        return emb if self.layer_norm is None else self.layer_norm(emb)
+        if self.layer_norm is not None:
+            emb = self.layer_norm(emb)
+        return module_dropout(emb, self.dropout, deterministic, generator,
+                              self.hash_dropout)

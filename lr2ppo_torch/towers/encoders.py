@@ -5,11 +5,16 @@ Its layers are `encoder.transformer.<i>` (or one shared `encoder.transformer`
 under parameter sharing), then `encoder.layer_norm` for pre-LN stacks. On a
 deterministic fully-visible pass with `pallas_attention` set, the encoder
 hands each layer a (B, S) key bias, which routes attention through the fused
-kernel (ops/attention.py), as the JAX gate (encoders.py:84-89) does.
+kernel (ops/attention.py), as the JAX gate (encoders.py:84-89) does. The
+kernel has no backward: a training pass takes the plain attention.
+
+With `remat`, each layer of a pass that records gradients runs under
+utils/remat.py, which recomputes its activations in the backward with the
+dropout seeds of the forward (the JAX package's `nn.remat` of the layer).
 
 The RNN family, the gated CNN, dual encoders, relative positions, residual
-attention, `remat` and `seq_parallel` raise (ROADMAP A: the rest of the
-towers; multi-GPU).
+attention and `seq_parallel` raise (ROADMAP A: the rest of the towers;
+multi-GPU).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from lr2ppo_torch.models.layers import Linear
 from lr2ppo_torch.towers.layers import (NOT_PORTED, TransformerLayer,
                                         additive_mask_from_seg,
                                         make_layer_norm)
+from lr2ppo_torch.utils.remat import remat
 
 
 class TransformerEncoder(nn.Module):
@@ -31,7 +37,7 @@ class TransformerEncoder(nn.Module):
     def __init__(self, cfg, dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         for flag in ("relative_position_embedding", "has_residual_attention",
-                     "remat", "seq_parallel"):
+                     "seq_parallel"):
             if getattr(cfg, flag):
                 raise NotImplementedError(f"{flag} is {NOT_PORTED}")
         self.cfg = cfg
@@ -46,7 +52,8 @@ class TransformerEncoder(nn.Module):
                 cfg.feed_forward, cfg.attention_head_size,
                 has_bias=not cfg.remove_transformer_bias,
                 with_scale=not cfg.remove_attention_scale, dtype=dtype,
-                device=device)
+                device=device, dropout=cfg.dropout,
+                hash_dropout=cfg.hash_dropout)
 
         self.transformer = (layer() if cfg.parameter_sharing
                             else nn.ModuleList(layer()
@@ -56,26 +63,32 @@ class TransformerEncoder(nn.Module):
                                               dtype, device)
 
     def forward(self, emb: torch.Tensor, seg: torch.Tensor,
-                deterministic: bool = True) -> torch.Tensor:
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
-        if not deterministic:
-            raise NotImplementedError(f"tower dropout is {NOT_PORTED}")
         if cfg.factorized_embedding_parameterization:
             emb = self.linear(emb)
-        # the key-only bias that takes the fused attention kernel. The JAX
-        # gate also asks for a deterministic pass without residual attention
-        # or relative positions, which is every pass this encoder runs
+        # the key-only bias that takes the fused attention kernel, on a
+        # deterministic pass only (the JAX gate also asks for no residual
+        # attention and no relative positions, which this encoder refuses)
         key_bias = None
-        if cfg.pallas_attention and cfg.mask == "fully_visible":
+        if (cfg.pallas_attention and cfg.mask == "fully_visible"
+                and deterministic):
             key_bias = torch.where(seg > 0, 0.0, -10000.0)
         # the (B, 1, S, S) mask, where some layer takes the plain path
         mask = (additive_mask_from_seg(seg, cfg.mask)
                 if key_bias is None or cfg.remove_attention_scale else None)
+        recompute = cfg.remat and torch.is_grad_enabled()
         hidden = emb
         for i in range(cfg.layers_num):
             blk = (self.transformer if cfg.parameter_sharing
                    else self.transformer[i])
-            hidden = blk(hidden, mask, key_bias)
+            if recompute:
+                hidden = remat(blk, hidden, mask, key_bias, deterministic,
+                               generator=generator)
+            else:
+                hidden = blk(hidden, mask, key_bias, deterministic,
+                             generator)
         if cfg.layernorm_positioning == "pre":
             hidden = self.layer_norm(hidden)
         return hidden

@@ -13,9 +13,12 @@ JAX package's:
   * attention masks are additive -10000 biases; the plain path divides the
     scores by sqrt(dh) and then adds the mask.
 
-This slice runs the towers' inference path. Dropout, the T5 relative
-position bias and residual-attention chaining belong to pretraining and
-raise (ROADMAP A, "the rest of the towers with pretraining").
+Training mode (`deterministic=False`) applies the JAX layer's dropout sites
+through `module_dropout` (ops/hash_dropout.py): the attention probabilities
+and the two residual branches of each layer. Every active site draws its seed
+from the caller's CPU `torch.Generator`, in forward order. The T5 relative
+position bias and residual-attention chaining raise (ROADMAP A: the rest of
+the towers).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from torch import nn
 
 from lr2ppo_torch.models.layers import Linear
 from lr2ppo_torch.ops.attention import fused_attention
+from lr2ppo_torch.ops.hash_dropout import module_dropout
 
 ACTS: dict = {
     "gelu": lambda x: F.gelu(x, approximate="none"),
@@ -121,18 +125,21 @@ class MultiHeadedAttention(nn.Module):
     """Reference MHA (multi_headed_attn.py:6-76): separate q/k/v linears
     `linear_layers.{0,1,2}` and the output linear `final_linear`.
 
-    With a `key_bias` (the encoder's gate), attention runs through the
-    fused kernel (ops/attention.py), as the JAX layer takes the Pallas
-    kernel. The position bias, score chaining and attention dropout of the
-    JAX layer belong to pretraining and are not ported yet."""
+    With a `key_bias` (the encoder's gate, on deterministic passes only),
+    attention runs through the fused kernel (ops/attention.py), as the JAX
+    layer takes the Pallas kernel; the plain path drops the probabilities in
+    training mode. The position bias and score chaining of the JAX layer are
+    not ported yet."""
 
     def __init__(self, hidden_size: int, heads_num: int,
                  attention_head_size: int, has_bias: bool = True,
                  with_scale: bool = True, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 device=None, dropout: float = 0.0,
+                 hash_dropout: bool = False):
         super().__init__()
         self.heads_num, self.head_size = heads_num, attention_head_size
         self.with_scale, self.dtype = with_scale, dtype
+        self.dropout, self.hash_dropout = dropout, hash_dropout
         inner = heads_num * attention_head_size
         self.linear_layers = nn.ModuleList([
             Linear(hidden_size, inner, bias=has_bias, dtype=dtype,
@@ -142,7 +149,9 @@ class MultiHeadedAttention(nn.Module):
 
     def forward(self, key: torch.Tensor, value: torch.Tensor,
                 query: torch.Tensor, mask: Optional[torch.Tensor],
-                key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_bias: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h, dh = self.heads_num, self.head_size
         q = self.linear_layers[0](query)
         k = self.linear_layers[1](key)
@@ -165,6 +174,8 @@ class MultiHeadedAttention(nn.Module):
                 scores = scores / scores.new_tensor(math.sqrt(float(dh)))
             scores = scores + mask
             probs = torch.softmax(scores, dim=-1).to(self.dtype or q.dtype)
+            probs = module_dropout(probs, self.dropout, deterministic,
+                                   generator, self.hash_dropout)
             out = torch.matmul(probs, v.to(probs.dtype))
             out = out.to(self.dtype or torch.float32)
         out = out.transpose(1, 2).reshape(b, sq, h * dh)
@@ -208,8 +219,9 @@ class GatedFeedForward(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    """Pre- or post-LN encoder block (transformer.py:8-74) on the
-    deterministic path, where every dropout is the identity."""
+    """Pre- or post-LN encoder block (transformer.py:8-74). In training mode
+    it has three dropout sites, in the order their seeds are drawn: the
+    attention probabilities, the attention branch and the FFN branch."""
 
     def __init__(self, hidden_size: int, heads_num: int,
                  feedforward_size: int, hidden_act: str = "gelu",
@@ -217,13 +229,15 @@ class TransformerLayer(nn.Module):
                  layernorm: str = "normal", feed_forward: str = "dense",
                  attention_head_size: Optional[int] = None,
                  has_bias: bool = True, with_scale: bool = True,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 dropout: float = 0.0, hash_dropout: bool = False):
         super().__init__()
         dh = attention_head_size or hidden_size // heads_num
         self.pre = layernorm_positioning == "pre"
+        self.dropout, self.hash_dropout = dropout, hash_dropout
         self.self_attn = MultiHeadedAttention(hidden_size, heads_num, dh,
                                               has_bias, with_scale, dtype,
-                                              device)
+                                              device, dropout, hash_dropout)
         ffn_cls = (GatedFeedForward if feed_forward == "gated"
                    else PositionwiseFeedForward)
         self.feed_forward = ffn_cls(hidden_size, feedforward_size, hidden_act,
@@ -234,12 +248,37 @@ class TransformerLayer(nn.Module):
                                             device)
 
     def forward(self, hidden: torch.Tensor, mask: Optional[torch.Tensor],
-                key_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_bias: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        def drop(x):
+            return module_dropout(x, self.dropout, deterministic, generator,
+                                  self.hash_dropout)
+
         if not self.pre:
-            inter = self.self_attn(hidden, hidden, hidden, mask, key_bias)
-            inter = self.layer_norm_1(inter + hidden)
-            return self.layer_norm_2(self.feed_forward(inter) + inter)
+            inter = self.self_attn(hidden, hidden, hidden, mask, key_bias,
+                                   deterministic, generator)
+            inter = self.layer_norm_1(drop(inter) + hidden)
+            return self.layer_norm_2(drop(self.feed_forward(inter)) + inter)
         normed = self.layer_norm_1(hidden)
-        inter = self.self_attn(normed, normed, normed, mask, key_bias)
-        hidden = hidden + inter
-        return self.feed_forward(self.layer_norm_2(hidden)) + hidden
+        inter = self.self_attn(normed, normed, normed, mask, key_bias,
+                               deterministic, generator)
+        hidden = hidden + drop(inter)
+        return drop(self.feed_forward(self.layer_norm_2(hidden))) + hidden
+
+
+def pooling(memory_bank: torch.Tensor, seg: torch.Tensor,
+            pooling_type: str) -> torch.Tensor:
+    """first/mean/max/last pooling under the seg mask (utils/misc.py:23-35;
+    lr2ppo_tpu/towers/layers.py:pooling)."""
+    segf = seg[..., None].to(memory_bank.dtype)
+    masked = memory_bank * segf
+    if pooling_type == "mean":
+        return masked.sum(1) / segf.sum(1)
+    if pooling_type == "last":
+        last = seg.to(torch.int64).sum(1) - 1
+        return masked[torch.arange(masked.shape[0]), last]
+    if pooling_type == "max":
+        neg = (segf - 1.0) * torch.finfo(torch.float32).max
+        return (masked + neg).max(1).values
+    return memory_bank[:, 0]

@@ -5,8 +5,9 @@
 `from_json` reads the reference config files (models/vit/
 base-16-224_config.json, models/xlm-roberta/base_config.json) and ignores
 keys it has no field for. `TowerModel.encode` is the feature-extraction
-path; the decoder, the targets and the pretraining loss raise (ROADMAP A:
-the rest of the towers, with pretraining).
+path; built `with_target`, the model's forward is the pretraining loss
+through the targets (targets.py). The decoder and dual encoders raise
+(ROADMAP A: the rest of the towers).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from lr2ppo_torch.models.layers import Linear
 from lr2ppo_torch.towers.embeddings import CompositeEmbedding, PatchEmbedding
 from lr2ppo_torch.towers.encoders import build_encoder
 from lr2ppo_torch.towers.layers import NOT_PORTED, RefLayerNorm, T5LayerNorm
+from lr2ppo_torch.towers.targets import CompositeTarget
 
 
 @dataclass
@@ -105,12 +107,16 @@ class TowerConfig:
 
 
 class TowerModel(nn.Module):
-    """Embedding -> encoder (models/model.py), under the reference keys
-    `embedding.*` and `encoder.*`. `encode` gives the encoder's last hidden
-    states, the features clean_feat.h5 stores."""
+    """Embedding -> encoder [-> target] (models/model.py), under the
+    reference keys `embedding.*`, `encoder.*` and, built `with_target`,
+    `target.<kind>.*`. `encode` gives the encoder's last hidden states, the
+    features clean_feat.h5 stores; a tower for extraction is built without
+    the target, as a reference checkpoint's heads are dropped by
+    `encoder_state`. In training mode (`deterministic=False`) every dropout
+    site draws its seed from `generator`, a CPU torch.Generator."""
 
     def __init__(self, cfg: TowerConfig, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 device=None, with_target: bool = False):
         super().__init__()
         if cfg.encoder == "dual" or cfg.decoder:
             raise NotImplementedError(
@@ -118,14 +124,34 @@ class TowerModel(nn.Module):
         self.cfg = cfg
         self.embedding = CompositeEmbedding(cfg, device)
         self.encoder = build_encoder(cfg, dtype, device)
+        if with_target:
+            self.target = CompositeTarget(cfg, dtype, device)
 
-    def encode(self, src, seg: torch.Tensor,
-               deterministic: bool = True) -> torch.Tensor:
-        return self.encoder(self.embedding(src, seg), seg, deterministic)
+    def encode(self, src, seg: torch.Tensor, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        emb = self.embedding(src, seg, deterministic, generator)
+        return self.encoder(emb, seg, deterministic, generator)
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(f"the targets and the pretraining loss are "
-                                  f"{NOT_PORTED}; call encode()")
+    def embed_only(self, src, seg: torch.Tensor, deterministic: bool = True,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+        """The embedding's output without the encoder (the JAX package's
+        companion of a pipelined encoder stack)."""
+        return self.embedding(src, seg, deterministic, generator)
+
+    def target_only(self, memory: torch.Tensor, tgt, seg: torch.Tensor):
+        """The target over a precomputed encoder output."""
+        return self.target(memory, tgt, seg)
+
+    def forward(self, src, tgt, seg: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """The target's loss tuple: (loss, correct, denom) for mlm, lm and
+        bilm, (loss, correct) for cls and sp, {kind: tuple} for several."""
+        if not hasattr(self, "target"):
+            raise ValueError("this TowerModel was built without its target "
+                             "(with_target=False); call encode()")
+        return self.target(self.encode(src, seg, deterministic, generator),
+                           tgt, seg)
 
 
 def build_model(cfg: TowerConfig, dtype=None, device=None) -> TowerModel:

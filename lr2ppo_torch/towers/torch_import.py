@@ -2,10 +2,11 @@
 
 The port's tower modules carry the TencentPretrain key layout, so a
 reference tower `.bin` needs no conversion: `load_tower_checkpoint` reads it
-and `encoder_state` keeps what `encode` reads. `tower_params_from_flax` is
-the weight bridge from the JAX package: a flax tower tree of numpy arrays
-into that layout, the inverse of the JAX package's `torch_tower_to_flax` for
-the embedding and transformer-encoder keys:
+(or a JAX package pickle checkpoint of a tower, through the bridge) and
+`encoder_state` keeps what `encode` reads. `tower_params_from_flax` is the
+weight bridge from the JAX package: a flax tower tree of numpy arrays into
+that layout, the inverse of the JAX package's `torch_tower_to_flax` for the
+embedding, transformer-encoder and target keys:
 
   flax                                      torch
   embedding/<kind>/embedding                embedding.<kind>.embedding.weight
@@ -15,6 +16,7 @@ the embedding and transformer-encoder keys:
                                             encoder.transformer.<i>...weight
                                             (out, in)
   .../linear_layers_<j>/...                 ...linear_layers.<j>...
+  target/<kind>/<linear>/kernel             target.<kind>.<linear>.weight
   gamma, beta, bias, cls_emb, 1-d weight    as they are
 """
 
@@ -27,10 +29,12 @@ from typing import Dict
 import numpy as np
 import torch
 
+from lr2ppo_torch.towers.targets import TARGET_KINDS
+
 _INDEXED = re.compile(r"^(transformer|linear_layers)_(\d+)$")
 
 # the module prefixes encode reads; a reference .bin also holds the target
-# heads (`target.*`), which belong to pretraining
+# heads (`target.*`), which only pretraining reads
 ENCODE_PREFIXES = ("embedding.", "encoder.")
 
 
@@ -50,9 +54,10 @@ def tower_params_from_flax(tree: dict,
     tree = tree.get("params", tree)
     out = {}
     for path, arr in _flatten(tree):
-        if path[0] not in ("embedding", "encoder"):
-            raise KeyError(f"flax path {path} is outside the embedding and "
-                           "encoder this slice ports")
+        if path[0] not in ("embedding", "encoder", "target") or (
+                path[0] == "target" and path[1] not in TARGET_KINDS):
+            raise KeyError(f"flax path {path} is outside the embedding, "
+                           "encoder and targets the port has")
         arr = np.asarray(arr)
         parts = []
         for p in path[:-1]:
@@ -77,8 +82,17 @@ def tower_params_from_flax(tree: dict,
     return out
 
 
-def load_tower_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A reference tower `.bin` (a torch state_dict) as it is."""
+def load_tower_checkpoint(path: str,
+                          channels_num: int = 3) -> Dict[str, torch.Tensor]:
+    """A tower's reference-keyed state_dict: a reference `.bin` or the
+    port's (a torch state_dict) as it is, or a JAX package pickle checkpoint
+    (save_checkpoint's {"tree", ...}, e.g. the JAX pretrainer's `-best`)
+    through `tower_params_from_flax`."""
+    from lr2ppo_torch.train.checkpoints import jax_pickle_tree
+
+    tree = jax_pickle_tree(path)
+    if tree is not None:
+        return tower_params_from_flax(tree, channels_num)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

@@ -156,15 +156,20 @@ def check_backend(backend: str) -> None:
 def save_state(path: str, models: dict, optims: dict, generator, **counters
                ) -> None:
     """The resumable `.state` payload, the port's own format: each model's
-    state_dict and each AdamW's moments and count (by the same names), the
+    state_dict and each optimizer's state_dict (AdamW's moments and count,
+    Adafactor's second moments and count; by the same names), the
     dropout generator's state and the counters (step, best, ...)."""
-    def host_optim(opt):
-        sd = opt.state_dict()
-        return {**sd, "mu": _host(sd["mu"]), "nu": _host(sd["nu"])}
+    def host_tree(node):
+        if isinstance(node, torch.Tensor):
+            return node.detach().cpu()
+        if isinstance(node, dict):
+            return {k: host_tree(v) for k, v in node.items()}
+        return node
 
     _save({"format": STATE_FORMAT,
            "models": {k: _host(m.state_dict()) for k, m in models.items()},
-           "optims": {k: host_optim(o) for k, o in optims.items()},
+           "optims": {k: host_tree(o.state_dict())
+                      for k, o in optims.items()},
            "generator": generator.get_state(), **counters}, path)
 
 
@@ -189,6 +194,18 @@ def load_state(path: str) -> dict:
     return payload
 
 
+def jax_pickle_tree(path: str):
+    """The param tree of a JAX package pickle checkpoint (save_checkpoint's
+    {"tree": ..., "metadata": ...}, numpy leaves), or None where `path` is
+    not one (a torch file)."""
+    try:
+        with open(path, "rb") as f:
+            return pickle.load(f)["tree"]
+    except (pickle.UnpicklingError, EOFError, KeyError, UnicodeDecodeError,
+            TypeError):
+        return None
+
+
 def load_any(path: str, kind: str = "single"):
     """Load a JAX package pickle checkpoint (save_checkpoint: its leaves are
     numpy arrays) or a reference torch `.bin`, as reference-keyed
@@ -202,12 +219,8 @@ def load_any(path: str, kind: str = "single"):
         raise ValueError(
             f"{path} is an orbax checkpoint directory, which only the JAX "
             "package reads; save with the 'pickle' backend to serve it here")
-    try:
-        with open(path, "rb") as f:
-            payload = pickle.load(f)
-        tree = payload["tree"]
-    except (pickle.UnpicklingError, EOFError, KeyError, UnicodeDecodeError,
-            TypeError):
+    tree = jax_pickle_tree(path)
+    if tree is None:
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if kind == "actor_critic":
             actor, critic = split_actor_critic(sd)

@@ -1,5 +1,5 @@
-"""AdamW and LR schedules with the reference's semantics (counterpart of
-lr2ppo_tpu/train/optim.py).
+"""AdamW, Adafactor and LR schedules with the reference's semantics
+(counterpart of lr2ppo_tpu/train/optim.py).
 
 The step is the JAX package's optax chain written out:
   [clip_by_global_norm] -> scale_by_adam_hf -> add_decayed_weights(mask)
@@ -11,6 +11,10 @@ torch.optim.AdamW always corrects the bias and decays before the step, so
 it cannot stand in. Moments may be stored in a narrower `moment_dtype`;
 their math runs in float32.
 
+Adafactor is `optax.adafactor(learning_rate=schedule)` with optax's
+defaults written out (see `Adafactor`), as the JAX package builds it for
+--optimizer adafactor.
+
 The decay mask decays every parameter whose name does not end in `bias`:
 the reference exempts names holding 'bias'/'gamma'/'beta', and its finetune
 models have no gamma/beta, so LayerNorm weights and `pos_emb` decay.
@@ -21,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 
@@ -164,37 +169,150 @@ class AdamW:
         """Copy a state_dict() into this optimizer's moments (each keeps its
         device and dtype); the parameter names and shapes must match."""
         for name in ("mu", "nu"):
-            have, got = getattr(self, name), state[name]
-            if set(got) != set(have):
-                raise KeyError(
-                    f"AdamW.{name}: the saved moments are for other "
-                    f"parameters (missing {sorted(set(have) - set(got))}, "
-                    f"unexpected {sorted(set(got) - set(have))})")
-            for k, v in got.items():
-                if v.shape != have[k].shape or v.dtype != have[k].dtype:
-                    raise ValueError(
-                        f"AdamW.{name}[{k!r}]: saved {v.dtype} "
-                        f"{tuple(v.shape)}, this optimizer holds "
-                        f"{have[k].dtype} {tuple(have[k].shape)}")
-                have[k].copy_(v)
+            copy_named(f"AdamW.{name}", getattr(self, name), state[name])
+        self.count = int(state["count"])
+
+
+def copy_named(what: str, have: Dict[str, torch.Tensor],
+               got: Dict[str, torch.Tensor]) -> None:
+    """Copy the saved tensors `got` into `have`, by parameter name; the
+    names, shapes and dtypes must match."""
+    if set(got) != set(have):
+        raise KeyError(
+            f"{what}: the saved state is for other parameters (missing "
+            f"{sorted(set(have) - set(got))}, unexpected "
+            f"{sorted(set(got) - set(have))})")
+    for k, v in got.items():
+        if v.shape != have[k].shape or v.dtype != have[k].dtype:
+            raise ValueError(
+                f"{what}[{k!r}]: saved {v.dtype} {tuple(v.shape)}, this "
+                f"optimizer holds {have[k].dtype} {tuple(have[k].shape)}")
+        have[k].copy_(v)
+
+
+class Adafactor:
+    """optax.adafactor(learning_rate=schedule) with optax's defaults
+    (optax/_src/alias.py, factorized.py, clipping.py, transform.py):
+
+      * second moments factored into a row and a column mean for a
+        parameter whose two largest dims are both >= 128, else kept whole;
+        each statistic in the parameter's dtype;
+      * decay 1 - (t + 1)^-0.8 at step t (counted from 0), over g^2 + 1e-30;
+      * update g * rsqrt(v), factored as g * rsqrt(v_row / mean(v_row)) *
+        rsqrt(v_col), then clipped to RMS 1.0 (u / max(1, rms(u)));
+      * times the scheduled lr, then times max(rms(p), 1e-3)
+        (multiply_by_parameter_scale); no momentum and no weight decay.
+
+    Same interface as AdamW: `step()` reads the parameters' `.grad`;
+    `state_dict()` carries the statistics and the count."""
+
+    MIN_DIM_TO_FACTOR = 128
+    DECAY_EXPONENT = 0.8
+    EPS = 1e-30
+    CLIP = 1.0
+    MIN_PARAM_SCALE = 1e-3
+
+    def __init__(self, named_params: Dict[str, torch.nn.Parameter],
+                 schedule: Callable[[int], float]):
+        self.params = dict(named_params)
+        self.schedule = schedule
+        self.count = 0
+        self.v_row, self.v_col, self.v = {}, {}, {}
+        for k, p in self.params.items():
+            dims = self.factored_dims(p.shape)
+            if dims is None:
+                self.v[k] = torch.zeros_like(p)
+            else:
+                # v_row drops the largest dim, v_col the second largest
+                d1, d0 = dims
+                self.v_row[k] = p.new_zeros(
+                    [n for i, n in enumerate(p.shape) if i != d0])
+                self.v_col[k] = p.new_zeros(
+                    [n for i, n in enumerate(p.shape) if i != d1])
+
+    @classmethod
+    def factored_dims(cls, shape):
+        """(second largest, largest) dim where both are >= 128, else None
+        (optax's _factored_dims, numpy's argsort included)."""
+        if len(shape) < 2:
+            return None
+        order = np.argsort(tuple(shape))
+        if shape[order[-2]] < cls.MIN_DIM_TO_FACTOR:
+            return None
+        return int(order[-2]), int(order[-1])
+
+    def lr(self) -> float:
+        """The lr the next step uses."""
+        return float(self.schedule(self.count))
+
+    def _decay(self) -> float:
+        # optax computes 1 - t^-0.8 in float32
+        t = np.float32(self.count + 1)
+        return float(np.float32(1.0) - t ** np.float32(-self.DECAY_EXPONENT))
+
+    @torch.no_grad()
+    def step(self) -> None:
+        decay = self._decay()
+        lr = self.lr()
+        self.count += 1
+        for k, p in self.params.items():
+            g = torch.zeros_like(p) if p.grad is None else p.grad.to(p.dtype)
+            g2 = g * g + self.EPS
+            dims = self.factored_dims(p.shape)
+            if dims is None:
+                v = decay * self.v[k] + (1.0 - decay) * g2
+                self.v[k] = v
+                upd = g * v ** -0.5
+            else:
+                d1, d0 = dims
+                vr = decay * self.v_row[k] + (1.0 - decay) * g2.mean(d0)
+                vc = decay * self.v_col[k] + (1.0 - decay) * g2.mean(d1)
+                self.v_row[k], self.v_col[k] = vr, vc
+                r1 = d1 - 1 if d1 > d0 else d1
+                row = (vr / vr.mean(r1, keepdim=True)) ** -0.5
+                upd = g * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
+            upd = upd / torch.clamp_min(
+                torch.sqrt(torch.mean(upd * upd)) / self.CLIP, 1.0)
+            upd = upd * lr
+            rms = torch.sqrt(torch.mean(p * p))
+            upd = upd * torch.clamp_min(rms, self.MIN_PARAM_SCALE)
+            p.add_(upd * -1.0)
+
+    def zero_grad(self) -> None:
+        for p in self.params.values():
+            p.grad = None
+
+    def state_dict(self) -> dict:
+        """The statistics by parameter name and the step count."""
+        return {"count": self.count,
+                "v_row": {k: v.detach() for k, v in self.v_row.items()},
+                "v_col": {k: v.detach() for k, v in self.v_col.items()},
+                "v": {k: v.detach() for k, v in self.v.items()}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a state_dict() into this optimizer's statistics; the
+        parameter names and shapes must match."""
+        for name in ("v_row", "v_col", "v"):
+            copy_named(f"Adafactor.{name}", getattr(self, name), state[name])
         self.count = int(state["count"])
 
 
 def build_optimizer(optim_cfg, named_params: Dict[str, torch.nn.Parameter],
                     train_steps: int, lr: Optional[float] = None,
-                    schedule_wrap=None) -> AdamW:
-    """AdamW + schedule, mirroring build_optimizer (ppo.py:378-419). `lr`
+                    schedule_wrap=None):
+    """AdamW or Adafactor + schedule, mirroring build_optimizer
+    (ppo.py:378-419); Adafactor takes only the schedule, as in JAX. `lr`
     overrides the base lr (actor vs critic); `schedule_wrap(sched) -> sched`
     remaps the step axis — PPO ticks its schedulers once per update SWEEP
     (ppo.py:612-613) via `lambda s: lambda t: s(t // upd)`."""
-    if optim_cfg.optimizer == "adafactor":
-        raise NotImplementedError(
-            "adafactor is not ported yet (ROADMAP.md, queue A)")
     base_lr = lr if lr is not None else optim_cfg.learning_rate
     sched = make_schedule(optim_cfg.scheduler, base_lr, train_steps,
                           optim_cfg.warmup)
     if schedule_wrap is not None:
         sched = schedule_wrap(sched)
+    if optim_cfg.optimizer == "adafactor":
+        return Adafactor(named_params, sched)
     moment_dtype = getattr(optim_cfg, "moment_dtype", None)
     return AdamW(named_params, sched, optim_cfg.beta1, optim_cfg.beta2,
                  optim_cfg.adam_eps, optim_cfg.weight_decay,

@@ -1,0 +1,202 @@
+"""Tower pretraining on one device (counterpart of
+lr2ppo_tpu/train/pretrain.py: make_pretrain_step_form in its 'simple' form
+and PretrainTrainer).
+
+One optimizer step takes `accum` micro-batches of the loader's batch, which
+holds accum x micro rows: each micro-batch runs the tower's forward in
+training mode (every dropout site draws its seed from one CPU generator) and
+its backward, the gradients add up in `.grad`, are divided by accum, and one
+optimizer step (AdamW, or Adafactor) follows. The step's loss is the mean of
+the micro-batches' losses and its accuracy the summed correct count over the
+summed denominators, as in the JAX step.
+
+Every `report_steps` the loss, the accuracy and the tokens a second since the
+last report are logged (and written to `<log_path>.jsonl`), and a better
+accuracy saves the model to `<output_model_path>-best`; every
+`save_checkpoint_steps` the resumable `.state` goes to
+`<output_model_path>-<step>`; the last step's model goes to
+`output_model_path`. The model checkpoints are reference-keyed `.bin` files
+(embedding, encoder and target keys).
+
+Only the 'simple' batch form (mlm, lm, cls) is ported. Multi-GPU data and
+tensor parallelism, pipeline stages, sequence parallelism, ZeRO-1 and FSDP
+raise (ROADMAP.md, queue A2).
+"""
+
+from __future__ import annotations
+
+import time
+from itertools import islice
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lr2ppo_torch.config import Config
+from lr2ppo_torch.device import compute_dtype
+from lr2ppo_torch.towers.model import TowerConfig, TowerModel, init_weights
+from lr2ppo_torch.towers.torch_import import load_tower_checkpoint
+from lr2ppo_torch.train import checkpoints
+from lr2ppo_torch.train.common import (BestSaver, DeviceCtx, TrainState,
+                                       apply_updates, check_single_device,
+                                       init_state, peek_batch,
+                                       resume_fit_state, save_train_state)
+from lr2ppo_torch.train.optim import build_optimizer
+from lr2ppo_torch.utils import MetricLogger, check_finite, init_logger
+
+MULTI_GPU = "not ported yet (ROADMAP.md, queue A2: multi-GPU)"
+
+
+def norm_target_out(out, rows: int):
+    """(loss, correct, denom) from a target's output: mlm, lm and bilm give
+    that triple, cls and sp (loss, correct) over `rows`, several targets
+    {kind: tuple}, summed."""
+    if isinstance(out, dict):
+        parts = [norm_target_out(v, rows) for v in out.values()]
+        return (sum(p[0] for p in parts), sum(p[1] for p in parts),
+                sum(p[2] for p in parts))
+    if len(out) == 2:
+        return out[0], out[1], torch.tensor(float(rows),
+                                            device=out[0].device)
+    return out
+
+
+def make_pretrain_step(accum: int = 1):
+    """step(state, generator, batch) -> {"loss", "acc"} as detached
+    tensors; `batch` holds device tensors of accum x micro rows of the
+    'simple' form (src, tgt, seg). The state is updated in place."""
+
+    def step(state: TrainState, generator: torch.Generator, batch: dict):
+        model = state.model
+        lsum = csum = dsum = 0.0
+        for a in range(accum):
+            mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[a]
+                  for k, v in batch.items()}
+            out = model(mb["src"], mb["tgt"], mb["seg"], deterministic=False,
+                        generator=generator)
+            loss, correct, denom = norm_target_out(out, mb["src"].shape[0])
+            loss.backward()
+            lsum = lsum + loss.detach()
+            csum = csum + correct.detach()
+            dsum = dsum + denom.detach()
+        if accum > 1:
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(accum)
+        apply_updates(state)
+        return {"loss": lsum / accum,
+                "acc": csum / torch.clamp_min(torch.as_tensor(dsum), 1.0)}
+
+    return step
+
+
+class PretrainTrainer:
+    """The tower pretrainer on one device: `device` defaults to the GPU
+    (raising where there is none); the CPU tests pass "cpu"."""
+
+    def __init__(self, cfg: Config, tower_cfg: TowerConfig,
+                 accumulation_steps: int = 1, device=None):
+        mesh = cfg.mesh
+        for flag, on in (("--pp", mesh.pp > 1), ("--zero1", mesh.zero1),
+                         ("--fsdp", mesh.fsdp),
+                         ("--sp", tower_cfg.seq_parallel),
+                         ("--distributed", mesh.distributed)):
+            if on:
+                raise NotImplementedError(f"{flag} is {MULTI_GPU}")
+        if mesh.dp > 1 or mesh.tp > 1:
+            raise NotImplementedError(
+                f"--dp {mesh.dp} --tp {mesh.tp}: the port pretrains on one "
+                f"GPU; data and tensor parallelism are {MULTI_GPU}")
+        self.device = check_single_device(cfg, device)
+        self.cfg, self.tower_cfg = cfg, tower_cfg
+        self.accum = max(accumulation_steps, 1)
+        dtype = compute_dtype(cfg.mesh.compute_dtype)
+        self.dtype = None if dtype == torch.float32 else dtype
+        self.logger = init_logger(cfg.log_path)
+        self.metrics = MetricLogger(
+            cfg.log_path + ".jsonl" if cfg.log_path else None)
+        self.ctx = DeviceCtx(self.device)
+
+    def build_model(self) -> TowerModel:
+        return TowerModel(self.tower_cfg, self.dtype, self.device,
+                          with_target=True)
+
+    def init_model(self) -> TowerModel:
+        """The tower with its target, from pretrained_model_path (a
+        reference `.bin`, the port's checkpoint or a JAX package pickle;
+        strict) or from seeded weights."""
+        model = self.build_model()
+        path = self.cfg.pretrained_model_path
+        if path:
+            model.load_state_dict(load_tower_checkpoint(
+                path, self.tower_cfg.channels_num), strict=True)
+            self.logger.info(f"loaded pretrained {path}")
+        else:
+            init_weights(model, torch.Generator(
+                device=self.device).manual_seed(self.cfg.seed))
+        return model
+
+    def fit(self, train_loader, total_steps: Optional[int] = None,
+            save_checkpoint_steps: int = 0):
+        """Returns (train state, best accuracy)."""
+        cfg = self.cfg
+        steps_per_epoch = len(train_loader)
+        total = total_steps or steps_per_epoch * cfg.epochs_num
+        # an explicit total_steps is the budget: cycle epochs to reach it
+        epochs = cfg.epochs_num
+        if total_steps:
+            epochs = max(epochs, -(-total_steps // max(steps_per_epoch, 1)))
+        first = peek_batch(train_loader)
+        rows = next(v for k, v in first.items()
+                    if not k.startswith("_")).shape[0]
+        if rows % self.accum:
+            raise ValueError(f"batch_size {rows} must be divisible by "
+                             f"accumulation_steps {self.accum}")
+        model = self.build_model() if cfg.resume_path else self.init_model()
+        state = init_state(model, build_optimizer(
+            cfg.optim, dict(model.named_parameters()), total))
+        generator = torch.Generator().manual_seed(cfg.seed + 1)
+        step, start_epoch, skip_batches, resume_best = 0, 1, 0, -np.inf
+        if cfg.resume_path:
+            step, start_epoch, skip_batches, resume_best = resume_fit_state(
+                cfg, state, generator, steps_per_epoch, self.logger)
+        step_fn = make_pretrain_step(self.accum)
+        saver = BestSaver(cfg.output_model_path + "-best"
+                          if cfg.output_model_path else "", self.logger)
+        saver.best = max(saver.best, resume_best)
+        tokens_since, t_last = 0, time.perf_counter()
+        for epoch in range(start_epoch, epochs + 1):
+            if step >= total:
+                break
+            train_loader.set_epoch(epoch)
+            batch_iter = iter(train_loader)
+            if epoch == start_epoch and skip_batches:
+                batch_iter = islice(batch_iter, skip_batches, None)
+            for batch in batch_iter:
+                dev_batch = self.ctx.put({k: v for k, v in batch.items()
+                                          if not k.startswith("_")})
+                m = step_fn(state, generator, dev_batch)
+                step += 1
+                tokens_since += int(np.prod(batch["src"].shape[:2]))
+                if step % cfg.report_steps == 0:
+                    loss = check_finite(
+                        float(m["loss"]), step,
+                        checkpoint_hint=(cfg.output_model_path + "-best"
+                                         if cfg.output_model_path else None))
+                    acc = float(m["acc"])
+                    dt = time.perf_counter() - t_last
+                    tps = tokens_since / max(dt, 1e-9)
+                    self.logger.info(f"step {step}/{total} loss {loss:.4f} "
+                                     f"acc {acc:.4f} | {tps:,.0f} tokens/s")
+                    self.metrics.log(step, loss=loss, acc=acc, tokens_s=tps)
+                    saver.maybe_save(acc, model)
+                    tokens_since, t_last = 0, time.perf_counter()
+                if save_checkpoint_steps and step % save_checkpoint_steps == 0:
+                    save_train_state(f"{cfg.output_model_path}-{step}",
+                                     {"model": state}, generator, step,
+                                     saver.best)
+                if step >= total:
+                    break
+        if cfg.output_model_path:
+            checkpoints.save_model(cfg.output_model_path, model)
+        return state, saver.best

@@ -1,7 +1,7 @@
 """The port's CLI dispatcher, `python -m lr2ppo_torch.cli <entry>`, against
-the JAX package's: the same entries but `pretrain` (not ported yet), each
-entry's module has a main, and the usage, help and unknown-entry paths
-print and exit alike."""
+the JAX package's: the same 14 entries (`pretrain` included), each entry's
+module has a main, and the usage, help and unknown-entry paths print and
+exit alike."""
 
 import importlib
 import os
@@ -17,8 +17,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_entry_points_are_the_jax_packages_but_pretrain():
-    assert ENTRY_POINTS == tuple(e for e in JAX_ENTRY_POINTS
-                                 if e != "pretrain")
+    """Every JAX entry, in its order; pretrain is ported too."""
+    assert ENTRY_POINTS == JAX_ENTRY_POINTS
+    assert len(ENTRY_POINTS) == 14 and "pretrain" in ENTRY_POINTS
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

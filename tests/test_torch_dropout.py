@@ -14,6 +14,7 @@ from jax.experimental.pallas import tpu as pltpu
 from lr2ppo_tpu.ops import hash_dropout as jhd
 from lr2ppo_tpu.ops.pallas_dropout import tpu_dropout
 from lr2ppo_torch.ops import dropout as td
+from lr2ppo_torch.ops import fast_dropout as tfd
 from lr2ppo_torch.ops import hash_dropout as thd
 
 torch.set_num_threads(1)
@@ -149,6 +150,8 @@ def test_module_dropout_precedence(monkeypatch):
                         lambda x, s, r: calls.append("pallas") or x)
     monkeypatch.setattr(thd, "canonical_dropout",
                         lambda x, s, r: calls.append("canonical") or x)
+    monkeypatch.setattr(tfd, "packed_dropout",
+                        lambda x, s, r: calls.append("fast") or x)
     gen = torch.Generator().manual_seed(0)
     x = torch.ones(4, 4)
     md = thd.module_dropout
@@ -159,9 +162,8 @@ def test_module_dropout_precedence(monkeypatch):
     md(x, 0.1, False, gen, False, False, True, 16)      # at the gate
     md(x, 0.1, False, gen, False, False, True, 17)      # below it
     md(x, 0.1, False, gen, False, False, False)
-    assert calls == ["hash", "pallas", "canonical", "canonical"]
-    with pytest.raises(NotImplementedError, match="fast_dropout"):
-        md(x, 0.1, False, gen, False, True, True)
+    md(x, 0.1, False, gen, False, True, True, 1)        # fast > pallas
+    assert calls == ["hash", "pallas", "canonical", "canonical", "fast"]
     with pytest.raises(ValueError, match="Generator"):
         md(x, 0.1, False, None, True)
 

@@ -59,7 +59,11 @@ def test_port_never_imports_jax():
             "lr2ppo_torch.cli.pointwise_2data_trad",
             "lr2ppo_torch.cli.pointwise_2data_infer_trad",
             "lr2ppo_torch.cli.reward_trad", "lr2ppo_torch.cli.ppo_trad",
-            "lr2ppo_torch.cli.ppo_eval_trad"} <= set(res["modules"])
+            "lr2ppo_torch.cli.ppo_eval_trad", "lr2ppo_torch.cli.pretrain",
+            "lr2ppo_torch.data.pretrain_data",
+            "lr2ppo_torch.ops.fast_dropout", "lr2ppo_torch.towers.targets",
+            "lr2ppo_torch.train.pretrain",
+            "lr2ppo_torch.utils.remat"} <= set(res["modules"])
     assert res["loaded"] == [], f"the port imported {res['loaded']}"
     assert res["lazy"] == [], f"imported at import time: {res['lazy']}"
 

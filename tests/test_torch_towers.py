@@ -270,9 +270,12 @@ def test_what_waits_for_pretraining_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TowerModel(TowerConfig.from_dict(
             text_cfg(embedding=["word", "sinusoidalpos"])))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TowerModel(TowerConfig.from_dict(text_cfg(target=["clr"])),
+                   with_target=True)
+    # training mode is ported (tests/test_torch_pretrain_model.py); a tower
+    # built for extraction has no target to give a loss
     model = TowerModel(TowerConfig.from_dict(text_cfg()))
     src, seg = (torch.from_numpy(a) for a in _text_inputs())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.encode(src, seg, deterministic=False)
-    with pytest.raises(NotImplementedError, match="encode"):
+    with pytest.raises(ValueError, match="encode"):
         model(src, src, seg)
