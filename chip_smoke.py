@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port once on one CUDA card: the ranking service, the
-three-stage LR2PPO recipe of both families, feature extraction and tower
-pretraining at full width.
+three-stage LR2PPO recipe of both families, feature extraction, tower
+pretraining and multi-GPU training at full width.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parallel_only]
 
 Phases, each of which raises on failure (exit code other than 0):
   1. device: torch and CUDA versions, the card's name and power limit;
@@ -94,7 +94,25 @@ Phases, each of which raises on failure (exit code other than 0):
      and backward (592), the -best and final checkpoints reloaded strict
      and one encode of the final one through the extraction path; one
      optimizer step's CUDA-event time, tokens/s and a trace of one step;
-     and 2 steps of the same trainer under Adafactor.
+     and 2 steps of the same trainer under Adafactor;
+ 15. multi-GPU training (lr2ppo_torch/parallel/): hash dropout's
+     global-index form against its plain version at a dp shard and a tp
+     column shard of the update's site (bfloat16) and at an odd width,
+     Philox at a dp shard's offset; then PPOTrainer.fit at the flagship
+     width under --profile fast at a constant learning rate (2 global
+     batches of 256 x 2 tags, 2 updates, one eval), each leg in processes
+     of its own: the reference without torch.distributed; (a) NCCL at
+     world = the card count, one card a rank, bit-equal to the reference
+     at world 1 (the sweep's records and checksums of every parameter), 4
+     K1 launches a rollout; (b) two gloo ranks sharing card 0 with CUDA
+     tensors, dp 2 with zero1 (K1 on each rank) and tp 2 (no K1,
+     out_layer.fc1 split), each within P15_RTOL / P15_ATOL of the reference on the
+     sweep's records and within P15_PARAM_GAP on every trained parameter
+     but P15_SHIFT_LEAVES; per rank the launches, the rollout's and the
+     update's CUDA-event times, the collectives' time in a traced update
+     and the peak memory. `--parallel_only` runs the build and (a) alone,
+     adding on two or more cards dp with zero1 over NCCL (bit-equal to
+     plain dp), and on four dp x tp 2.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -538,11 +556,18 @@ DROP_RATE = 0.1                        # ModelConfig.drop_p / forward_drop_p
 
 
 def check_dropout(name: str, shape, dtype, seed: int, dev, time_it: bool,
-                  card_line: str) -> dict:
+                  card_line: str, extra=()) -> dict:
     """One dropout kernel against its plain version: the forward and the
     backward (the cotangent) bit for bit, the same mask in both, and the
-    keep share within 5 sigma of 1 - rate."""
-    fn, ref, _ = DROPOUT_KERNELS[name]
+    keep share within 5 sigma of 1 - rate. `extra` are the arguments after
+    the rate: a shard's place (hash) or its offset (Philox)."""
+    fn0, ref0, _ = DROPOUT_KERNELS[name]
+
+    def fn(x, seed, rate):
+        return fn0(x, seed, rate, *extra)
+
+    def ref(x, seed, rate):
+        return ref0(x, seed, rate, *extra)
     gen = torch.Generator(device=dev).manual_seed(seed)
     # no zeros in the inputs, so a zero in the output is a dropped element
     x = torch.randn(shape, device=dev, generator=gen).to(dtype)
@@ -558,7 +583,7 @@ def check_dropout(name: str, shape, dtype, seed: int, dev, time_it: bool,
     n = x.numel()
     share = float((y != 0).float().mean())
     sigma = (DROP_RATE * (1 - DROP_RATE) / n) ** 0.5
-    res = {"kernel": name, "shape": list(shape),
+    res = {"kernel": name, "shape": list(shape), "shard": list(extra),
            "dtype": str(dtype).replace("torch.", ""),
            "forward_bit_equal": bool(torch.equal(y, want_y)),
            "backward_bit_equal": bool(torch.equal(xr.grad, want_g)),
@@ -2269,9 +2294,432 @@ def pretrain_path(args, dev, card_line: str) -> dict:
     return {"launches": launches, "sites": sites}
 
 
+# -- phase 15: multi-GPU training ------------------------------------------
+P15_ROLLOUTS = 2                      # one sweep of 2 updates
+# the shared-card legs against the single-process run: float32 sums over
+# other splits of bfloat16 products, through 2 updates
+P15_RTOL, P15_ATOL = 5e-2, 5e-3
+P15_KEYS = ("policy_loss", "value_loss", "rewards", "value", "advantages",
+            "ndcg_full")
+# the legs against the reference on the trained parameters: the largest,
+# over the actor's and the critic's leaves, of ||p - p_ref|| / ||p_ref -
+# p_init|| (every run starts from the same weights). Sound legs read up to
+# 0.224 (tp 2: the int8 rollout twin's sums split over tp), a planted fault
+# 1.03 (dp 2 without the gradient average) and 1.07 (tp 2 with copy_to_tp's
+# backward left without its all-reduce); PERF.md section 6
+P15_PARAM_GAP = 0.5
+# leaves whose gradient is 0 in exact arithmetic, a softmax being blind to
+# a shift of all its inputs: every attention's key bias, and the actor's
+# biases that shift every tag's score alike (its policy is a softmax over
+# them). AdamW scales their rounding noise to full-size steps, so they are
+# read but not held.
+P15_SHIFT_LEAVES = ("keys.bias", "actor.head.bias", "actor.out_layer.fc2.bias")
+
+
+class ShardedBatches(BatchList):
+    """This dp rank's rows of each global batch, as a Loader(shard=(rank,
+    world)) hands them out."""
+
+    def __init__(self, batches, shard=None):
+        if shard is not None:
+            rank, world = shard
+            batches = [{k: v[rank * (len(v) // world):
+                             (rank + 1) * (len(v) // world)]
+                        for k, v in b.items()} for b in batches]
+        super().__init__(batches)
+        self.shard = shard
+
+
+def checksum(t: torch.Tensor) -> list:
+    """Two integer sums of a tensor's bits, the plain one and one weighted
+    by position mod 65521, both mod 2^64: runs whose sums agree on every
+    tensor hold the same bits, short of a collision."""
+    b = t.detach().contiguous().view(-1)
+    b = b.view(torch.int16 if b.element_size() == 2 else torch.int32)
+    b = b.to(torch.int64)
+    w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+    return [int(b.sum()), int((b * w).sum())]
+
+
+def p15_config(tmp: str, seed: int, dp: int = 1, tp: int = 1,
+               zero1: bool = False):
+    """Phase 7's configuration on a mesh, at a constant learning rate: the
+    default linear warmup gives a one-sweep run the rate 0 throughout, so
+    no parameter would move."""
+    cfg = train_config(tmp, seed)
+    cfg.mesh.dp, cfg.mesh.tp, cfg.mesh.zero1 = dp, tp, zero1
+    cfg.optim.scheduler = "constant"
+    return cfg
+
+
+def param_gap(full: dict, ref_path: str, init: dict = None) -> dict:
+    """The reference run (`init` given: its weights before training)
+    writes its trained parameters and each leaf's change ||p - p_init|| to
+    `ref_path`; a leg's rank 0 reads them and returns, over the floating
+    leaves, the largest ||p - p_ref|| / ||p_ref - p_init|| (`param_gap`,
+    with its leaf) and the same ratio over all leaves at once."""
+    if init is not None:
+        moved = {k: float((v.float() - init[k].float()).norm())
+                 for k, v in full.items() if v.is_floating_point()}
+        if not any(moved.values()):
+            raise AssertionError("the reference run moved no parameter")
+        torch.save({"final": {k: v.detach().cpu() for k, v in full.items()},
+                    "moved": moved}, ref_path)
+        return {"moved_leaves": sum(v > 0 for v in moved.values()),
+                "leaves": len(moved)}
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    gaps, num, den = {}, 0.0, 0.0
+    for k, moved in ref["moved"].items():
+        d = float((full[k].float()
+                   - ref["final"][k].to(full[k].device).float()).norm())
+        gaps[k] = d / moved if moved else (0.0 if d == 0 else math.inf)
+        num, den = num + d * d, den + moved * moved
+    held = [k for k in gaps if not k.endswith(P15_SHIFT_LEAVES)]
+    worst = max(held, key=gaps.get)
+    return {"param_gap": gaps[worst], "param_gap_leaf": worst,
+            "param_gap_all": math.sqrt(num / den), "param_gaps": gaps}
+
+
+def p15_run(cfg, dev, batch: int, seed: int, ref_path: str) -> dict:
+    """PPOTrainer.fit over P15_ROLLOUTS global batches of `batch` items
+    (this rank's rows of each) at the flagship width under --profile fast,
+    on this process's mesh; then one rollout's and one update's CUDA-event
+    time and a trace of one update. Returns the sweep's records (rank 0),
+    checksums of the full-width actor and critic, their gap to the
+    reference's (param_gap; the reference, without torch.distributed,
+    writes them to `ref_path`), the launches and the peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = PPOTrainer(cfg, dev)
+    ctx, built = trainer.ctx, {}
+
+    reference = dist_backend() == ""
+
+    def init_params(seed):
+        built["models"] = PPOTrainer.init_params(trainer, seed)
+        if reference:
+            built["init"] = {f"{side}.{k}": v.detach().clone()
+                             for side, model in zip(("actor", "critic"),
+                                                    built["models"])
+                             for k, v in model.state_dict().items()}
+        return built["models"]
+
+    trainer.init_params = init_params
+    m = ctx.mesh
+    loader = ShardedBatches(item_batches(P15_ROLLOUTS, cfg.model, seed + 3,
+                                         batch, PAIR),
+                            (m.dp_rank, m.dp) if m.dp > 1 else None)
+    evb, _ = synthetic_batches(2, cfg.model, seed + 4, items=8, bucket=8,
+                               tags=(2, 8))
+    int8_mlp.launches = hash_dropout.launches = 0
+    hash_dropout.place_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    astate, cstate, best = trainer.fit(lambda epoch: loader, evb)
+    torch.cuda.synchronize()
+    res = {"rank": m.rank, "dp": m.dp, "tp": m.tp, "zero1": ctx.zero1,
+           "batch": batch, "local_batch": batch // m.dp,
+           "fit_seconds": time.perf_counter() - t0,
+           "k1_launches": int8_mlp.launches,
+           "hash_dropout_launches": hash_dropout.launches,
+           "hash_dropout_place_launches": hash_dropout.place_launches,
+           "updates": int(astate.step), "best": float(best),
+           "fit_peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    if m.is_main:
+        with open(cfg.log_path + ".jsonl") as f:
+            res["records"] = [{k: r[k] for k in P15_KEYS if k in r}
+                              for r in map(json.loads, f)]
+    actor, critic, reward = built["models"]
+    full = {f"{side}.{k}": v
+            for side, model in (("actor", actor), ("critic", critic))
+            for k, v in ctx.full_state_dict(model).items()}
+    res["sums"] = {k: checksum(v) for k, v in full.items()}
+    if m.is_main:
+        res.update(param_gap(full, ref_path, built.pop("init", None)))
+    del full
+    res["fc1_rows"] = ctx.named_parameters(actor)[
+        "out_layer.fc1.weight"].shape[0]
+    # one rollout and one update on the trained models, on this rank's rows
+    b = ctx.put(loader.batches[0])
+    st = ctx.put_array(np.broadcast_to(np.arange(PAIR, dtype=np.int32),
+                                       (res["local_batch"], PAIR)).copy())
+    twin = frozen_copy(ScoreModel, cfg.model, ctx.full_state_dict(actor),
+                       trainer.dtype, True, ctx)
+    roll, upd = make_rollout_step(cfg.model.mode), make_update_step(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    out = roll(twin, critic, reward, b["text"], b["img"], st)
+    # gloo's collectives of CUDA tensors go through the host: one run, the
+    # fit having warmed up
+    gloo = dist_backend() == "gloo"
+    iters, warmup = (1, 0) if gloo else (3, 1)
+    res["rollout_ms"] = cuda_ms(lambda: roll(twin, critic, reward, b["text"],
+                                             b["img"], st), iters=iters,
+                                warmup=warmup)
+
+    def one_update():
+        upd(astate, cstate, gen, b["text"], b["img"], st, out[2], out[0],
+            out[3], out[1])
+    res["update_ms"] = cuda_ms(one_update, iters=iters, warmup=warmup)
+    if ctx.mesh.distributed:
+        # the gradient all-reduce of one model alone (every float32
+        # gradient of the actor, in buckets), on stand-in gradients
+        for p in actor.parameters():
+            if p.requires_grad:
+                p.grad = torch.zeros_like(p)
+        res["grad_allreduce_ms_a_model"] = cuda_ms(
+            astate.opt._average_grads, iters=iters, warmup=warmup)
+        res["grad_allreduce_gb_a_model"] = sum(
+            p.grad.numel() * p.grad.element_size()
+            for p in actor.parameters() if p.grad is not None) / 1e9
+        astate.opt.zero_grad()
+    if dist_backend() != "gloo":
+        # one process a card: a trace of one update, the collectives'
+        # kernels summed (two processes on one card are not traced)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            one_update()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        res["traced_update_kernel_ms"] = sum(
+            e.time_range.elapsed_us() for e in device) / 1e3
+        res["traced_collective_ms"] = sum(
+            e.time_range.elapsed_us() for e in device
+            if "nccl" in e.name.lower()) / 1e3
+        res["traced_collective_kernels"] = sum("nccl" in e.name.lower()
+                                               for e in device)
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def dist_backend() -> str:
+    import torch.distributed as dist
+
+    return dist.get_backend() if dist.is_initialized() else ""
+
+
+def p15_rank(rank, world, url, backend, dp, tp, zero1, batch, seed,
+             ref_path, queue) -> None:
+    """One rank of a phase-15 leg, in its own process: NCCL ranks each on
+    their card, gloo ranks sharing card 0, and the reference ("none") in
+    one process without torch.distributed. Every leg runs with the same
+    deterministic algorithms (the critic's gather backward otherwise adds
+    in a racing order), so runs that do the same arithmetic give the same
+    bits."""
+    import traceback
+
+    import torch.distributed as dist
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        require_cuda()
+        if backend != "none":
+            dist.init_process_group(backend, init_method=url, rank=rank,
+                                    world_size=world)
+        with tempfile.TemporaryDirectory() as tmp:
+            res = p15_run(p15_config(tmp, seed, dp, tp, zero1), dev, batch,
+                          seed, ref_path)
+        res["backend"] = backend
+        res["card"] = card()
+        queue.put((rank, res))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def p15_leg(world: int, backend: str, dp: int, tp: int, zero1: bool,
+            batch: int, seed: int, ref_path: str,
+            timeout: float = 600.0) -> list:
+    """Spawn the ranks of one leg and collect their results; every process
+    is joined, or killed at the time limit. The reference leg (backend
+    "none") writes its trained parameters to `ref_path`, which the other
+    legs read."""
+    import multiprocessing as mp
+    import queue as queue_mod
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    url = f"tcp://localhost:{free_port()}"
+    procs = [ctx.Process(target=p15_rank, args=(
+        r, world, url, backend, dp, tp, zero1, batch, seed, ref_path,
+        queue))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        deadline = time.time() + timeout
+        while len(got) < world:
+            try:
+                rank, res = queue.get(timeout=5.0)
+            except queue_mod.Empty:
+                # a rank that died without a result fails the leg now
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode is not None]
+                if dead or time.time() > deadline:
+                    raise RuntimeError(
+                        f"phase 15 leg {backend} dp {dp} tp {tp}: ranks "
+                        f"{dead} exited without a result, or the leg "
+                        f"outlived {timeout} s")
+                continue
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = {r: v["error"] for r, v in got.items() if "error" in v}
+    if errors:
+        raise RuntimeError(f"phase 15 leg {backend} dp {dp} tp {tp}: "
+                           f"{errors}")
+    return [got[r] for r in range(world)]
+
+
+def p15_close(ref: list, got: list) -> float:
+    """The largest |got - ref| / (P15_ATOL + P15_RTOL |ref|) over the
+    sweep's records; at most 1 passes."""
+    worst = 0.0
+    for r, g in zip(ref, got):
+        for k in P15_KEYS:
+            if k in r:
+                worst = max(worst, abs(g[k] - r[k])
+                            / (P15_ATOL + P15_RTOL * abs(r[k])))
+    return worst
+
+
+def p15_held(name: str, ref: dict, ranks: list, phase: str, **extra
+             ) -> None:
+    """Emit each rank of a leg and hold its rank 0 against the reference:
+    the sweep's records within P15_RTOL / P15_ATOL and the trained
+    parameters within P15_PARAM_GAP."""
+    worst = p15_close(ref["records"], ranks[0]["records"])
+    for r in ranks:
+        if "param_gaps" in r:
+            # the five widest leaves
+            r["param_gaps"] = dict(sorted(r["param_gaps"].items(),
+                                          key=lambda kv: -kv[1])[:5])
+        emit(phase=phase, leg=name, worst_over_tolerance=worst,
+             param_gap_limit=P15_PARAM_GAP, **extra,
+             **{k: v for k, v in r.items() if k != "sums"})
+    if worst > 1.0 or not ranks[0]["param_gap"] <= P15_PARAM_GAP:
+        raise AssertionError(
+            f"phase 15 leg {name}: records {worst} of their tolerance, "
+            f"parameters {ranks[0]['param_gap']} from the reference's "
+            f"(limit {P15_PARAM_GAP}, at {ranks[0]['param_gap_leaf']})")
+
+
+def parallel_path(args, dev, card_line: str, shared: bool = True) -> dict:
+    """Phase 15: multi-GPU training. Hash dropout's global-index form and
+    Philox's offset against their plain versions at the update's site;
+    the stage-3 trainer in one process without torch.distributed as the
+    reference; (a) the same run over NCCL at world = the card count,
+    bit-equal at world 1; (b) two ranks sharing card 0 over gloo with CUDA
+    tensors: dp 2 with zero1 and tp 2, held by p15_held. Without `shared` (the
+    four-card call) (b) gives way to dp with zero1 over NCCL, bit-equal to
+    (a), and dp x tp 2. Each leg runs in processes of its own."""
+    rows = ROLLOUT_ROWS // 2
+    sites = {
+        "dp_shard": check_dropout("hash_dropout", (rows, H), torch.bfloat16,
+                                  args.seed + 50, dev, True, card_line,
+                                  ((rows, 0, H, H),)),
+        "tp_columns": check_dropout("hash_dropout", (ROLLOUT_ROWS, H // 2),
+                                    torch.bfloat16, args.seed + 51, dev,
+                                    True, card_line,
+                                    ((0, H // 2, H, H // 2),)),
+        "odd_width": check_dropout("hash_dropout", (1000, 3077),
+                                   torch.float32, args.seed + 52, dev, False,
+                                   card_line, ((1000, 5, 6159, 3077),)),
+        "philox_dp_shard": check_dropout("philox_dropout", (rows, H),
+                                         torch.bfloat16, args.seed + 53, dev,
+                                         False, card_line, (rows * H,))}
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "reference.pt")
+
+        def leg(world, backend, dp, tp, zero1=False):
+            return p15_leg(world, backend, dp, tp, zero1, TRAIN_BS,
+                           args.seed, ref_path)
+
+        ref = leg(1, "none", 1, 1)[0]
+        nccl = leg(world, "nccl", world, 1)
+        if world == 1:
+            for r in nccl:
+                emit(phase="parallel_nccl", world=world,
+                     **{k: v for k, v in r.items()
+                        if k not in ("sums", "param_gaps")})
+            same_sums = nccl[0]["sums"] == ref["sums"]
+            if not (same_sums and nccl[0]["records"] == ref["records"]
+                    and nccl[0]["k1_launches"] == 4 * P15_ROLLOUTS
+                    and nccl[0]["hash_dropout_launches"]
+                    == ref["hash_dropout_launches"]):
+                raise AssertionError(
+                    f"NCCL at world 1 is not the single-process run: sums "
+                    f"equal {same_sums}, records {nccl[0].get('records')} "
+                    f"against {ref['records']}, K1 "
+                    f"{nccl[0]['k1_launches']}")
+        else:
+            p15_held(f"dp{world}", ref, nccl, "parallel_nccl", world=world)
+        if shared:
+            legs = {"dp2_zero1": leg(2, "gloo", 2, 1, True),
+                    "tp2": leg(2, "gloo", 1, 2)}
+        else:
+            legs = {}
+            if world >= 2:
+                # zero1 over NCCL: the same bits as plain dp
+                zero1 = leg(world, "nccl", world, 1, True)
+                p15_held(f"dp{world}_zero1", ref, zero1, "parallel_nccl",
+                         world=world,
+                         sums_equal_plain_dp=zero1[0]["sums"]
+                         == nccl[0]["sums"])
+                if zero1[0]["sums"] != nccl[0]["sums"]:
+                    raise AssertionError(f"zero1 at dp {world} is not plain "
+                                         "dp's bits")
+            if world >= 4:
+                p15_held(f"dp{world // 2}_tp2", ref,
+                         leg(world, "nccl", world // 2, 2), "parallel_nccl",
+                         world=world)
+    for name, ranks in legs.items():
+        p15_held(name, ref, ranks, "parallel_shared_card",
+                 reference=ref["records"])
+        # K1 on each dp rank (50,176 rows, above its gate); none under tp
+        k1 = 0 if name == "tp2" else 4 * P15_ROLLOUTS
+        tp_ok = all(r["k1_launches"] == k1 for r in ranks) and (
+            name != "tp2" or all(2 * r["fc1_rows"] == ref["fc1_rows"]
+                                 for r in ranks))
+        place = sum(r["hash_dropout_place_launches"] for r in ranks)
+        if not tp_ok or place == 0:
+            raise AssertionError(f"phase 15 leg {name}: tp checks {tp_ok}, "
+                                 f"{place} launches with a place")
+    ref_out = {k: v for k, v in ref.items() if k != "sums"}
+    emit(phase="parallel_reference", **ref_out)
+    return {"sites": sites, "ref": ref_out, "nccl": nccl, "legs": legs,
+            "place_launches": sum(r["hash_dropout_place_launches"]
+                                  for ranks in legs.values()
+                                  for r in ranks)}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parallel_only", action="store_true",
+                    help="build and run phase 15's NCCL legs alone (dp = "
+                         "the card count; on two or more cards dp with "
+                         "zero1, and dp x tp 2 on four)")
     args = ap.parse_args(argv)
 
     dev = require_cuda()                       # raises without a card
@@ -2291,6 +2739,13 @@ def main(argv=None) -> None:
                 for k, v in built.items()})
     for name in build.ENTRIES:
         build.library(name)
+    if args.parallel_only:
+        parallel_path(args, dev, card_line, shared=False)
+        print(card_line, flush=True)
+        emit(ok=True, device={"platform": "gpu",
+                              "kind": torch.cuda.get_device_name(0),
+                              "count": torch.cuda.device_count()})
+        return
 
     results = [check_kernel(1000, dt, args.seed, dev, False, card_line)
                for dt in (torch.float32, torch.bfloat16)]
@@ -2324,6 +2779,8 @@ def main(argv=None) -> None:
     tab = tabular_path(args, dev, card_line)
     torch.cuda.empty_cache()
     pre = pretrain_path(args, dev, card_line)
+    torch.cuda.empty_cache()
+    par = parallel_path(args, dev, card_line)
 
     main_k1 = serve_shape[torch.bfloat16]       # the serving path's dtype
     kernels = [{
@@ -2354,6 +2811,18 @@ def main(argv=None) -> None:
             "max_abs_err": err, "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the global-index form: the dp shard of the update's site, launched
+    # in phase 15's shared-card legs
+    r = par["sites"]["dp_shard"]
+    kernels.append({
+        "name": "hash_dropout_global_index", "route": "cuda",
+        "source": "lr2ppo_torch/kernels/csrc/hash_dropout.cu",
+        "replaces": DROPOUT_KERNELS["hash_dropout"][2],
+        "launches": par["place_launches"],
+        "max_abs_err": max(v["max_abs_err"] for k, v in par["sites"].items()
+                           if not k.startswith("philox")),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     main_k4 = attn[("text", torch.float32)]     # the extraction path's dtype
     kernels.append({
         "name": "fused_attention", "route": "cuda",

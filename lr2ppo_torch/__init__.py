@@ -8,6 +8,7 @@ The entry points, `python -m lr2ppo_torch.cli <entry>` (listed in
 lr2ppo_torch/cli/__init__.py), serve rankings, extract tower features,
 train and evaluate the three LR²PPO stages of both families (LRMovieNet
 multimodal, LETOR tabular, with the 2-data unification trainer and its
-projection exporter) on one GPU, and run the LETOR offline pipeline on the
-host.
+projection exporter) and pretrain the towers, on one GPU or one process per
+GPU (lr2ppo_torch/parallel/: dp, tp, zero1, fsdp), and run the LETOR
+offline pipeline on the host.
 """

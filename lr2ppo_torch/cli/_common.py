@@ -1,7 +1,10 @@
 """Dataset and loader builders of the port's CLIs, for both families (the
 port's own copy of lr2ppo_tpu/cli/_common.py).
 
-The port runs on one GPU, so the loaders take no process shard.
+Under dp (--dp above 1, one process per GPU) the training loaders hand each
+rank its slice of every global batch (`pod_shard`, from the active mesh,
+which the trainer builds first); the eval loaders are whole, and each rank
+takes its slice at placement (train/common.py:DeviceCtx.put_eval).
 ml_dtypes is imported only where a bfloat16 item dtype asks for it, h5py
 only where a grouped LETOR .h5 is read. The LETOR builders take the grouped
 queries in memory (`train_q`, `eval_q`) where the caller has them, and read
@@ -19,6 +22,15 @@ from lr2ppo_torch.data import (EvalLoader, LetorQueries, Loader,
                                LTRPointwiseDataset, LTRPPODataset,
                                LTRRewardDataset, MovieNetDataset)
 from lr2ppo_torch.data.pipeline import ProcessLoader
+from lr2ppo_torch.parallel.mesh import active
+
+
+def pod_shard():
+    """(dp_rank, dp) of the active mesh for a training Loader's `shard`, or
+    None at dp 1 (the JAX package's pod_shard, by dp rank: the ranks of one
+    tp group read the same rows)."""
+    mesh = active()
+    return (mesh.dp_rank, mesh.dp) if mesh.dp > 1 else None
 
 
 def force_family(cfg: Config, family: str) -> Config:
@@ -87,14 +99,15 @@ def movienet_train_loader(cfg: Config, mode: str, seed: int = 0) -> Loader:
         return ProcessLoader(ds, cfg.batch_size, shuffle=True,
                              seed=cfg.seed + seed,
                              num_workers=cfg.data.num_workers,
-                             prefetch_depth=cfg.data.prefetch_depth)
+                             prefetch_depth=cfg.data.prefetch_depth,
+                             shard=pod_shard())
     # reuse_buffers: fresh multi-MB batch allocations page-fault far
     # slower than buffer reuse; the PPO trainer detects
     # loader.reuse_buffers and copies anything it retains across the sweep
     return Loader(ds, cfg.batch_size, shuffle=True, seed=cfg.seed + seed,
                   num_workers=cfg.data.num_workers,
                   prefetch_depth=cfg.data.prefetch_depth,
-                  reuse_buffers=True)
+                  reuse_buffers=True, shard=pod_shard())
 
 
 def movienet_eval_loader(cfg: Config, mode: str = "eval",
@@ -139,7 +152,8 @@ def letor_pointwise_loaders(cfg: Config,
     train = Loader(
         LTRPointwiseDataset(train_q or letor_queries(cfg.data.train_path)),
         cfg.batch_size, shuffle=True, seed=cfg.seed,
-        num_workers=cfg.data.num_workers, reuse_buffers=True)
+        num_workers=cfg.data.num_workers, reuse_buffers=True,
+        shard=pod_shard())
     ev = letor_eval_loader(cfg, LTRPointwiseDataset, queries=eval_q)
     return train, ev
 
@@ -157,7 +171,7 @@ def letor_two_data_loaders(cfg: Config, train_qs=None, eval_qs=None):
     # reuse_buffers: fit_two consumes each batch before the next yield
     loaders = [Loader(LTRPointwiseDataset(q), cfg.batch_size, shuffle=True,
                       seed=cfg.seed, num_workers=cfg.data.num_workers,
-                      reuse_buffers=True) for q in qs]
+                      reuse_buffers=True, shard=pod_shard()) for q in qs]
     evs = [letor_eval_loader(cfg, LTRPointwiseDataset, path=p,
                              queries=eval_qs[i] if eval_qs else None)
            for i, p in enumerate((cfg.data.dev_path, cfg.data.dev_path2))]
@@ -180,7 +194,8 @@ def letor_reward_loaders(cfg: Config, relevance_classes: int = 5,
         max_tags=20, relevance_classes=relevance_classes,
         seed=cfg.seed + 999)
     return (Loader(train_ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
-                   num_workers=cfg.data.num_workers, reuse_buffers=True),
+                   num_workers=cfg.data.num_workers, reuse_buffers=True,
+                   shard=pod_shard()),
             Loader(ev_ds, cfg.batch_size, shuffle=False,
                    num_workers=cfg.data.num_workers, reuse_buffers=True))
 
@@ -194,7 +209,7 @@ def letor_ppo_loaders(cfg: Config, train_q: Optional[LetorQueries] = None,
                            seed=cfg.seed + epoch)
         return Loader(ds, cfg.batch_size, shuffle=True,
                       seed=cfg.seed + epoch,
-                      num_workers=cfg.data.num_workers)
+                      num_workers=cfg.data.num_workers, shard=pod_shard())
 
     ev = letor_eval_loader(cfg, LTRPPODataset, queries=eval_q)
     return make_train_loader, ev

@@ -5,11 +5,11 @@ finetune/pointwise.py:main):
     python -m lr2ppo_torch.cli.pointwise --train_path train.json \\
         --dev_path dev.json [--labels_num 3 --mode cls] [--profile fast] ...
 
-It takes the JAX package's flags and runs on one GPU; `--dp`/`--tp` above 1
-raise. The best model is written to --output_model_path as a
-reference-keyed `.bin`, which stage 3 takes as --pretrained_model_path.
-Reading the MovieNet h5 store needs h5py.
-"""
+It takes the JAX package's flags and runs on one GPU, or on one process per GPU
+under torchrun or --distributed (--dp, --tp, --zero1, --fsdp as in JAX). The
+best model is written to --output_model_path as a reference-keyed `.bin`, which
+stage 3 takes as --pretrained_model_path. Reading the MovieNet h5 store needs
+h5py."""
 
 from __future__ import annotations
 

@@ -17,9 +17,9 @@ from __future__ import annotations
 import dataclasses
 
 from lr2ppo_torch.cli._common import force_family
+from lr2ppo_torch.device import require_cuda
 from lr2ppo_torch.config import parse_config
 from lr2ppo_torch.train import checkpoints
-from lr2ppo_torch.train.common import check_single_device
 from lr2ppo_torch.train.pointwise import project_tsv
 
 
@@ -28,7 +28,8 @@ def main(argv=None, device=None) -> None:
     tests pass "cpu"."""
     cfg = force_family(parse_config(
         argv, "lr2ppo-torch 2-data projection exporter"), "tabular")
-    dev = check_single_device(cfg, device)
+    # the device first: without a GPU nothing is read
+    dev = require_cuda() if device is None else device
     state_dict = checkpoints.load_any(cfg.pretrained_model_path)
     dims = checkpoints.trad_dims_from_state_dict(state_dict)
     if dims:

@@ -5,12 +5,11 @@ finetune/pointwise_trad.py):
     python -m lr2ppo_torch.cli pointwise_trad --train_path DIR_OR_H5 \\
         --dev_path DIR_OR_H5 [--profile fast] ...
 
-The paths are grouped LETOR .h5 files, or directories holding
-{train,test}.h5 (the eval reads test.h5); reading them needs h5py. It takes
-the JAX package's flags and runs on one GPU; `--dp`/`--tp` above 1 raise.
-The best model is written to --output_model_path as a reference-keyed
-`.bin`.
-"""
+The paths are grouped LETOR .h5 files, or directories holding {train,test}.h5
+(the eval reads test.h5); reading them needs h5py. It takes the JAX package's
+flags and runs on one GPU, or on one process per GPU under torchrun or
+--distributed (--dp, --tp, --zero1, --fsdp as in JAX). The best model is
+written to --output_model_path as a reference-keyed `.bin`."""
 
 from __future__ import annotations
 

@@ -5,10 +5,10 @@ reference ppo.sh -> finetune/ppo.py:main):
         [--pretrained_model_path ACTOR] [--reward_model_path REWARD] \\
         [--profile fast] ...
 
-It takes the JAX package's flags and runs on one GPU; `--dp`/`--tp` above 1
-raise. The best actor-critic pair is written to --output_model_path as a
-reference-keyed `.bin`. Reading the MovieNet h5 store needs h5py.
-"""
+It takes the JAX package's flags and runs on one GPU, or on one process per GPU
+under torchrun or --distributed (--dp, --tp, --zero1, --fsdp as in JAX). The
+best actor-critic pair is written to --output_model_path as a reference-keyed
+`.bin`. Reading the MovieNet h5 store needs h5py."""
 
 from __future__ import annotations
 

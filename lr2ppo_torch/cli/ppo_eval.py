@@ -5,11 +5,11 @@ reference ppo_eval.sh -> finetune/ppo_eval.py):
         --dev_path dev.json [--case_path case/ppo_cases.json] ...
 
 It loads an ActorCritic checkpoint (the stage-3 `.bin`, or a JAX package
-pickle), puts its actor into a ScoreModel with strict=True, ranks the full
-tag list of every item of --dev_path (or --test_path), logs the NDCG and
-writes one case per item to --case_path. It runs on one GPU; `--dp`/`--tp`
-above 1 raise. Reading the MovieNet h5 store needs h5py.
-"""
+pickle), puts its actor into a ScoreModel with strict=True, ranks the full tag
+list of every item of --dev_path (or --test_path), logs the NDCG and writes one
+case per item to --case_path. It runs on one GPU, or on one process per GPU
+under torchrun or --distributed (--dp, --tp, --zero1, --fsdp as in JAX).
+Reading the MovieNet h5 store needs h5py."""
 
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ from lr2ppo_torch.config import parse_config
 from lr2ppo_torch.device import compute_dtype
 from lr2ppo_torch.models.scorer import ScoreModel
 from lr2ppo_torch.train import checkpoints
-from lr2ppo_torch.train.common import DeviceCtx, check_single_device
+from lr2ppo_torch.train.common import device_ctx
 from lr2ppo_torch.train.evaluate import evaluate_cases, format_ndcg
 from lr2ppo_torch.utils import init_logger
 
@@ -27,19 +27,20 @@ def main(argv=None, device=None) -> dict:
     """`device` defaults to the GPU (raising where there is none); the CPU
     tests pass "cpu". Returns {k: NDCG@k}."""
     cfg = parse_config(argv, "lr2ppo-torch PPO evaluator (multimodal)")
-    dev = check_single_device(cfg, device)
-    logger = init_logger(cfg.log_path)
+    ctx = device_ctx(cfg, device, cfg.mesh.compute_dtype)
+    logger = init_logger(cfg.log_path, main=ctx.is_main)
     tree = checkpoints.load_any(cfg.pretrained_model_path,
                                 kind="actor_critic")
     model = ScoreModel(cfg.model, compute_dtype(cfg.mesh.compute_dtype),
-                       device=dev)
+                       device=ctx.device)
     model.load_state_dict(tree["actor"] if "actor" in tree else tree,
                           strict=True)
+    ctx.place(model, fsdp=False)
     path = cfg.data.dev_path or cfg.data.test_path
     # the loader's dataset names the items and tags of the case dump
     ev = movienet_eval_loader(cfg, path=path)
     result = evaluate_cases(model, ev.ds, ev, cfg.data.case_path,
-                            put=DeviceCtx(dev, cfg.mesh.compute_dtype).put)
+                            put=ctx.put_eval)
     logger.info("NDCG:" + format_ndcg(result))
     return result
 

@@ -8,8 +8,9 @@ finetune/ppo_eval_trad.py):
 It loads an ActorCritic checkpoint (the stage-3 `.bin`, or a JAX package
 pickle), puts its actor into a ScoreModel with strict=True, ranks every
 document of each test query, logs the NDCG and writes one case per query to
---case_path. Reading the grouped .h5 files needs h5py. It runs on one GPU.
-"""
+--case_path. Reading the grouped .h5 files needs h5py. It runs on one GPU, or
+on one process per GPU under torchrun or --distributed (--dp, --tp, --zero1,
+--fsdp as in JAX)."""
 
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from lr2ppo_torch.data import LTRPPODataset
 from lr2ppo_torch.device import compute_dtype
 from lr2ppo_torch.models.scorer import ScoreModel
 from lr2ppo_torch.train import checkpoints
-from lr2ppo_torch.train.common import DeviceCtx, check_single_device
+from lr2ppo_torch.train.common import device_ctx
 from lr2ppo_torch.train.evaluate import evaluate_cases, format_ndcg
 from lr2ppo_torch.utils import init_logger
 
@@ -29,17 +30,18 @@ def main(argv=None, device=None) -> dict:
     tests pass "cpu". Returns {k: NDCG@k}."""
     cfg = force_family(parse_config(
         argv, "lr2ppo-torch PPO evaluator (tabular)"), "tabular")
-    dev = check_single_device(cfg, device)
-    logger = init_logger(cfg.log_path)
+    ctx = device_ctx(cfg, device, cfg.mesh.compute_dtype)
+    logger = init_logger(cfg.log_path, main=ctx.is_main)
     tree = checkpoints.load_any(cfg.pretrained_model_path,
                                 kind="actor_critic")
     model = ScoreModel(cfg.model, compute_dtype(cfg.mesh.compute_dtype),
-                       device=dev)
+                       device=ctx.device)
     model.load_state_dict(tree["actor"] if "actor" in tree else tree,
                           strict=True)
+    ctx.place(model, fsdp=False)
     ev = letor_eval_loader(cfg, LTRPPODataset)
     result = evaluate_cases(model, ev.ds, ev, cfg.data.case_path,
-                            put=DeviceCtx(dev, cfg.mesh.compute_dtype).put)
+                            put=ctx.put_eval)
     logger.info("NDCG:" + format_ndcg(result))
     return result
 

@@ -5,10 +5,10 @@ lr2ppo_tpu/cli/ppo_trad.py; reference ppo_trad.sh -> finetune/ppo_trad.py):
         --dev_path DIR_OR_H5 [--pretrained_model_path ACTOR] \\
         [--reward_model_path REWARD] [--profile fast] ...
 
-Each epoch samples fresh 2-document pairs of every training query. Reading
-the grouped .h5 files needs h5py. It runs on one GPU; the best actor-critic
-pair goes to --output_model_path as a reference-keyed `.bin`.
-"""
+Each epoch samples fresh 2-document pairs of every training query. Reading the
+grouped .h5 files needs h5py. It runs on one GPU, or on one process per GPU
+under torchrun or --distributed (--dp, --tp, --zero1, --fsdp as in JAX); the
+best actor-critic pair goes to --output_model_path as a reference-keyed `.bin`."""
 
 from __future__ import annotations
 

@@ -1,14 +1,19 @@
 """Tower pretraining CLI (counterpart of lr2ppo_tpu/cli/pretrain.py): MLM,
-causal LM or classification pretraining of a tower config on one GPU.
+causal LM or classification pretraining of a tower config on one GPU, or on
+one process per GPU under `torchrun --nproc_per_node N -m lr2ppo_torch.cli
+pretrain ...` or `--distributed --coordinator --num_processes
+--process_id`.
 
     python -m lr2ppo_torch.cli pretrain --corpus_path corpus.txt \\
         --tower_config models/xlm-roberta/base_config.json \\
         --data_processor mlm --tokenizer space --vocab_path vocab.txt \\
         --hash_dropout --output_model_path ckpt/mlm --total_steps 10000
 
-It takes the JAX CLI's flags. The mlm, lm and cls processors run; every
-other processor, the image tokenizers and every multi-GPU flag (--dp/--tp
-above 1, --pp, --sp, --zero1, --fsdp, --distributed) raise, naming ROADMAP.md.
+It takes the JAX CLI's flags, with their meaning: --batch_size is the
+global batch, --dp -1 takes the world over --tp, --zero1 and --fsdp shard
+the optimizer and the parameters over dp. The mlm, lm and cls processors
+run; every other processor, the image tokenizers, --pp and --sp raise,
+naming ROADMAP.md.
 It runs on the GPU unless `--device cpu` is given, and raises where there
 is no GPU. The checkpoints are reference-keyed `.bin` files.
 """
@@ -189,6 +194,10 @@ def build(args, device=None):
     cfg.mesh.pp_microbatches = args.pp_microbatches
     cfg.mesh.compute_dtype = args.compute_dtype
     cfg.mesh.distributed = args.distributed
+    cfg.mesh.coordinator = args.coordinator or ""
+    cfg.mesh.num_processes = args.num_processes or 0
+    cfg.mesh.process_id = (args.process_id if args.process_id is not None
+                           else -1)
     # refuses what is not ported before the corpus is read
     trainer = PretrainTrainer(cfg, tower_cfg, args.accumulation_steps,
                               device=device)
@@ -197,8 +206,10 @@ def build(args, device=None):
                                           tower_cfg)
     # each optimizer step takes accumulation_steps micro-batches of
     # batch_size rows (the trainer folds them)
+    mesh = trainer.ctx.mesh
     loader = Loader(ds, args.batch_size * args.accumulation_steps,
                     shuffle=True, seed=args.seed, reuse_buffers=True,
+                    shard=(mesh.dp_rank, mesh.dp) if mesh.dp > 1 else None,
                     shard_chunks=max(args.accumulation_steps, 1))
     return trainer, loader
 

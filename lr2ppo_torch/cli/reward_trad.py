@@ -5,11 +5,11 @@ finetune/reward_trad.py; hinge margin 0.01, 5 relevance classes):
     python -m lr2ppo_torch.cli reward_trad --train_path DIR_OR_H5 \\
         --dev_path DIR_OR_H5 [--profile fast] ...
 
-The eval is the pairwise accuracy on 20 pairs of each test query. Reading
-the grouped .h5 files needs h5py. It runs on one GPU; the best model goes
-to --output_model_path as a reference-keyed `.bin`, which ppo_trad takes as
---reward_model_path.
-"""
+The eval is the pairwise accuracy on 20 pairs of each test query. Reading the
+grouped .h5 files needs h5py. It runs on one GPU, or on one process per GPU
+under torchrun or --distributed (--dp, --tp, --zero1, --fsdp as in JAX); the
+best model goes to --output_model_path as a reference-keyed `.bin`, which
+ppo_trad takes as --reward_model_path."""
 
 from __future__ import annotations
 

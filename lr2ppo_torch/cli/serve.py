@@ -115,7 +115,8 @@ def main(argv=None, device=None):
     cfg = parse_config(argv, "lr2ppo-torch ranking service")
     if cfg.mesh.dp > 1 or cfg.mesh.tp > 1:
         raise ValueError(f"--dp {cfg.mesh.dp} --tp {cfg.mesh.tp}: the port "
-                         "serves on one GPU; multi-GPU is not ported yet")
+                         "serves on one GPU; serving at dp is not ported yet "
+                         "(ROADMAP.md, A: multi-GPU)")
     dtype = compute_dtype(cfg.mesh.compute_dtype)
     device = require_cuda() if device is None else torch.device(device)
     logger = init_logger(cfg.log_path)

@@ -79,7 +79,8 @@ class Loader:
         # rows [rank*bs/world : (rank+1)*bs/world] of each global batch —
         # the TPU analogue of the reference's per-rank reader stride
         # (tencentpretrain/utils/dataloader.py:32-39, DistributedSampler
-        # in ppo.py:684-699). The port runs on one GPU and passes None.
+        # in ppo.py:684-699). The port passes (dp_rank, dp) under dp
+        # (cli/_common.py:pod_shard), None at dp 1.
         if shard is not None:
             rank, world = shard
             assert 0 <= rank < world, shard

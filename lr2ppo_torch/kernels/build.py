@@ -33,7 +33,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _vp, _i32, _i64, _u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_uint32)
-_ELEMENTWISE = ([_vp, _vp, _i64, _u32, _u32, ctypes.c_float, _i32, _vp], _i32)
+_ELEMENTWISE = [_vp, _vp, _i64, _u32, _u32, ctypes.c_float, _i32, _vp]
 # (argtypes, restype) of each library's C entry
 ENTRIES = {
     "int8_mlp": {
@@ -44,8 +44,12 @@ ENTRIES = {
         "lr2ppo_int8_matmul": ([_vp] * 4 + [_i64] + [_i32] * 4 + [_vp, _vp],
                                _i32),
         "lr2ppo_int8_matmul_scratch_bytes": ([_i64, _i32], _i64)},
-    "hash_dropout": {"lr2ppo_hash_dropout": _ELEMENTWISE},
-    "philox_dropout": {"lr2ppo_philox_dropout": _ELEMENTWISE},
+    # the elementwise arguments, then the shard's place in the global
+    # array: (row0, col0, width, w) for hash, the element offset for Philox
+    "hash_dropout": {"lr2ppo_hash_dropout": (
+        _ELEMENTWISE + [_u32, _u32, _u32, _i64], _i32)},
+    "philox_dropout": {"lr2ppo_philox_dropout": (_ELEMENTWISE + [_i64],
+                                                 _i32)},
     "fused_attention": {
         "lr2ppo_fused_attention": (
             [_vp] * 5 + [_i32] * 4 + [_i64] * 9 + [ctypes.c_float, _i32, _vp],

@@ -1,7 +1,9 @@
 // Philox dropout for Hopper (sm_90a): y[i] = keep(i) ? x[i] * scale : 0 with
 //   keep(i) = philox4x32_10(counter = i / 4, key = (seed, 0))[i % 4] <= thr,
 // thr = uint32((1 - rate) * 0xFFFFFFFF) and scale = 1/(1 - rate) rounded to
-// the dtype, both from the wrapper.
+// the dtype, both from the wrapper. i counts from `offset`, a multiple of 4
+// that the wrapper derives from the rank's place in the mesh, so ranks that
+// hold other parts of one global array draw other counters.
 //
 // Replaces lr2ppo_tpu/ops/pallas_dropout.py:tpu_dropout (body
 // `_dropout_kernel`), which draws its bits from the TPU's hardware PRNG,
@@ -57,7 +59,8 @@ __device__ __forceinline__ uint32_t word(const U4& b, int j) {
 template <typename T>
 __global__ void __launch_bounds__(256)
     philox_dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
-                          uint32_t seed, uint32_t thr, float scale) {
+                          uint32_t seed, uint32_t thr, float scale,
+                          unsigned long long ctr0) {
   constexpr int N = Pack<T>::N;          // a multiple of 4
   const long long packs = n / N;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -67,7 +70,7 @@ __global__ void __launch_bounds__(256)
     Pack<T>::load(x + p * N, v);
 #pragma unroll
     for (int q = 0; q < N / 4; ++q) {
-      const U4 b = philox4x32_10((unsigned long long)(p * (N / 4) + q), seed);
+      const U4 b = philox4x32_10(ctr0 + (unsigned long long)(p * (N / 4) + q), seed);
       v[4 * q + 0] = lr2ppo::drop(v[4 * q + 0], b.x <= thr, scale);
       v[4 * q + 1] = lr2ppo::drop(v[4 * q + 1], b.y <= thr, scale);
       v[4 * q + 2] = lr2ppo::drop(v[4 * q + 2], b.z <= thr, scale);
@@ -77,7 +80,7 @@ __global__ void __launch_bounds__(256)
   }
   const long long tail = packs * N + tid;
   if (tail < n) {
-    const U4 b = philox4x32_10((unsigned long long)(tail / 4), seed);
+    const U4 b = philox4x32_10(ctr0 + (unsigned long long)(tail / 4), seed);
     const bool keep = word(b, (int)(tail % 4)) <= thr;
     y[tail] = lr2ppo::from_f32<T>(lr2ppo::drop(lr2ppo::to_f32(x[tail]), keep, scale));
   }
@@ -85,11 +88,11 @@ __global__ void __launch_bounds__(256)
 
 template <typename T>
 int launch(const void* x, void* y, long long n, uint32_t seed, uint32_t thr, float scale,
-           cudaStream_t stream) {
+           unsigned long long ctr0, cudaStream_t stream) {
   const int threads = 256;
   const unsigned grid = lr2ppo::grid_for(n / Pack<T>::N + 1, threads);
   philox_dropout_kernel<T><<<grid, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n, seed, thr, scale);
+      static_cast<const T*>(x), static_cast<T*>(y), n, seed, thr, scale, ctr0);
   return (int)cudaGetLastError();
 }
 
@@ -99,13 +102,16 @@ extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // x and y are n contiguous values of dtype 0 = float32 or 1 = bfloat16,
-// both 16-byte aligned.
+// both 16-byte aligned; element i takes the bits of global position
+// offset + i (offset >= 0, a multiple of 4).
 int lr2ppo_philox_dropout(const void* x, void* y, long long n, uint32_t seed, uint32_t thr,
-                          float scale, int dtype, void* stream) {
-  if (n <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+                          float scale, int dtype, void* stream, long long offset) {
+  if (n <= 0 || (dtype != 0 && dtype != 1) || offset < 0 || offset % 4)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, y, n, seed, thr, scale, s);
-  return launch<__nv_bfloat16>(x, y, n, seed, thr, scale, s);
+  const unsigned long long ctr0 = (unsigned long long)(offset / 4);
+  if (dtype == 0) return launch<float>(x, y, n, seed, thr, scale, ctr0, s);
+  return launch<__nv_bfloat16>(x, y, n, seed, thr, scale, ctr0, s);
 }
 
 }  // extern "C"

@@ -28,6 +28,7 @@ from torch import nn
 from lr2ppo_torch.ops import int8 as int8_ops
 from lr2ppo_torch.ops.hash_dropout import module_dropout
 from lr2ppo_torch.ops.int8_mlp import int8_mlp, supported
+from lr2ppo_torch.parallel.tp import copy_to_tp, reduce_from_tp
 
 
 def cast(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -64,6 +65,32 @@ class Linear(nn.Module):
                 torch.empty(out_features, in_features, device=device))
         self.bias = (nn.Parameter(torch.empty(out_features, device=device))
                      if bias else None)
+        # set by split_tp: the weight dim split over tp (0 column, 1 row)
+        # and the mesh whose tp group holds the other parts
+        self.tp_dim: Optional[int] = None
+        self.mesh = None
+
+    @torch.no_grad()
+    def split_tp(self, dim: int, mesh) -> None:
+        """Keep this tp rank's part of a full-width layer: rows of the
+        (out, in) weight for a column split (dim 0, with the bias and the
+        int8 scale), columns for a row split (dim 1; the bias and the
+        per-output scale stay whole). in_features and out_features stay the
+        global widths."""
+        from lr2ppo_torch.parallel.mesh import shard_slice
+
+        def part(p):
+            return nn.Parameter(
+                shard_slice(p, dim, mesh.tp_rank, mesh.tp).clone(),
+                requires_grad=p.requires_grad)
+
+        self.weight = part(self.weight)
+        if dim == 0:
+            if self.bias is not None:
+                self.bias = part(self.bias)
+            if self.use_int8:
+                self.weight_scale = part(self.weight_scale)
+        self.tp_dim, self.mesh = dim, mesh
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -81,11 +108,19 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
+        if self.tp_dim == 0:
+            x = copy_to_tp(x, self.mesh)
         if self.use_int8:
-            y = int8_ops.int8_linear(x.to(dt), self.weight, self.weight_scale,
-                                     dt)
+            # the route gates see the global shape, as in JAX; a row split
+            # quantizes x per row over the whole row (amax over tp)
+            y = int8_ops.int8_linear(
+                x.to(dt), self.weight, self.weight_scale, dt,
+                shape=(self.out_features, self.in_features),
+                amax_mesh=self.mesh if self.tp_dim == 1 else None)
         else:
             y = torch.matmul(x.to(dt), self.weight.to(dt).t())
+        if self.tp_dim == 1:
+            y = reduce_from_tp(y, self.mesh)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -118,10 +153,19 @@ def fused_int8_ffn_ok(fc1: Linear, fc2: Linear, x_shape,
     """Route fc1 -> GELU -> fc2 through the fused int8 kernel? The JAX gate
     (models/layers.py:_fused_int8_ffn_ok) in its order: the deterministic
     path, both weights int8, the site compute-bound, and shapes the kernel
-    takes."""
+    takes.
+
+    Where it runs under a mesh: the JAX gate turns the kernel off in every
+    multi-device program, because a pallas_call has no partitioning rule.
+    In the port each rank is one device running its own program, so under
+    dp alone the kernel runs on every rank, gated on the rank's own rows.
+    Under tp it never runs: fc1 is column-split, and the kernel's second
+    quantization takes each hidden row's amax over the whole row, which tp
+    splits; the unfused route takes that amax as a max over tp instead."""
     d, hdn, out = fc1.in_features, fc1.out_features, fc2.out_features
     rows = math.prod(x_shape[:-1])
     return (deterministic and fc1.use_int8 and fc2.use_int8
+            and fc1.tp_dim is None and fc2.tp_dim is None
             and int8_ops.FUSED_FFN
             and int8_ops.should_quantize((d, hdn))
             and int8_ops.should_quantize((hdn, out))
@@ -136,7 +180,10 @@ def gelu_ffn(fc1: Linear, fc2: Linear, x: torch.Tensor, dtype,
     it, the whole int8 FFN runs in one kernel (ops/int8_mlp.py)."""
     if not fused_int8_ffn_ok(fc1, fc2, x.shape, drop is None):
         h = F.gelu(fc1(x), approximate="none")
-        return fc2(h if drop is None else drop(h))
+        if drop is not None:
+            # the hidden is column-split over tp where fc1 is
+            h = drop(h, -1 if fc1.tp_dim == 0 else None)
+        return fc2(h)
     out_dtype = dtype or x.dtype
     return int8_mlp(x.to(out_dtype), fc1.weight, fc1.weight_scale.float(),
                     fc1.bias.float(), fc2.weight, fc2.weight_scale.float(),
@@ -164,8 +211,9 @@ class Mlp(nn.Module):
         if deterministic:
             return gelu_ffn(self.fc1, self.fc2, x, self.dtype)
 
-        def drop(t):
-            return module_dropout(t, self.drop, False, generator, False)
+        def drop(t, tp_from=None):
+            return module_dropout(t, self.drop, False, generator, False,
+                                  tp_from=tp_from)
 
         return drop(gelu_ffn(self.fc1, self.fc2, x, self.dtype, drop))
 
@@ -191,6 +239,9 @@ class XiTAttention(nn.Module):
         dh = d // h
         # (..., heads, tokens, dh); y's leading dims broadcast against x's
         q = self.queries(x)
+        # under tp this rank holds h / tp heads; the faithful scale below
+        # stays the global sqrt(feat_size)
+        h = q.shape[-1] // dh
         *bq, nq, _ = q.shape
         q = q.reshape(*bq, nq, h, dh).transpose(-3, -2)
         k = self.keys(y)
@@ -213,7 +264,7 @@ class XiTAttention(nn.Module):
                                      torch.finfo(energy.dtype).min)
             att = torch.softmax(energy, dim=-1)
         out = torch.matmul(att, v.to(edt)).transpose(-3, -2)
-        return self.projection(out.reshape(*bq, nq, d))
+        return self.projection(out.reshape(*bq, nq, h * dh))
 
 
 class _Residual(nn.Module):
@@ -280,9 +331,9 @@ class XiT(nn.Module):
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         def drop(rate):
-            return lambda t: module_dropout(
+            return lambda t, tp_from=None: module_dropout(
                 t, rate, deterministic, generator, *self.backends,
-                self.PALLAS_DROPOUT_MIN_ELEMENTS)
+                self.PALLAS_DROPOUT_MIN_ELEMENTS, tp_from=tp_from)
 
         attn_res, ffn_res = self._modules["0"][0]
         norms, attn = attn_res.fn

@@ -21,6 +21,8 @@ and takes `philox_dropout_reference` on a CPU tensor.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from lr2ppo_torch.ops.hash_dropout import (SeededDropout, launch_elementwise,
@@ -75,39 +77,53 @@ def philox_bits(counters: torch.Tensor, seed: int) -> torch.Tensor:
 def keep_mask(start: int, n: int, seed: int, rate: float,
               device=None) -> torch.Tensor:
     """Keep mask of flat positions start .. start + n - 1 (`start` a
-    multiple of 4)."""
+    multiple of 4; a shard's offset is added to it)."""
     first, last = start // 4, (start + n + 3) // 4
     ctr = torch.arange(first, last, dtype=torch.int64, device=device)
     bits = philox_bits(ctr, seed).reshape(-1)[start - 4 * first:][:n]
     return bits <= threshold(rate)
 
 
-def philox_dropout_reference(x: torch.Tensor, seed: int,
-                             rate: float) -> torch.Tensor:
-    """The plain version."""
+def _check_offset(offset: int) -> None:
+    if offset < 0 or offset % 4:
+        raise ValueError(f"philox_dropout: offset {offset} is not a "
+                         "non-negative multiple of 4")
+
+
+def philox_dropout_reference(x: torch.Tensor, seed: int, rate: float,
+                             offset: int = 0) -> torch.Tensor:
+    """The plain version; element i takes the bits of position offset + i."""
     if rate <= 0.0:
         return x
+    _check_offset(offset)
     return masked_scale(x, scale_for(rate, x.dtype),
-                        lambda s, n: keep_mask(s, n, seed, rate, x.device),
+                        lambda s, n: keep_mask(offset + s, n, seed, rate,
+                                               x.device),
                         _CHUNK)
 
 
-def _apply(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _apply(x: torch.Tensor, seed: int, rate: float,
+           offset: int = 0) -> torch.Tensor:
     if x.device.type == "cpu":
-        return philox_dropout_reference(x, seed, rate)
+        return philox_dropout_reference(x, seed, rate, offset)
+    _check_offset(offset)
     y = launch_elementwise("philox_dropout", x, int(seed) & _MASK32,
-                           threshold(rate), scale_for(rate, x.dtype))
+                           threshold(rate), scale_for(rate, x.dtype), offset)
     philox_dropout.launches += 1
     return y
 
 
-def philox_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """Dropout with Philox bits; `seed` a Python int, `rate` in [0, 1).
-    `philox_dropout.launches` counts kernel launches, forward and
+def philox_dropout(x: torch.Tensor, seed: int, rate: float,
+                   offset: int = 0) -> torch.Tensor:
+    """Dropout with Philox bits; `seed` a Python int, `rate` in [0, 1),
+    `offset` the position of x's first element in the stream (a shard's
+    place in the global array, ops/hash_dropout.py:place_offset; a multiple
+    of 4). `philox_dropout.launches` counts kernel launches, forward and
     backward."""
     if rate <= 0.0:
         return x
-    return SeededDropout.apply(_apply, x, seed, rate)
+    fn = _apply if not offset else partial(_apply, offset=offset)
+    return SeededDropout.apply(fn, x, seed, rate)
 
 
 philox_dropout.launches = 0

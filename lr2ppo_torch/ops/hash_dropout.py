@@ -2,10 +2,18 @@
 and `module_dropout`, the one dropout site of the fusion models and the
 towers.
 
-Element i (its flat row-major position in x) is kept iff
+Element i (its flat row-major position in the global array) is kept iff
     fmix32(uint32(i) ^ uint32(seed) * 0x9E3779B9) < threshold(rate),
 murmur3's 32-bit finalizer. Kept values are multiplied by 1/keep_eff
-rounded to x's dtype. Dropout is linear in x, so the backward applies the
+rounded to x's dtype.
+
+Under a mesh a rank holds part of the global array, as the JAX iota over
+the global array is partitioned: a `place` (row0, col0, width, w) takes x
+as rows of w values at row row0 and column col0 of a global array `width`
+wide, and element f = r * w + c hashes i = (row0 + r) * width + col0 + c
+(mod 2^32). `shard_place` derives it from the active mesh: row0 from the dp
+rank (the batch axis leads), col0 and width from the tp rank where the
+site's trailing dims are tp-split. place None is the whole tensor, i = f. Dropout is linear in x, so the backward applies the
 same mask and scale to the cotangent: the autograd Function saves only the
 integer seed, never a mask.
 
@@ -26,7 +34,8 @@ Per-site seeds are Python ints drawn on the host from the caller's CPU
 
 from __future__ import annotations
 
-from functools import lru_cache
+import math
+from functools import lru_cache, partial
 from typing import Optional
 
 import torch
@@ -80,11 +89,24 @@ def fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
+def global_index(start: int, n: int, place=None,
+                 device=None) -> torch.Tensor:
+    """The global positions (int64, mod 2^32) of local flat positions
+    start .. start + n - 1 of a shard at `place` (see the module
+    docstring); the positions themselves where place is None."""
+    f = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    if place is None:
+        return f & _MASK32
+    row0, col0, width, w = place
+    r = torch.div(f, w, rounding_mode="floor")
+    return ((row0 + r) * width + col0 + (f - r * w)) & _MASK32
+
+
 def keep_mask(start: int, n: int, seed: int, rate: float,
-              device=None) -> torch.Tensor:
-    """Keep mask of flat positions start .. start + n - 1."""
-    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
-    h = fmix32((idx & _MASK32) ^ seed_mix(seed))
+              device=None, place=None) -> torch.Tensor:
+    """Keep mask of flat positions start .. start + n - 1 (of a shard at
+    `place`)."""
+    h = fmix32(global_index(start, n, place, device) ^ seed_mix(seed))
     return h < threshold(rate)
 
 
@@ -105,12 +127,20 @@ def masked_scale(x: torch.Tensor, scale: float, keep_mask,
     return out.reshape(x.shape)
 
 
-def hash_dropout_reference(x: torch.Tensor, seed: int,
-                           rate: float) -> torch.Tensor:
+def hash_dropout_reference(x: torch.Tensor, seed: int, rate: float,
+                           place=None) -> torch.Tensor:
     """The plain version."""
+    check_place(x, place)
     return masked_scale(x, scale_for(rate, x.dtype),
-                        lambda s, n: keep_mask(s, n, seed, rate, x.device),
+                        lambda s, n: keep_mask(s, n, seed, rate, x.device,
+                                               place),
                         _CHUNK)
+
+
+def check_place(x: torch.Tensor, place) -> None:
+    if place is not None and (place[3] <= 0 or x.numel() % place[3]):
+        raise ValueError(f"hash_dropout: rows of {place[3]} do not tile "
+                         f"{tuple(x.shape)}")
 
 
 def check_elementwise(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -128,9 +158,10 @@ def check_elementwise(x: torch.Tensor, what: str) -> torch.Tensor:
 
 
 def launch_elementwise(entry: str, x: torch.Tensor, key: int, thr: int,
-                       scale: float) -> torch.Tensor:
+                       scale: float, *extra) -> torch.Tensor:
     """y = the kernel of csrc/<entry>.cu over x, on x's device's current
-    stream. The launch is made on x's device: the device context is entered
+    stream; `extra` are the entry's arguments after the stream (the shard's
+    place). The launch is made on x's device: the device context is entered
     only where another device is current."""
     x = check_elementwise(x, entry)
     y = torch.empty_like(x)
@@ -138,7 +169,7 @@ def launch_elementwise(entry: str, x: torch.Tensor, key: int, thr: int,
     index = x.device.index
     args = (x.data_ptr(), y.data_ptr(), x.numel(), key, thr, scale,
             build.DTYPE_CODES[x.dtype],
-            torch._C._cuda_getCurrentRawStream(index))
+            torch._C._cuda_getCurrentRawStream(index), *extra)
     if index == torch.cuda.current_device():
         err = fn(*args)
     else:
@@ -165,31 +196,84 @@ class SeededDropout(torch.autograd.Function):
         return None, ctx.fn(g.contiguous(), ctx.seed, ctx.rate), None, None
 
 
-def _apply(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _apply(x: torch.Tensor, seed: int, rate: float,
+           place=None) -> torch.Tensor:
     """One masked scaling of x: the kernel on a CUDA tensor, the plain
     version on a CPU tensor."""
     if x.device.type == "cpu":
-        return hash_dropout_reference(x, seed, rate)
+        return hash_dropout_reference(x, seed, rate, place)
+    check_place(x, place)
+    w = x.shape[-1] if x.dim() else 1
+    row0, col0, width, w = place if place is not None else (0, 0, w, w)
     y = launch_elementwise("hash_dropout", x, seed_mix(seed),
-                           threshold(rate), scale_for(rate, x.dtype))
+                           threshold(rate), scale_for(rate, x.dtype),
+                           row0 & _MASK32, col0 & _MASK32, width & _MASK32,
+                           w)
     hash_dropout.launches += 1
+    if place is not None:
+        hash_dropout.place_launches += 1
     return y
 
 
-def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, seed: int, rate: float,
+                 place=None) -> torch.Tensor:
     """nn.Dropout semantics with the murmur mask; `seed` a Python int
-    (int32 or uint32 range), `rate` in [0, 1). `hash_dropout.launches`
-    counts kernel launches, forward and backward."""
-    return SeededDropout.apply(_apply, x, seed, rate)
+    (int32 or uint32 range), `rate` in [0, 1), `place` the shard's place in
+    the global array (None: x is the whole array). `hash_dropout.launches`
+    counts kernel launches, forward and backward, and
+    `hash_dropout.place_launches` those of them with a place."""
+    fn = _apply if place is None else partial(_apply, place=place)
+    return SeededDropout.apply(fn, x, seed, rate)
 
 
 hash_dropout.launches = 0
+hash_dropout.place_launches = 0
 
 
 def draw_seed(generator: torch.Generator) -> int:
     """One int32 seed, drawn on the host from a CPU generator."""
     return int(torch.randint(-2**31, 2**31 - 1, (), generator=generator,
                              dtype=torch.int64))
+
+
+def shard_place(x: torch.Tensor, tp_from: Optional[int] = None):
+    """This rank's place (row0, col0, width, w) for a dropout site's x
+    under the active mesh, or None where x is the whole array. The batch
+    axis leads and is split over dp; `tp_from` is the first dim of a
+    tp-split trailing block (the column-split hidden: -1; head-split
+    attention probabilities: 1), None where x is whole on every tp rank."""
+    from lr2ppo_torch.parallel.mesh import active
+
+    mesh = active()
+    if mesh.world == 1 or x.dim() == 0:
+        return None
+    if tp_from is not None and mesh.tp > 1:
+        w = math.prod(x.shape[tp_from:])
+        width, col0 = w * mesh.tp, mesh.tp_rank * w
+    else:
+        w = x.shape[-1]
+        width, col0 = w, 0
+    row0 = mesh.dp_rank * (x.numel() // max(w, 1))
+    if row0 == 0 and col0 == 0 and width == w:
+        return None
+    return row0, col0, width, w
+
+
+def place_offset(x: torch.Tensor, place) -> int:
+    """A shard's element offset for the streams that take one (Philox's
+    counter, the packed and canonical generators' seeds): row0 * width +
+    col0 * rows, which tiles the global array without overlap and is the
+    global flat position where only the batch is split."""
+    row0, col0, width, w = place
+    return row0 * width + col0 * (x.numel() // w)
+
+
+def _shard_seed(seed: int, x: torch.Tensor, place) -> int:
+    """The seed of a shard's own mask for the generator-drawn backends;
+    the whole array keeps `seed`."""
+    if place is None:
+        return seed
+    return (int(seed) * 1000003 + place_offset(x, place)) & _MASK32
 
 
 def canonical_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
@@ -205,24 +289,38 @@ def canonical_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
 def module_dropout(x: torch.Tensor, rate: float, deterministic: bool,
                    generator: Optional[torch.Generator], use_hash: bool,
                    use_fast: bool = False, use_pallas: bool = False,
-                   pallas_min_elements: int = 128 * 1024 * 1024
-                   ) -> torch.Tensor:
+                   pallas_min_elements: int = 128 * 1024 * 1024,
+                   tp_from: Optional[int] = None) -> torch.Tensor:
     """THE dropout site of the fusion models and the towers. Precedence:
     hash > fast > pallas (the Philox kernel, size-gated) > canonical. Every
-    active site draws one seed from `generator`."""
+    active site draws one seed from `generator`, in the same order on every
+    rank.
+
+    Under a mesh (shard_place, `tp_from` as there) hash dropout draws JAX's
+    mask of the global array at this rank's elements; Philox starts its
+    counter at the shard's offset; the packed and canonical backends seed
+    their generators per shard. The last three never repeat a rank's mask
+    on another rank's elements, and are not world 1's masks."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("a training-mode dropout site needs the caller's "
                          "torch.Generator")
+    seed = draw_seed(generator)
+    place = shard_place(x, tp_from)
     if use_hash:
-        return hash_dropout(x, draw_seed(generator), rate)
+        if place is None:
+            return hash_dropout(x, seed, rate)
+        return hash_dropout(x, seed, rate, place)
     if use_fast:
         from lr2ppo_torch.ops import fast_dropout
 
-        return fast_dropout.packed_dropout(x, draw_seed(generator), rate)
+        return fast_dropout.packed_dropout(x, _shard_seed(seed, x, place),
+                                           rate)
     if use_pallas and x.numel() >= pallas_min_elements:
         from lr2ppo_torch.ops.dropout import philox_dropout
 
-        return philox_dropout(x, draw_seed(generator), rate)
-    return canonical_dropout(x, draw_seed(generator), rate)
+        if place is None:
+            return philox_dropout(x, seed, rate)
+        return philox_dropout(x, seed, rate, place_offset(x, place))
+    return canonical_dropout(x, _shard_seed(seed, x, place), rate)

@@ -21,7 +21,8 @@ INT8_DYNQUANT_MIN_WIDTH = 1024
 
 # Route deterministic int8 FFNs through the fused kernel (ops/int8_mlp.py).
 # In JAX this is off in multi-device programs, where a pallas_call has no
-# partitioning rule; the port runs on one GPU, so it is on. Tests set it.
+# partitioning rule; in the port each rank is one device, so it is on, and
+# models/layers.py:fused_int8_ffn_ok keeps it off under tp. Tests set it.
 FUSED_FFN = True
 
 # Route narrow compute-bound call sites (fc2-style, N < 1024) through the
@@ -39,13 +40,19 @@ def should_quantize(shape) -> bool:
     return len(shape) == 2 and shape[0] * shape[1] >= INT8_MIN_KERNEL_ELEMENTS
 
 
-def quantize_rows(xf: torch.Tensor):
+def quantize_rows(xf: torch.Tensor, amax_mesh=None):
     """Per-row dynamic quantization of a float32 tensor over its last dim:
     (int8 values, float32 scale with a trailing 1). The scale is a true
     division by 127: amax * (1/127) differs in the last bit and moves
     round-ties a whole step. The divisor is a tensor because PyTorch's CUDA
-    division by a Python scalar multiplies by its reciprocal."""
+    division by a Python scalar multiplies by its reciprocal. With
+    `amax_mesh`, xf holds a tp part of each row and the amax is the max
+    over tp."""
     amax = xf.abs().amax(dim=-1, keepdim=True)
+    if amax_mesh is not None:
+        from lr2ppo_torch.parallel.tp import tp_max
+
+        amax = tp_max(amax, amax_mesh)
     scale = torch.clamp_min(amax, 1e-8) / torch.full_like(amax, 127.0)
     q = torch.round(xf / scale).clamp_(-127, 127).to(torch.int8)
     return q, scale
@@ -66,22 +73,29 @@ def quantize_weight(w: torch.Tensor):
 
 
 def int8_linear(x: torch.Tensor, weight: torch.Tensor,
-                weight_scale: torch.Tensor, out_dtype=None) -> torch.Tensor:
+                weight_scale: torch.Tensor, out_dtype=None, shape=None,
+                amax_mesh=None) -> torch.Tensor:
     """y = x @ weight.T with the JAX package's routes, in its order
     (lr2ppo_tpu/ops/int8.py:int8_matmul): with NARROW_SITES on, a narrow
     compute-bound site whose shapes the narrow int8 GEMM takes goes to it;
     otherwise an int8 weight that is not compute-bound at this call site, or
     narrow, is dequantized to `out_dtype` for a plain product; otherwise x
     is quantized per row and the s8 x s8 product accumulates in int32. A
-    float weight is quantized first."""
+    float weight is quantized first.
+
+    A tp-split layer passes its global (out, in) `shape`, which the gates
+    read, and a row split passes `amax_mesh`: x holds part of each row, so
+    the row's amax is the max over tp. A split layer never takes the narrow
+    GEMM (its tp is not ported)."""
     out_dtype = out_dtype or x.dtype
     if weight.dtype != torch.int8:
         weight, weight_scale = quantize_weight(weight)
-    n, k = weight.shape
+    n, k = shape if shape is not None else weight.shape
     rows = x.numel() // x.shape[-1]
     compute_bound = 2 * rows * k * n >= INT8_DYNQUANT_MIN_FLOPS
     narrow = n < INT8_DYNQUANT_MIN_WIDTH
-    if compute_bound and narrow and NARROW_SITES:
+    split = tuple(weight.shape) != (n, k)
+    if compute_bound and narrow and NARROW_SITES and not split:
         from lr2ppo_torch.ops import int8_matmul as k2
 
         if k2.supported(x.shape, weight.shape):
@@ -90,7 +104,8 @@ def int8_linear(x: torch.Tensor, weight: torch.Tensor,
         w = (weight.float() * weight_scale.float()[:, None]).to(out_dtype)
         return torch.matmul(x.to(out_dtype), w.t())
     lead = x.shape[:-1]
-    xq, xscale = quantize_rows(x.reshape(rows, k).float())
+    n, k = weight.shape
+    xq, xscale = quantize_rows(x.reshape(rows, k).float(), amax_mesh)
     # the one library s8 product of the port: JAX leaves this dot to XLA,
     # outside any Pallas kernel
     acc = torch._int_mm(xq, weight.t())

@@ -7,6 +7,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from lr2ppo_torch.parallel.tp import dp_sum
+
 
 def safe_log(t: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """log(max(t, eps)) — reference finetune/ppo.py:431-432."""
@@ -37,12 +39,15 @@ def rank_hinge_loss(scores: torch.Tensor, indices: torch.Tensor,
     first), and averages the hinge violations relu(margin - (s_i - s_j))
     over the upper-triangular pairs over the count of *violating* pairs of
     the whole batch (a sum of sign(hinge), not a per-row count). 0 when no
-    pair violates."""
+    pair violates. Under dp the batch is global, as in JAX: the hinge sum
+    and the count are summed over the dp ranks before the division, so the
+    loss is not a mean of per-rank ratios."""
     s = torch.gather(scores, 1, indices.long())                 # (B, K)
     diff = margin - (s[:, :, None] - s[:, None, :])            # (B, K, K)
     hinge = torch.relu(torch.triu(diff, diagonal=1))
-    cnt = torch.sign(hinge).sum()
-    return hinge.sum() / torch.clamp(cnt, min=1.0)
+    # sign() passes no gradient: the count is a constant of the loss
+    cnt = dp_sum(torch.sign(hinge).sum().detach())
+    return dp_sum(hinge.sum()) / torch.clamp(cnt, min=1.0)
 
 
 def reward_pair_hinge_loss(chosen: torch.Tensor, rejected: torch.Tensor,

@@ -1,0 +1,179 @@
+"""Megatron tensor parallelism and the differentiable collectives
+(counterpart of the splits XLA derives from lr2ppo_tpu/parallel/mesh.py's
+rule table).
+
+A column-parallel Linear holds rows [r*n/tp, (r+1)*n/tp) of its (out, in)
+weight and bias; its input passes `copy_to_tp` (identity forward, sum of
+the input gradients over tp backward). A row-parallel Linear holds the same
+columns of its weight and the whole bias; its partial products pass
+`reduce_from_tp` (sum over tp forward, identity backward) before the bias.
+`shard_tp` slices a model built at full width, so a tp-split model starts
+from the weights world 1 would draw (Linear's init bounds come from the
+global fan-in).
+
+Each collective is an autograd Function over torch.distributed, so it runs
+on gloo and NCCL alike. `dp_sum` is the all-reduce whose backward is an
+all-reduce too: a loss whose denominator counts over the global batch sums
+its numerator with it, and the dp-averaged gradients are then exact.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from lr2ppo_torch.parallel.mesh import (Mesh, active, all_gather_dim,
+                                        assert_tp_coverage, tp_dim)
+
+
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    t = t.contiguous().clone()
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    """All-gather along the last dim; the backward keeps this rank's part
+    (the consumers are replicated over tp, so every rank holds the whole
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, parts):
+        ctx.rank, ctx.parts = rank, parts
+        return all_gather_dim(x, -1, group, parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[-1] // ctx.parts
+        return g.narrow(-1, ctx.rank * n, n).contiguous(), None, None, None
+
+
+class _SumBothWays(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def copy_to_tp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return _CopyToTP.apply(x, mesh.tp_group) if mesh.tp > 1 else x
+
+
+def reduce_from_tp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return _ReduceFromTP.apply(x, mesh.tp_group) if mesh.tp > 1 else x
+
+
+def gather_from_tp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    if mesh.tp == 1:
+        return x
+    return _GatherFromTP.apply(x, mesh.tp_group, mesh.tp_rank, mesh.tp)
+
+
+def tp_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Max over tp, without a gradient."""
+    if mesh.tp == 1:
+        return x
+    return _all_reduce(x.detach(), mesh.tp_group, dist.ReduceOp.MAX)
+
+
+def tp_min(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    if mesh.tp == 1:
+        return x
+    return _all_reduce(x.detach(), mesh.tp_group, dist.ReduceOp.MIN)
+
+
+def dp_sum(x: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:
+    """Sum over the dp ranks whose gradient flows back to every rank's
+    summand: with dp-averaged gradients, a loss num/dp_sum(count) written
+    as dp_sum(num_local)/dp_sum(count_local) gets the exact gradient of the
+    global loss."""
+    mesh = mesh or active()
+    if mesh.dp == 1 or not mesh.distributed:
+        return x
+    if not x.requires_grad:
+        return _all_reduce(x, mesh.dp_group)
+    return _SumBothWays.apply(x, mesh.dp_group)
+
+
+def dp_mean(x: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:
+    """Mean over the dp ranks, without a gradient (for metrics)."""
+    mesh = mesh or active()
+    if mesh.dp == 1 or not mesh.distributed:
+        return x
+    return _all_reduce(x.detach(), mesh.dp_group) / mesh.dp
+
+
+def vocab_parallel_log_softmax_parts(logits: torch.Tensor, mesh: Mesh):
+    """(log Z, m) of float32 logits split over tp along the last dim: the
+    max and the sum of exponentials are all-reduced over tp, so no rank
+    gathers the logits. log_softmax = logits - log Z."""
+    m = tp_max(logits.detach().amax(-1, keepdim=True), mesh)
+    s = reduce_from_tp(torch.exp(logits - m).sum(-1, keepdim=True), mesh)
+    return m + torch.log(s)
+
+
+def vocab_parallel_pick(logits: torch.Tensor, tgt: torch.Tensor,
+                        mesh: Mesh) -> torch.Tensor:
+    """logits[..., tgt] of logits split over tp along the last dim; `tgt`
+    holds global ids."""
+    n = logits.shape[-1]
+    lo = mesh.tp_rank * n
+    local = tgt.long() - lo
+    inside = (local >= 0) & (local < n)
+    picked = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    return reduce_from_tp(torch.where(inside, picked,
+                                      torch.zeros_like(picked)), mesh)
+
+
+def vocab_parallel_argmax(logits: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The global argmax of logits split over tp along the last dim, the
+    first index among equal maxima, as torch.argmax."""
+    n = logits.shape[-1]
+    val, idx = logits.detach().max(-1)
+    best = tp_max(val, mesh)
+    big = torch.full_like(idx, torch.iinfo(torch.int64).max)
+    cand = torch.where(val == best, idx + mesh.tp_rank * n, big)
+    return tp_min(cand, mesh)
+
+
+def shard_tp(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
+    """Split every Linear the rule table names over tp, in place: the
+    module keeps this rank's part of its weight (and of its bias and int8
+    scales where they split with it). Raises where a large parameter
+    matches no rule."""
+    from lr2ppo_torch.models.layers import Linear
+
+    if mesh.tp == 1:
+        return model
+    assert_tp_coverage(list(model.named_parameters()), mesh.tp)
+    for name, mod in model.named_modules():
+        if isinstance(mod, Linear):
+            d = tp_dim(f"{name}.weight")
+            if d is not None:
+                mod.split_tp(d, mesh)
+    return model

@@ -152,10 +152,12 @@ class MultiHeadedAttention(nn.Module):
                 key_bias: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h, dh = self.heads_num, self.head_size
+        dh = self.head_size
         q = self.linear_layers[0](query)
         k = self.linear_layers[1](key)
         v = self.linear_layers[2](value)
+        # under tp this rank holds heads_num / tp heads
+        h = q.shape[-1] // dh
         b, sq = q.shape[:2]
         sk = k.shape[1]
         q = q.reshape(b, sq, h, dh).transpose(1, 2)
@@ -174,8 +176,10 @@ class MultiHeadedAttention(nn.Module):
                 scores = scores / scores.new_tensor(math.sqrt(float(dh)))
             scores = scores + mask
             probs = torch.softmax(scores, dim=-1).to(self.dtype or q.dtype)
-            probs = module_dropout(probs, self.dropout, deterministic,
-                                   generator, self.hash_dropout)
+            probs = module_dropout(
+                probs, self.dropout, deterministic, generator,
+                self.hash_dropout,
+                tp_from=1 if self.linear_layers[0].tp_dim == 0 else None)
             out = torch.matmul(probs, v.to(probs.dtype))
             out = out.to(self.dtype or torch.float32)
         out = out.transpose(1, 2).reshape(b, sq, h * dh)

@@ -4,7 +4,13 @@ lr2ppo_tpu/towers/targets.py; reference tencentpretrain/targets/): mlm, lm
 
 As in the JAX package, a masked mean weights every position by its mask and
 divides by the mask count plus 1e-6, instead of gathering the masked
-positions, and every log-softmax runs in float32. Each head keeps the JAX
+positions, and every log-softmax runs in float32. The JAX loss is taken over
+the global batch, so under dp the numerators and counts are summed over the
+dp ranks before the division (parallel/tp.py:dp_sum). Under tp the
+vocabulary heads (`output_layer*`, the MLM `linear_2`) are column-split:
+the log-softmax is vocab-parallel (a max and a sum of exponentials
+all-reduced over tp), the target's logit and the argmax are picked across
+the ranks, and no rank gathers the logits. Each head keeps the JAX
 package's module names under `target.<kind>` (`target.mlm.linear_1`,
 `target.mlm.layer_norm`, `target.mlm.linear_2`, `target.lm.output_layer`,
 ...), so the tower bridge (torch_import.py) carries a JAX tree across.
@@ -22,18 +28,53 @@ import torch.nn.functional as F
 from torch import nn
 
 from lr2ppo_torch.models.layers import Linear
+from lr2ppo_torch.parallel.tp import (dp_sum, gather_from_tp, reduce_from_tp,
+                                      vocab_parallel_argmax,
+                                      vocab_parallel_log_softmax_parts,
+                                      vocab_parallel_pick)
 from lr2ppo_torch.towers.layers import ACTS, NOT_PORTED, RefLayerNorm, pooling
 
 
-def _masked_nll(log_probs: torch.Tensor, tgt: torch.Tensor,
-                mask: torch.Tensor):
+class _VocabTerms:
+    """What a vocabulary loss reads of float32 logits: nll(tgt), the
+    prediction and the sum of log-probabilities, whole or vocab-parallel
+    where `head` is column-split over tp."""
+
+    def __init__(self, logits: torch.Tensor, head: Linear):
+        self.z = logits.float()
+        self.mesh = head.mesh if head.tp_dim == 0 else None
+        if self.mesh is None:
+            self.log_probs = F.log_softmax(self.z, dim=-1)
+        else:
+            self.log_z = vocab_parallel_log_softmax_parts(self.z, self.mesh)
+
+    def nll(self, tgt: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return -torch.gather(self.log_probs, -1,
+                                 tgt.long()[..., None])[..., 0]
+        return self.log_z[..., 0] - vocab_parallel_pick(self.z, tgt,
+                                                        self.mesh)
+
+    def argmax(self) -> torch.Tensor:
+        if self.mesh is None:
+            return self.log_probs.argmax(-1)
+        return vocab_parallel_argmax(self.z, self.mesh)
+
+    def sum_log_probs(self, vocab_size: int) -> torch.Tensor:
+        if self.mesh is None:
+            return self.log_probs.sum(-1)
+        return (reduce_from_tp(self.z.sum(-1), self.mesh)
+                - vocab_size * self.log_z[..., 0])
+
+
+def _masked_nll(terms: _VocabTerms, tgt: torch.Tensor, mask: torch.Tensor):
     """(mean NLL, correct count, mask count + 1e-6) over the positions where
-    mask holds, all float32."""
-    nll = -torch.gather(log_probs, -1, tgt.long()[..., None])[..., 0]
+    mask holds in the global batch, all float32."""
+    nll = terms.nll(tgt)
     m = mask.float()
-    denom = m.sum() + 1e-6
-    loss = (nll * m).sum() / denom
-    correct = ((log_probs.argmax(-1) == tgt) & mask).sum().float()
+    denom = dp_sum(m.sum()) + 1e-6
+    loss = dp_sum((nll * m).sum()) / denom
+    correct = dp_sum(((terms.argmax() == tgt) & mask).sum().float())
     return loss, correct, denom
 
 
@@ -59,8 +100,13 @@ class MlmTarget(nn.Module):
                                device=device)
 
     def forward(self, memory_bank, tgt, seg):
-        x = self.layer_norm(self.act(self.linear_1(memory_bank)))
-        return _masked_nll(_log_softmax(self.linear_2(x)), tgt, tgt > 0)
+        x = self.act(self.linear_1(memory_bank))
+        if self.linear_1.tp_dim == 0:
+            # the layer norm reads the whole row
+            x = gather_from_tp(x, self.linear_1.mesh)
+        x = self.layer_norm(x)
+        return _masked_nll(_VocabTerms(self.linear_2(x), self.linear_2), tgt,
+                           tgt > 0)
 
 
 class LmTarget(nn.Module):
@@ -76,20 +122,20 @@ class LmTarget(nn.Module):
                                    device=device)
 
     def forward(self, memory_bank, tgt, seg):
-        log_probs = _log_softmax(self.output_layer(memory_bank))
+        terms = _VocabTerms(self.output_layer(memory_bank), self.output_layer)
         mask = tgt > 0
         if not self.label_smoothing:
-            return _masked_nll(log_probs, tgt, mask)
+            return _masked_nll(terms, tgt, mask)
         eps = self.label_smoothing
         eps_i = eps / (self.vocab_size - 1)
-        nll = -torch.gather(log_probs, -1, tgt.long()[..., None])[..., 0]
-        smooth = -log_probs.sum(-1)
+        nll = terms.nll(tgt)
+        smooth = -terms.sum_log_probs(self.vocab_size)
         m = mask.float()
-        denom = m.sum() + 1e-6
-        nll_mean = (nll * m).sum() / denom
-        smooth_mean = (smooth * m).sum() / denom
+        denom = dp_sum(m.sum()) + 1e-6
+        nll_mean = dp_sum((nll * m).sum()) / denom
+        smooth_mean = dp_sum((smooth * m).sum()) / denom
         loss = (1.0 - eps - eps_i) * nll_mean + eps_i * smooth_mean
-        correct = ((log_probs.argmax(-1) == tgt) & mask).sum().float()
+        correct = dp_sum(((terms.argmax() == tgt) & mask).sum().float())
         return loss, correct, denom
 
 
@@ -109,10 +155,11 @@ class BilmTarget(nn.Module):
     def forward(self, memory_bank, tgt, seg):
         tgt_fwd, tgt_bwd = tgt
         half = memory_bank.shape[-1] // 2
-        lp_f = _log_softmax(self.output_layer_forward(memory_bank[..., :half]))
-        lp_b = _log_softmax(self.output_layer_backward(memory_bank[..., half:]))
-        lf, cf, df = _masked_nll(lp_f, tgt_fwd, tgt_fwd > 0)
-        lb, cb, db = _masked_nll(lp_b, tgt_bwd, tgt_bwd > 0)
+        fwd, bwd = self.output_layer_forward, self.output_layer_backward
+        lf, cf, df = _masked_nll(_VocabTerms(fwd(memory_bank[..., :half]),
+                                             fwd), tgt_fwd, tgt_fwd > 0)
+        lb, cb, db = _masked_nll(_VocabTerms(bwd(memory_bank[..., half:]),
+                                             bwd), tgt_bwd, tgt_bwd > 0)
         return lf + lb, cf + cb, df + db
 
 
@@ -134,7 +181,7 @@ class ClsTarget(nn.Module):
                                              self.pooling)))
         log_probs = _log_softmax(self.linear_2(x))
         loss = -torch.gather(log_probs, -1, tgt.long()[:, None]).mean()
-        correct = (log_probs.argmax(-1) == tgt).sum().float()
+        correct = dp_sum((log_probs.argmax(-1) == tgt).sum().float())
         return loss, correct
 
 
@@ -154,7 +201,7 @@ class SpTarget(nn.Module):
         x = torch.tanh(self.linear_1(memory_bank[:, 0]))
         log_probs = _log_softmax(self.linear_2(x))
         loss = -torch.gather(log_probs, -1, tgt.long()[:, None]).mean()
-        correct = (log_probs.argmax(-1) == tgt).sum().float()
+        correct = dp_sum((log_probs.argmax(-1) == tgt).sum().float())
         return loss, correct
 
 

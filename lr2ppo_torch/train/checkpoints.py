@@ -119,25 +119,28 @@ def _save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
-def _host(sd: dict) -> dict:
+def _host(sd) -> dict:
+    """A state_dict (or a module's) on the host."""
+    if isinstance(sd, torch.nn.Module):
+        sd = sd.state_dict()
     return {k: v.detach().cpu() for k, v in sd.items()}
 
 
-def save_model(path: str, model: torch.nn.Module) -> None:
-    """Write one model's reference-keyed state_dict as a `.bin`, as the
+def save_model(path: str, model) -> None:
+    """Write one model's reference-keyed state_dict (a module, or a
+    full-width state_dict gathered under a mesh) as a `.bin`, as the
     reference's model_saver.py does for stages 1 and 2; `load_any(path)`
     reads it back, the JAX package's load_any too."""
-    _save(_host(model.state_dict()), path)
+    _save(_host(model), path)
 
 
-def save_actor_critic(path: str, actor: torch.nn.Module,
-                      critic: torch.nn.Module) -> None:
+def save_actor_critic(path: str, actor, critic) -> None:
     """Write both models as one reference-keyed ActorCritic `.bin`
     ('actor.'/'critic.' prefixes, reference ppo_eval.py:336-343).
     `load_any(path, kind="actor_critic")` reads it back."""
     _save({f"{prefix}.{k}": v
            for prefix, model in (("actor", actor), ("critic", critic))
-           for k, v in _host(model.state_dict()).items()}, path)
+           for k, v in _host(model).items()}, path)
 
 
 # the `format` entry of the port's .state payload
@@ -158,7 +161,8 @@ def save_state(path: str, models: dict, optims: dict, generator, **counters
     """The resumable `.state` payload, the port's own format: each model's
     state_dict and each optimizer's state_dict (AdamW's moments and count,
     Adafactor's second moments and count; by the same names), the
-    dropout generator's state and the counters (step, best, ...)."""
+    dropout generator's state and the counters (step, best, ...). Models
+    and optimizers may be given as their state_dicts."""
     def host_tree(node):
         if isinstance(node, torch.Tensor):
             return node.detach().cpu()
@@ -167,8 +171,9 @@ def save_state(path: str, models: dict, optims: dict, generator, **counters
         return node
 
     _save({"format": STATE_FORMAT,
-           "models": {k: _host(m.state_dict()) for k, m in models.items()},
-           "optims": {k: host_tree(o.state_dict())
+           "models": {k: _host(m) for k, m in models.items()},
+           "optims": {k: host_tree(o if isinstance(o, dict)
+                                   else o.state_dict())
                       for k, o in optims.items()},
            "generator": generator.get_state(), **counters}, path)
 

@@ -1,6 +1,12 @@
 """NDCG evaluation and the ppo_eval case dump (counterpart of
 lr2ppo_tpu/train/evaluate.py: _scores_and_ndcg, evaluate_ndcg,
-evaluate_cases and format_ndcg)."""
+evaluate_cases and format_ndcg).
+
+Under dp every rank holds the whole eval batch (the eval loaders are not
+sharded) and `put` (DeviceCtx.put_eval) gives it its slice; each rank
+scores its slice, the scores and NDCG rows are all-gathered in rank order,
+and the meter runs on the host over the whole batch, as the JAX package
+fetches its dp-sharded rows (evaluate.py:53-54). The result is world 1's."""
 
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import torch
 from lr2ppo_torch.ops.losses import cls_expected_scores
 from lr2ppo_torch.ops.ndcg import (NDCG_AT_K_DEFAULT, AverageNDCGMeter,
                                    ndcg_from_scores)
+from lr2ppo_torch.parallel.mesh import active, fetch_global
 
 
 def _model_inputs(batch: dict) -> dict:
@@ -40,10 +47,18 @@ def evaluate_ndcg(model, eval_loader, put,
     the model's device. Key 100000000 is NDCG@full (the reference's
     model-selection metric, ppo.py:679)."""
     meter = meter or AverageNDCGMeter()
+    mesh = active()
     for batch in eval_loader:
         b = put(_model_inputs(batch))
         _, rows = scores_and_ndcg(model, b["text"], b.get("img"), b["tgts"],
                                   b["mask"])
+        if mesh.dp > 1:
+            n = np.asarray(batch["mask"]).shape[0]
+            rows = fetch_global(rows, mesh)[:n]
+            keep = np.asarray(batch["mask"]).any(axis=1)
+            if keep.any():
+                meter.extend(rows[keep])
+            continue
         keep = b["mask"].any(dim=1)
         if bool(keep.any()):
             meter.extend(rows[keep].cpu().numpy())
@@ -56,8 +71,10 @@ def evaluate_cases(model, dataset, eval_loader, out_path: str,
     per-item JSON case dump at `out_path` (ppo_eval.py:457-459): the
     predicted order with its scores, the gold targets as given and
     rearranged, the NDCG row, and the item's id and tag strings where the
-    dataset has them. Needs an EvalLoader, whose batches carry `_idx`."""
+    dataset has them. Needs an EvalLoader, whose batches carry `_idx`.
+    Under a mesh rank 0 writes the dump."""
     meter = AverageNDCGMeter()
+    mesh = active()
     cases = []
     for batch in eval_loader:
         if "_idx" not in batch:
@@ -69,9 +86,9 @@ def evaluate_cases(model, dataset, eval_loader, out_path: str,
         b = put(_model_inputs(batch))
         scores, rows = scores_and_ndcg(model, b["text"], b.get("img"),
                                        b["tgts"], b["mask"])
-        scores = scores.float().cpu().numpy()
-        rows = rows.float().cpu().numpy()
         mask = np.asarray(batch["mask"])
+        scores = fetch_global(scores.float(), mesh)[:mask.shape[0]]
+        rows = fetch_global(rows.float(), mesh)[:mask.shape[0]]
         for r in range(mask.shape[0]):
             if not mask[r].any() or idx[r] < 0:
                 continue
@@ -97,7 +114,7 @@ def evaluate_cases(model, dataset, eval_loader, out_path: str,
                     case["tags_rearranged"] = [case["tags"][j]
                                                for j in order.tolist()]
             cases.append(case)
-    if out_path:
+    if out_path and mesh.is_main:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)) or ".",
                     exist_ok=True)
         with open(out_path, "w") as f:

@@ -27,6 +27,10 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from lr2ppo_torch.parallel.mesh import (all_gather_dim, shard_slice, tp_dim,
+                                        zero_dim)
 
 
 def _schedule_fns(name: str, base_lr: float, train_steps: int, w: int):
@@ -120,14 +124,19 @@ class AdamW:
         return float(self.schedule(self.count))
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, grads: Optional[dict] = None,
+             norm: Optional[torch.Tensor] = None) -> None:
+        """One update from the parameters' `.grad`, or from `grads` by name
+        (DistributedOptimizer passes the slices of a zero1 rank); `norm`
+        overrides the global gradient norm that grad_clip reads."""
         # a parameter the step's graph did not reach (the 2-data model's
         # other projection) takes a zero gradient, as jax.grad gives it:
         # its moments decay and its weight decay applies
-        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+        if grads is None:
+            grads = {k: p.grad for k, p in self.params.items()}
+        grads = {k: torch.zeros_like(p) if grads.get(k) is None else grads[k]
                  for k, p in self.params.items()}
-        norm = None
-        if self.grad_clip:
+        if self.grad_clip and norm is None:
             # optax.clip_by_global_norm: g / ||g|| * max_norm where
             # ||g|| >= max_norm
             norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
@@ -251,12 +260,15 @@ class Adafactor:
         return float(np.float32(1.0) - t ** np.float32(-self.DECAY_EXPONENT))
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, grads: Optional[dict] = None) -> None:
         decay = self._decay()
         lr = self.lr()
         self.count += 1
+        if grads is None:
+            grads = {k: p.grad for k, p in self.params.items()}
         for k, p in self.params.items():
-            g = torch.zeros_like(p) if p.grad is None else p.grad.to(p.dtype)
+            g = (torch.zeros_like(p) if grads.get(k) is None
+                 else grads[k].to(p.dtype))
             g2 = g * g + self.EPS
             dims = self.factored_dims(p.shape)
             if dims is None:
@@ -319,3 +331,217 @@ def build_optimizer(optim_cfg, named_params: Dict[str, torch.nn.Parameter],
                  optim_cfg.correct_bias,
                  getattr(torch, moment_dtype) if moment_dtype else None,
                  optim_cfg.grad_clip)
+
+
+# elements a gradient all-reduce takes at once
+BUCKET_ELEMENTS = 1 << 25
+
+
+class DistributedOptimizer:
+    """AdamW or Adafactor under a (dp, tp) mesh: the counterpart of the JAX
+    package's sharded optax transformation (parallel/mesh.py:
+    shard_optimizer), as an object with the optimizers' interface.
+
+    `step()` averages the gradients over dp (all-reduce in buckets; an fsdp
+    shard's gradient arrives averaged from its gather's backward), then
+    updates. Under zero1 each dp rank owns a slice of every large moment:
+
+      * AdamW is elementwise, so the rank updates the slice of the parameter
+        that its moments cover, from the same averaged gradient, and the
+        slices are all-gathered back into the parameter. The result is the
+        unsharded update bit for bit; the moments never exist whole.
+      * Adafactor's factored statistics are row and column means, and its
+        update is clipped by the whole update's RMS: the rank keeps its
+        slice of each statistic between steps, gathers them for the step,
+        which it computes whole, and slices them again.
+
+    grad_clip's norm is taken over the global gradient: the squared sums of
+    tp-split and fsdp-sharded parameters are summed over their groups.
+    `state_dict()` gathers every moment to its global shape (every rank
+    calls it); `load_state_dict` slices a global one, so a `.state` written
+    at one world resumes at any other."""
+
+    def __init__(self, inner, params: dict, mesh, zero1: bool,
+                 fsdp_dims: dict, views: dict):
+        self.inner, self.mesh = inner, mesh
+        self.params = params                 # reference key -> Parameter
+        self.fsdp_dims = dict(fsdp_dims)     # key -> dp dim of the shard
+        self.views = dict(views)             # key -> dp dim of a zero1 view
+        self.zero1 = zero1
+        self.tp_dims = {}
+        if mesh.tp > 1:
+            self.tp_dims = {k: tp_dim(k) for k in params
+                            if tp_dim(k) is not None}
+        # Adafactor under zero1: statistic (table, key) -> its dp dim
+        self.stat_dims = {}
+        if zero1 and isinstance(inner, Adafactor):
+            self._slice_stats(first=True)
+
+    # -- the optimizer interface ---------------------------------------
+    @property
+    def count(self) -> int:
+        return self.inner.count
+
+    def lr(self) -> float:
+        return self.inner.lr()
+
+    def zero_grad(self) -> None:
+        for p in self.params.values():
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self._average_grads()
+        grads = {}
+        for k, p in self.params.items():
+            d = self.views.get(k)
+            g = p.grad
+            if d is not None and g is not None:
+                g = self._part(g, d)
+            grads[k] = g
+        if isinstance(self.inner, AdamW):
+            norm = (self._global_norm() if self.inner.grad_clip
+                    and (self.views or self.fsdp_dims or self.tp_dims)
+                    else None)
+            self.inner.step(grads, norm)
+        else:
+            if self.stat_dims:
+                self._gather_stats()
+            self.inner.step(grads)
+            if self.stat_dims:
+                self._slice_stats()
+        self._gather_views()
+
+    # -- gradients -------------------------------------------------------
+    def _part(self, t: torch.Tensor, d: int) -> torch.Tensor:
+        return shard_slice(t, d, self.mesh.dp_rank, self.mesh.dp)
+
+    def _average_grads(self) -> None:
+        mesh = self.mesh
+        if not mesh.distributed:
+            return
+        todo = [p.grad for k, p in self.params.items()
+                if p.grad is not None and k not in self.fsdp_dims]
+        by_dtype: dict = {}
+        for g in todo:
+            by_dtype.setdefault(g.dtype, []).append(g)
+        for group in by_dtype.values():
+            bucket, size = [], 0
+            for g in group + [None]:
+                if g is not None:
+                    bucket.append(g)
+                    size += g.numel()
+                if bucket and (g is None or size >= BUCKET_ELEMENTS):
+                    flat = torch.cat([t.reshape(-1) for t in bucket])
+                    dist.all_reduce(flat, group=mesh.dp_group)
+                    if mesh.dp > 1:
+                        flat.div_(mesh.dp)
+                    for t, part in zip(bucket, flat.split(
+                            [t.numel() for t in bucket])):
+                        t.copy_(part.view_as(t))
+                    bucket, size = [], 0
+
+    def _global_norm(self) -> torch.Tensor:
+        """sqrt of the global squared gradient sum, each parameter counted
+        once: sums of split parameters are all-reduced over their groups."""
+        mesh = self.mesh
+        sums = {}
+        for k, p in self.params.items():
+            if p.grad is None:
+                continue
+            kind = (k in self.tp_dims, k in self.fsdp_dims)
+            sums[kind] = sums.get(kind, 0.0) + torch.sum(
+                torch.square(p.grad.float()))
+        total = 0.0
+        for (tp_split, dp_split), v in sums.items():
+            v = torch.as_tensor(v).clone()
+            if dp_split:
+                dist.all_reduce(v, group=mesh.dp_group)
+            if tp_split:
+                dist.all_reduce(v, group=mesh.tp_group)
+            total = total + v
+        return torch.sqrt(torch.as_tensor(total))
+
+    @torch.no_grad()
+    def _gather_views(self) -> None:
+        for k, d in self.views.items():
+            p = self.params[k]
+            p.copy_(all_gather_dim(self._part(p, d).contiguous(), d,
+                                   self.mesh.dp_group, self.mesh.dp))
+
+    # -- Adafactor statistics under zero1 --------------------------------
+    def _stat_tables(self):
+        return {"v_row": self.inner.v_row, "v_col": self.inner.v_col,
+                "v": self.inner.v}
+
+    @torch.no_grad()
+    def _slice_stats(self, first: bool = False) -> None:
+        for tname, table in self._stat_tables().items():
+            for k, t in table.items():
+                d = (zero_dim(t.shape, self.mesh.dp) if first
+                     else self.stat_dims.get((tname, k)))
+                if d is None:
+                    continue
+                self.stat_dims[(tname, k)] = d
+                table[k] = self._part(t, d).clone()
+
+    @torch.no_grad()
+    def _gather_stats(self) -> None:
+        tables = self._stat_tables()
+        for (tname, k), d in self.stat_dims.items():
+            tables[tname][k] = all_gather_dim(
+                tables[tname][k], d, self.mesh.dp_group, self.mesh.dp)
+
+    # -- global state ------------------------------------------------------
+    def _moment_dims(self, k: str):
+        """(dp dim, tp dim) of key k's AdamW moments."""
+        return (self.views.get(k, self.fsdp_dims.get(k)),
+                self.tp_dims.get(k))
+
+    @torch.no_grad()
+    def state_dict(self) -> dict:
+        mesh = self.mesh
+        if isinstance(self.inner, Adafactor):
+            if self.stat_dims:
+                self._gather_stats()
+            sd = self.inner.state_dict()
+            sd = {n: ({k: v.clone() for k, v in t.items()}
+                      if isinstance(t, dict) else t) for n, t in sd.items()}
+            if self.stat_dims:
+                self._slice_stats()
+            return sd
+        sd = self.inner.state_dict()
+        for table in ("mu", "nu"):
+            out = {}
+            for k, v in sd[table].items():
+                dd, td = self._moment_dims(k)
+                if dd is not None:
+                    v = all_gather_dim(v, dd, mesh.dp_group, mesh.dp)
+                if td is not None:
+                    v = all_gather_dim(v, td, mesh.tp_group, mesh.tp)
+                out[k] = v
+            sd[table] = out
+        return sd
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        mesh = self.mesh
+        if isinstance(self.inner, Adafactor):
+            if self.stat_dims:
+                self._gather_stats()
+            self.inner.load_state_dict(state)
+            if self.stat_dims:
+                self._slice_stats()
+            return
+        local = dict(state)
+        for table in ("mu", "nu"):
+            out = {}
+            for k, v in state[table].items():
+                dd, td = self._moment_dims(k)
+                if td is not None:
+                    v = shard_slice(v, td, mesh.tp_rank, mesh.tp)
+                if dd is not None:
+                    v = shard_slice(v, dd, mesh.dp_rank, mesh.dp)
+                out[k] = v
+            local[table] = out
+        self.inner.load_state_dict(local)

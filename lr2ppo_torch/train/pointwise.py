@@ -1,4 +1,5 @@
-"""Stage 1 — the pointwise scorer trainers on one GPU, both families
+"""Stage 1 — the pointwise scorer trainers, both families, on one GPU or
+one rank per GPU under --dp/--tp
 (counterpart of lr2ppo_tpu/train/pointwise.py: make_train_step,
 PointwiseTrainer, TwoDataTrainer and project_tsv; reference
 finetune/pointwise.py, pointwise_trad.py, pointwise_2data_trad.py and
@@ -29,17 +30,16 @@ import numpy as np
 import torch
 
 from lr2ppo_torch.config import Config
-from lr2ppo_torch.device import compute_dtype
+from lr2ppo_torch.device import compute_dtype, require_cuda
 from lr2ppo_torch.models.layers import init_weights
 from lr2ppo_torch.models.scorer import ScoreModel, TwoDataScoreModel
 from lr2ppo_torch.ops.losses import nll_3way_loss, smooth_l1_loss
 from lr2ppo_torch.train import checkpoints
-from lr2ppo_torch.train.common import (BestSaver, DeviceCtx, TrainState,
-                                       apply_updates, check_single_device,
-                                       init_state, resume_fit_state,
+from lr2ppo_torch.train.common import (BestSaver, TrainState, apply_updates,
+                                       check_unported, device_ctx, init_state,
+                                       logged_path, resume_fit_state,
                                        save_train_state)
 from lr2ppo_torch.train.evaluate import evaluate_ndcg, format_ndcg
-from lr2ppo_torch.train.optim import build_optimizer
 from lr2ppo_torch.utils import MetricLogger, check_finite, init_logger
 
 NDCG_FULL = 100000000
@@ -63,22 +63,24 @@ def make_train_step(mode: str):
 
 
 class PointwiseTrainer:
-    """The stage-1 trainer on one device: `device` defaults to the GPU
-    (raising where there is none); the CPU tests pass "cpu"."""
+    """The stage-1 trainer on this rank's device (train/common.py:
+    device_ctx): `device` defaults to the GPU (raising where there is
+    none); the CPU tests pass "cpu"."""
 
     model_cls = ScoreModel
 
     def __init__(self, cfg: Config, device=None):
-        self.device = check_single_device(cfg, device)
+        self.ctx = device_ctx(cfg, device, cfg.mesh.compute_dtype)
+        self.device = self.ctx.device
         self.cfg = cfg
         self.dtype = compute_dtype(cfg.mesh.compute_dtype)
-        self.logger = init_logger(cfg.log_path)
-        self.metrics = MetricLogger(
-            cfg.log_path + ".jsonl" if cfg.log_path else None)
-        self.ctx = DeviceCtx(self.device, cast_dtype=cfg.mesh.compute_dtype)
+        self.logger = init_logger(cfg.log_path, main=self.ctx.is_main)
+        self.metrics = MetricLogger(logged_path(
+            self.ctx, cfg.log_path + ".jsonl" if cfg.log_path else None))
 
     def init_model(self, seed: int) -> ScoreModel:
-        """The scorer from pretrained_model_path (strict) or seeded init."""
+        """The scorer from pretrained_model_path (strict) or seeded init,
+        at full width, then placed on the mesh."""
         cfg = self.cfg
         model = self.model_cls(cfg.model, self.dtype, device=self.device)
         if cfg.pretrained_model_path:
@@ -88,7 +90,7 @@ class PointwiseTrainer:
         else:
             init_weights(model,
                          torch.Generator(device=self.device).manual_seed(seed))
-        return model
+        return self.ctx.place(model)
 
     def _start(self, steps_per_epoch: int, train_steps: Optional[int]):
         """The train state, the dropout generator, the best saver and where
@@ -98,23 +100,24 @@ class PointwiseTrainer:
         `.state` on the --save_state_steps cadence."""
         cfg = self.cfg
         total = train_steps or int(steps_per_epoch * cfg.epochs_num) + 1
-        model = (self.model_cls(cfg.model, self.dtype, device=self.device)
+        model = (self.ctx.place(self.model_cls(cfg.model, self.dtype,
+                                               device=self.device))
                  if cfg.resume_path else self.init_model(cfg.seed))
-        state = init_state(model, build_optimizer(
-            cfg.optim, dict(model.named_parameters()), total))
+        state = init_state(model, self.ctx.optimizer(cfg.optim, model, total))
         generator = torch.Generator().manual_seed(cfg.seed + 1)
         step, start_epoch, skip_batches, resume_best = 0, 1, 0, -np.inf
         if cfg.resume_path:
             step, start_epoch, skip_batches, resume_best = resume_fit_state(
-                cfg, state, generator, steps_per_epoch, self.logger)
-        saver = BestSaver(cfg.output_model_path, self.logger)
+                cfg, state, generator, steps_per_epoch, self.logger,
+                self.ctx)
+        saver = BestSaver(cfg.output_model_path, self.logger, self.ctx)
         saver.best = max(saver.best, resume_best)
 
         def save_state(step):
             if cfg.save_state_steps and step % cfg.save_state_steps == 0:
                 save_train_state(cfg.output_model_path + ".state",
                                  {"model": state}, generator, step,
-                                 saver.best)
+                                 saver.best, self.ctx)
 
         return (state, generator, saver, step, start_epoch, skip_batches,
                 save_state)
@@ -123,6 +126,7 @@ class PointwiseTrainer:
             train_steps: Optional[int] = None):
         """Returns (train state, best NDCG@full)."""
         cfg = self.cfg
+        self.ctx.check_loader(train_loader)
         steps_per_epoch = len(train_loader)
         (state, generator, saver, step, start_epoch, skip_batches,
          save_state) = self._start(steps_per_epoch, train_steps)
@@ -142,7 +146,7 @@ class PointwiseTrainer:
                 step += 1
                 if step % cfg.report_steps == 0:
                     loss_v = check_finite(
-                        float(loss), step,
+                        float(self.ctx.mean(loss)), step,
                         checkpoint_hint=cfg.output_model_path)
                     self.logger.info(
                         f"epoch {epoch} step {step} loss {loss_v:.6f}")
@@ -162,7 +166,7 @@ class PointwiseTrainer:
         return state, saver.best
 
     def _evaluate(self, model, eval_loader, saver, label):
-        result = evaluate_ndcg(model, eval_loader, put=self.ctx.put)
+        result = evaluate_ndcg(model, eval_loader, put=self.ctx.put_eval)
         self.logger.info(label + format_ndcg(result))
         saver.maybe_save(result[NDCG_FULL], model)
         return result
@@ -186,6 +190,8 @@ class TwoDataTrainer(PointwiseTrainer):
         deterministic in (seed, epoch), so a resume replays the round-robin
         draw order without training up to the saved step."""
         cfg = self.cfg
+        for loader in loaders:
+            self.ctx.check_loader(loader)
         steps_per_epoch = sum(len(l) for l in loaders)
         (state, generator, saver, step, start_epoch, skip_batches,
          save_state) = self._start(steps_per_epoch, train_steps)
@@ -213,14 +219,14 @@ class TwoDataTrainer(PointwiseTrainer):
                     step += 1
                     if step % cfg.report_steps == 0:
                         loss_v = check_finite(
-                            float(loss), step,
+                            float(self.ctx.mean(loss)), step,
                             checkpoint_hint=cfg.output_model_path)
                         self.logger.info(
                             f"epoch {epoch} step {step} loss {loss_v:.6f}")
                         self.metrics.log(step, loss=loss_v)
                     save_state(step)
             metric = float(np.mean([
-                evaluate_ndcg(model, ev, put=self.ctx.put)[NDCG_FULL]
+                evaluate_ndcg(model, ev, put=self.ctx.put_eval)[NDCG_FULL]
                 for ev in eval_loaders]))
             self.logger.info(f"epoch {epoch} mean NDCG@full {metric:.4f}")
             self.metrics.log(step, ndcg_full=metric)
@@ -241,7 +247,12 @@ def project_tsv(cfg: Config, state_dict: dict, input_path: str,
     computed by the same kernels."""
     import os
 
-    dev = check_single_device(cfg, device)
+    check_unported(cfg)
+    if cfg.mesh.dp > 1 or cfg.mesh.tp > 1:
+        raise NotImplementedError(
+            "project_tsv runs on one device; exporting at dp/tp is not "
+            "ported yet (ROADMAP.md, A: multi-GPU)")
+    dev = require_cuda() if device is None else torch.device(device)
     model = TwoDataScoreModel(cfg.model, device=dev)
     model.load_state_dict(state_dict, strict=True)
     rows = np.loadtxt(input_path, delimiter="\t", dtype=np.float32, ndmin=2)

@@ -1,4 +1,5 @@
-"""Stage 3 — the LR2PPO actor-critic trainer on one GPU, both families
+"""Stage 3 — the LR2PPO actor-critic trainer, both families, on one GPU or
+one rank per GPU under --dp/--tp
 (counterpart of lr2ppo_tpu/train/ppo.py; reference finetune/ppo.py and
 finetune/ppo_trad.py, whose batches carry no images).
 
@@ -45,20 +46,21 @@ from lr2ppo_torch.ops.losses import (categorical_entropy, categorical_kl,
                                      gae_advantages, pl_log_prob,
                                      rank_hinge_loss)
 from lr2ppo_torch.train import checkpoints
-from lr2ppo_torch.train.common import (BestSaver, DeviceCtx, TrainState,
-                                       apply_updates, check_single_device,
-                                       init_state, peek_batch,
-                                       restore_train_state, save_train_state)
+from lr2ppo_torch.train.common import (BestSaver, TrainState, apply_updates,
+                                       device_ctx, init_state, logged_path,
+                                       peek_batch, restore_train_state,
+                                       save_train_state)
 from lr2ppo_torch.train.evaluate import evaluate_ndcg, format_ndcg
-from lr2ppo_torch.train.optim import build_optimizer
 from lr2ppo_torch.utils import MetricLogger, check_finite, init_logger
 
-def frozen_copy(cls, mcfg, state: dict, dtype, int8: bool):
-    """A frozen inference model of `cls` holding `state` (on the state's
-    device): quantized to int8 once (int8 weights with float32 scales,
-    every other float at `dtype`), or every float cast to `dtype`. The
-    module is built without storage and takes copies of the tensors: the
-    source may be a model that goes on training."""
+def frozen_copy(cls, mcfg, state: dict, dtype, int8: bool, ctx=None):
+    """A frozen inference model of `cls` holding the full-width `state` (on
+    the state's device): quantized to int8 once (int8 weights with float32
+    scales, every other float at `dtype`), or every float cast to `dtype`.
+    The module is built without storage and takes copies of the tensors:
+    the source may be a model that goes on training. With `ctx` it is then
+    split over tp (never stored sharded over dp): the kernels are quantized
+    from the full weights before they are sliced."""
     state = {k: v.detach().clone() for k, v in state.items()}
     if int8:
         state = quantize_state_dict(state, dtype)
@@ -67,6 +69,8 @@ def frozen_copy(cls, mcfg, state: dict, dtype, int8: bool):
                  for k, v in state.items()}
     model = cls(dataclasses.replace(mcfg, int8=int8), dtype, device="meta")
     model.load_state_dict(state, strict=True, assign=True)
+    if ctx is not None:
+        ctx.place(model, fsdp=False)
     return model.eval().requires_grad_(False)
 
 
@@ -148,27 +152,32 @@ def make_update_step(cfg: Config):
 
 
 class PPOTrainer:
-    """The stage-3 trainer on one device: `device` defaults to the GPU
-    (raising where there is none); the CPU tests pass "cpu"."""
+    """The stage-3 trainer on this rank's device (train/common.py:
+    device_ctx): `device` defaults to the GPU (raising where there is
+    none); the CPU tests pass "cpu". Under dp each rank rolls out and
+    updates on its slice of every batch; the frozen reward model and the
+    int8 rollout twins are split over tp like the live models, and are not
+    wrapped for gradients."""
 
     def __init__(self, cfg: Config, device=None):
-        self.device = check_single_device(cfg, device)
+        self.ctx = device_ctx(cfg, device, cfg.mesh.compute_dtype)
+        self.device = self.ctx.device
         self.dtype = compute_dtype(cfg.mesh.compute_dtype)
         self.cfg = cfg
-        self.logger = init_logger(cfg.log_path)
-        self.metrics = MetricLogger(
-            cfg.log_path + ".jsonl" if cfg.log_path else None)
+        self.logger = init_logger(cfg.log_path, main=self.ctx.is_main)
+        self.metrics = MetricLogger(logged_path(
+            self.ctx, cfg.log_path + ".jsonl" if cfg.log_path else None))
         # ppo.rollout_int8: '1' = int8 twins of actor and critic for the
         # rollout, 'actor' = the actor's only, '0' = none
         self.ri8 = rollout_int8_mode(cfg.ppo.rollout_int8)
-        self.ctx = DeviceCtx(self.device, cast_dtype=cfg.mesh.compute_dtype)
 
     # -- parameter loading (key contract: ppo.py:769-771) ---------------
     def init_params(self, seed: int):
         """(actor, critic, reward) modules on the device: the actor from
         pretrained_model_path or seeded init; critic and reward from
-        reward_model_path or seeded init. The reward model is frozen and
-        stored at the compute dtype, int8 under ppo.reward_int8."""
+        reward_model_path or seeded init, all at full width, then placed
+        on the mesh. The reward model is frozen and stored at the compute
+        dtype, int8 under ppo.reward_int8."""
         cfg, dev = self.cfg, self.device
         gen = torch.Generator(device=dev).manual_seed(seed)
         actor = ScoreModel(cfg.model, self.dtype, device=dev)
@@ -189,8 +198,8 @@ class PPOTrainer:
             init_weights(reward_model, gen)
             reward_state = reward_model.state_dict()
         reward = frozen_copy(SeqScoreModel, cfg.model, reward_state,
-                             self.dtype, cfg.ppo.reward_int8)
-        return actor, critic, reward
+                             self.dtype, cfg.ppo.reward_int8, self.ctx)
+        return self.ctx.place(actor), self.ctx.place(critic), reward
 
     def fit(self, make_train_loader, eval_loader,
             train_steps: Optional[int] = None):
@@ -216,6 +225,7 @@ class PPOTrainer:
                 f"sweep window that cuts a trajectory mid-way would "
                 f"bootstrap GAE with V=0 inside the trajectory")
         loader0 = make_train_loader(1)
+        self.ctx.check_loader(loader0)
         steps_per_epoch = len(loader0)
         total = train_steps or int(steps_per_epoch * cfg.epochs_num) + 1
         self._check_geometry(peek_batch(loader0))
@@ -224,10 +234,9 @@ class PPOTrainer:
 
         # schedulers tick once per sweep (ppo.py:612-613)
         def mk(model, base_lr):
-            return build_optimizer(cfg.optim, dict(model.named_parameters()),
-                                   total, lr=base_lr,
-                                   schedule_wrap=lambda s: (
-                                       lambda t: s(t // upd)))
+            return self.ctx.optimizer(cfg.optim, model, total, lr=base_lr,
+                                      schedule_wrap=lambda s: (
+                                          lambda t: s(t // upd)))
         astate = init_state(actor, mk(actor, cfg.optim.learning_rate))
         cstate = init_state(critic, mk(critic,
                                        cfg.optim.critic_learning_rate))
@@ -243,13 +252,14 @@ class PPOTrainer:
             if self.ri8 == "0":
                 return actor, critic
             if not twins:
+                full = self.ctx.full_state_dict
                 twins["actor"] = frozen_copy(ScoreModel, cfg.model,
-                                             actor.state_dict(), self.dtype,
-                                             True)
+                                             full(actor), self.dtype, True,
+                                             self.ctx)
                 if self.ri8 == "1":
                     twins["critic"] = frozen_copy(
-                        SeqScoreModel, cfg.model, critic.state_dict(),
-                        self.dtype, True)
+                        SeqScoreModel, cfg.model, full(critic), self.dtype,
+                        True, self.ctx)
             return twins["actor"], twins.get("critic", critic)
 
         generator = torch.Generator().manual_seed(cfg.seed + 2)
@@ -257,8 +267,8 @@ class PPOTrainer:
         start_epoch, skip_batches, resume_best = 1, 0, -np.inf
         if cfg.resume_path:
             payload = checkpoints.load_state(cfg.resume_path)
-            restore_train_state(astate, payload, "actor")
-            restore_train_state(cstate, payload, "critic")
+            restore_train_state(astate, payload, "actor", self.ctx)
+            restore_train_state(cstate, payload, "critic", self.ctx)
             generator.set_state(payload["generator"])
             step, time_ctr = int(payload["step"]), int(payload["time_ctr"])
             resume_best = float(payload["best"])
@@ -269,13 +279,13 @@ class PPOTrainer:
             self.logger.info(
                 f"resumed PPO from {cfg.resume_path} @ sweep {step} "
                 f"(epoch {start_epoch}, skipping {skip_batches} batches)")
-        saver = BestSaver(cfg.output_model_path, self.logger)
+        saver = BestSaver(cfg.output_model_path, self.logger, self.ctx)
         saver.best = max(saver.best, resume_best)
 
         def save_state():
             save_train_state(cfg.output_model_path + ".state",
                              {"actor": astate, "critic": cstate}, generator,
-                             step, saver.best, time_ctr=time_ctr)
+                             step, saver.best, self.ctx, time_ctr=time_ctr)
 
         memories: List[dict] = []
         pending_save = False
@@ -377,7 +387,7 @@ class PPOTrainer:
 
     def _evaluate(self, step, actor, critic, eval_loader, saver, agg,
                   label):
-        result = evaluate_ndcg(actor, eval_loader, put=self.ctx.put)
+        result = evaluate_ndcg(actor, eval_loader, put=self.ctx.put_eval)
         self.logger.info(f"{label} NDCG:" + format_ndcg(result))
         self.metrics.log(step, ndcg_full=result[100000000], **agg)
         return saver.maybe_save(result[100000000], {"actor": actor,
@@ -472,5 +482,7 @@ class PPOTrainer:
         if agg is None:
             return {}
         n = len(memories)
-        host = torch.stack(list(agg.values())).cpu().tolist()
+        # the means over the global batch: each rank's over its equal shard,
+        # averaged over dp
+        host = self.ctx.mean(torch.stack(list(agg.values()))).cpu().tolist()
         return {k: v / n for k, v in zip(agg, host)}

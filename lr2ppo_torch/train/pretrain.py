@@ -1,4 +1,4 @@
-"""Tower pretraining on one device (counterpart of
+"""Tower pretraining on one GPU or one rank per GPU (counterpart of
 lr2ppo_tpu/train/pretrain.py: make_pretrain_step_form in its 'simple' form
 and PretrainTrainer).
 
@@ -18,9 +18,13 @@ accuracy saves the model to `<output_model_path>-best`; every
 `output_model_path`. The model checkpoints are reference-keyed `.bin` files
 (embedding, encoder and target keys).
 
-Only the 'simple' batch form (mlm, lm, cls) is ported. Multi-GPU data and
-tensor parallelism, pipeline stages, sequence parallelism, ZeRO-1 and FSDP
-raise (ROADMAP.md, queue A2).
+Only the 'simple' batch form (mlm, lm, cls) is ported. Under --dp/--tp
+(train/common.py:device_ctx) each rank takes its slice of every micro-batch
+(the loader shards per accumulation chunk), the masked means divide by the
+global counts (towers/targets.py) and the vocabulary heads are split over
+tp; --zero1 and --fsdp shard the optimizer and the parameters over dp.
+Pipeline stages (--pp) and sequence parallelism (--sp) raise (ROADMAP.md,
+A: multi-GPU).
 """
 
 from __future__ import annotations
@@ -34,23 +38,23 @@ import torch
 
 from lr2ppo_torch.config import Config
 from lr2ppo_torch.device import compute_dtype
+from lr2ppo_torch.parallel.mesh import active
 from lr2ppo_torch.towers.model import TowerConfig, TowerModel, init_weights
 from lr2ppo_torch.towers.torch_import import load_tower_checkpoint
 from lr2ppo_torch.train import checkpoints
-from lr2ppo_torch.train.common import (BestSaver, DeviceCtx, TrainState,
-                                       apply_updates, check_single_device,
-                                       init_state, peek_batch,
-                                       resume_fit_state, save_train_state)
-from lr2ppo_torch.train.optim import build_optimizer
+from lr2ppo_torch.train.common import (BestSaver, TrainState, apply_updates,
+                                       device_ctx, init_state, logged_path,
+                                       peek_batch, resume_fit_state,
+                                       save_train_state)
 from lr2ppo_torch.utils import MetricLogger, check_finite, init_logger
 
-MULTI_GPU = "not ported yet (ROADMAP.md, queue A2: multi-GPU)"
+MULTI_GPU = "not ported yet (ROADMAP.md, A: multi-GPU)"
 
 
 def norm_target_out(out, rows: int):
     """(loss, correct, denom) from a target's output: mlm, lm and bilm give
-    that triple, cls and sp (loss, correct) over `rows`, several targets
-    {kind: tuple}, summed."""
+    that triple, cls and sp (loss, correct) over `rows` (the global batch's
+    rows), several targets {kind: tuple}, summed."""
     if isinstance(out, dict):
         parts = [norm_target_out(v, rows) for v in out.values()]
         return (sum(p[0] for p in parts), sum(p[1] for p in parts),
@@ -74,7 +78,8 @@ def make_pretrain_step(accum: int = 1):
                   for k, v in batch.items()}
             out = model(mb["src"], mb["tgt"], mb["seg"], deterministic=False,
                         generator=generator)
-            loss, correct, denom = norm_target_out(out, mb["src"].shape[0])
+            loss, correct, denom = norm_target_out(
+                out, mb["src"].shape[0] * active().dp)
             loss.backward()
             lsum = lsum + loss.detach()
             csum = csum + correct.detach()
@@ -91,31 +96,25 @@ def make_pretrain_step(accum: int = 1):
 
 
 class PretrainTrainer:
-    """The tower pretrainer on one device: `device` defaults to the GPU
-    (raising where there is none); the CPU tests pass "cpu"."""
+    """The tower pretrainer on this rank's device (train/common.py:
+    device_ctx): `device` defaults to the GPU (raising where there is
+    none); the CPU tests pass "cpu"."""
 
     def __init__(self, cfg: Config, tower_cfg: TowerConfig,
                  accumulation_steps: int = 1, device=None):
-        mesh = cfg.mesh
-        for flag, on in (("--pp", mesh.pp > 1), ("--zero1", mesh.zero1),
-                         ("--fsdp", mesh.fsdp),
-                         ("--sp", tower_cfg.seq_parallel),
-                         ("--distributed", mesh.distributed)):
+        for flag, on in (("--pp", cfg.mesh.pp > 1),
+                         ("--sp", tower_cfg.seq_parallel)):
             if on:
                 raise NotImplementedError(f"{flag} is {MULTI_GPU}")
-        if mesh.dp > 1 or mesh.tp > 1:
-            raise NotImplementedError(
-                f"--dp {mesh.dp} --tp {mesh.tp}: the port pretrains on one "
-                f"GPU; data and tensor parallelism are {MULTI_GPU}")
-        self.device = check_single_device(cfg, device)
+        self.ctx = device_ctx(cfg, device)
+        self.device = self.ctx.device
         self.cfg, self.tower_cfg = cfg, tower_cfg
         self.accum = max(accumulation_steps, 1)
         dtype = compute_dtype(cfg.mesh.compute_dtype)
         self.dtype = None if dtype == torch.float32 else dtype
-        self.logger = init_logger(cfg.log_path)
-        self.metrics = MetricLogger(
-            cfg.log_path + ".jsonl" if cfg.log_path else None)
-        self.ctx = DeviceCtx(self.device)
+        self.logger = init_logger(cfg.log_path, main=self.ctx.is_main)
+        self.metrics = MetricLogger(logged_path(
+            self.ctx, cfg.log_path + ".jsonl" if cfg.log_path else None))
 
     def build_model(self) -> TowerModel:
         return TowerModel(self.tower_cfg, self.dtype, self.device,
@@ -124,7 +123,8 @@ class PretrainTrainer:
     def init_model(self) -> TowerModel:
         """The tower with its target, from pretrained_model_path (a
         reference `.bin`, the port's checkpoint or a JAX package pickle;
-        strict) or from seeded weights."""
+        strict) or from seeded weights, at full width, then placed on the
+        mesh."""
         model = self.build_model()
         path = self.cfg.pretrained_model_path
         if path:
@@ -134,12 +134,13 @@ class PretrainTrainer:
         else:
             init_weights(model, torch.Generator(
                 device=self.device).manual_seed(self.cfg.seed))
-        return model
+        return self.ctx.place(model)
 
     def fit(self, train_loader, total_steps: Optional[int] = None,
             save_checkpoint_steps: int = 0):
         """Returns (train state, best accuracy)."""
         cfg = self.cfg
+        self.ctx.check_loader(train_loader)
         steps_per_epoch = len(train_loader)
         total = total_steps or steps_per_epoch * cfg.epochs_num
         # an explicit total_steps is the budget: cycle epochs to reach it
@@ -152,17 +153,19 @@ class PretrainTrainer:
         if rows % self.accum:
             raise ValueError(f"batch_size {rows} must be divisible by "
                              f"accumulation_steps {self.accum}")
-        model = self.build_model() if cfg.resume_path else self.init_model()
-        state = init_state(model, build_optimizer(
-            cfg.optim, dict(model.named_parameters()), total))
+        model = (self.ctx.place(self.build_model()) if cfg.resume_path
+                 else self.init_model())
+        state = init_state(model, self.ctx.optimizer(cfg.optim, model, total))
         generator = torch.Generator().manual_seed(cfg.seed + 1)
         step, start_epoch, skip_batches, resume_best = 0, 1, 0, -np.inf
         if cfg.resume_path:
             step, start_epoch, skip_batches, resume_best = resume_fit_state(
-                cfg, state, generator, steps_per_epoch, self.logger)
+                cfg, state, generator, steps_per_epoch, self.logger,
+                self.ctx)
         step_fn = make_pretrain_step(self.accum)
         saver = BestSaver(cfg.output_model_path + "-best"
-                          if cfg.output_model_path else "", self.logger)
+                          if cfg.output_model_path else "", self.logger,
+                          self.ctx)
         saver.best = max(saver.best, resume_best)
         tokens_since, t_last = 0, time.perf_counter()
         for epoch in range(start_epoch, epochs + 1):
@@ -177,10 +180,15 @@ class PretrainTrainer:
                                           if not k.startswith("_")})
                 m = step_fn(state, generator, dev_batch)
                 step += 1
-                tokens_since += int(np.prod(batch["src"].shape[:2]))
+                # the global batch's tokens
+                tokens_since += (int(np.prod(batch["src"].shape[:2]))
+                                 * self.ctx.mesh.dp)
                 if step % cfg.report_steps == 0:
+                    # a masked mean is global already; a cls or sp mean
+                    # is this rank's, and equal shards average to the
+                    # global one
                     loss = check_finite(
-                        float(m["loss"]), step,
+                        float(self.ctx.mean(m["loss"])), step,
                         checkpoint_hint=(cfg.output_model_path + "-best"
                                          if cfg.output_model_path else None))
                     acc = float(m["acc"])
@@ -194,9 +202,11 @@ class PretrainTrainer:
                 if save_checkpoint_steps and step % save_checkpoint_steps == 0:
                     save_train_state(f"{cfg.output_model_path}-{step}",
                                      {"model": state}, generator, step,
-                                     saver.best)
+                                     saver.best, self.ctx)
                 if step >= total:
                     break
         if cfg.output_model_path:
-            checkpoints.save_model(cfg.output_model_path, model)
+            full = self.ctx.full_state_dict(model)
+            if self.ctx.is_main:
+                checkpoints.save_model(cfg.output_model_path, full)
         return state, saver.best

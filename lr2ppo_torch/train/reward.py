@@ -1,4 +1,5 @@
-"""Stage 2 — the pairwise reward trainer on one GPU, both families
+"""Stage 2 — the pairwise reward trainer, both families, on one GPU or one
+rank per GPU under --dp/--tp
 (counterpart of lr2ppo_tpu/train/reward.py; reference
 finetune/reward_pair_dataloader.py and finetune/reward_trad.py).
 
@@ -28,11 +29,10 @@ from lr2ppo_torch.models.layers import init_weights
 from lr2ppo_torch.models.scorer import SeqScoreModel
 from lr2ppo_torch.ops.losses import reward_pair_hinge_loss
 from lr2ppo_torch.train import checkpoints
-from lr2ppo_torch.train.common import (BestSaver, DeviceCtx, TrainState,
-                                       apply_updates, check_single_device,
-                                       init_state, resume_fit_state,
-                                       save_train_state)
-from lr2ppo_torch.train.optim import build_optimizer
+from lr2ppo_torch.parallel.mesh import active, fetch_global
+from lr2ppo_torch.train.common import (BestSaver, TrainState, apply_updates,
+                                       device_ctx, init_state, logged_path,
+                                       resume_fit_state, save_train_state)
 from lr2ppo_torch.utils import MetricLogger, check_finite, init_logger
 
 # the reference's hinge margin of each family: reward_pair_dataloader.py:
@@ -60,38 +60,41 @@ def make_train_step(margin: float):
 def evaluate_pairwise(model, eval_loader, put) -> float:
     """The share of eval pairs the model orders right, s_chosen > s_rejected.
     Wrap-padded rows of the last batch (`_valid` False) are not counted
-    twice."""
+    twice. Under dp `put` (DeviceCtx.put_eval) gives each rank its slice of
+    the batch and the hits are all-gathered."""
     correct, total = 0.0, 0
+    mesh = active()
     for batch in eval_loader:
-        valid = np.asarray(batch.get(
-            "_valid", np.ones(batch["tgts"].shape[0], bool)))
+        n = batch["tgts"].shape[0]
+        valid = np.asarray(batch.get("_valid", np.ones(n, bool)))
         b = put({k: batch[k] for k in ("text", "img", "chosen_index",
                                        "reject_index") if k in batch})
         cs = model(b["text"], b.get("img"), b["chosen_index"])
         rs = model(b["text"], b.get("img"), b["reject_index"])
-        hits = (cs > rs).cpu().numpy()[valid]
+        hits = fetch_global(cs > rs, mesh)[:n][valid]
         correct += float(hits.sum())
         total += hits.size
     return correct / max(total, 1)
 
 
 class RewardTrainer:
-    """The stage-2 trainer on one device: `device` defaults to the GPU
-    (raising where there is none); the CPU tests pass "cpu"."""
+    """The stage-2 trainer on this rank's device (train/common.py:
+    device_ctx): `device` defaults to the GPU (raising where there is
+    none); the CPU tests pass "cpu"."""
 
     def __init__(self, cfg: Config, device=None):
-        self.device = check_single_device(cfg, device)
+        self.ctx = device_ctx(cfg, device, cfg.mesh.compute_dtype)
+        self.device = self.ctx.device
         self.cfg = cfg
         self.dtype = compute_dtype(cfg.mesh.compute_dtype)
-        self.logger = init_logger(cfg.log_path)
-        self.metrics = MetricLogger(
-            cfg.log_path + ".jsonl" if cfg.log_path else None)
-        self.ctx = DeviceCtx(self.device, cast_dtype=cfg.mesh.compute_dtype)
+        self.logger = init_logger(cfg.log_path, main=self.ctx.is_main)
+        self.metrics = MetricLogger(logged_path(
+            self.ctx, cfg.log_path + ".jsonl" if cfg.log_path else None))
         self.margin = MARGINS[cfg.model.family]
 
     def init_model(self, seed: int) -> SeqScoreModel:
         """The reward model from pretrained_model_path (strict) or seeded
-        init."""
+        init, at full width, then placed on the mesh."""
         cfg = self.cfg
         model = SeqScoreModel(cfg.model, self.dtype, device=self.device)
         if cfg.pretrained_model_path:
@@ -101,25 +104,27 @@ class RewardTrainer:
         else:
             init_weights(model,
                          torch.Generator(device=self.device).manual_seed(seed))
-        return model
+        return self.ctx.place(model)
 
     def fit(self, train_loader, eval_loader,
             train_steps: Optional[int] = None):
         """Returns (train state, best eval accuracy)."""
         cfg = self.cfg
+        self.ctx.check_loader(train_loader)
         steps_per_epoch = len(train_loader)
         total = train_steps or int(steps_per_epoch * cfg.epochs_num) + 1
-        model = (SeqScoreModel(cfg.model, self.dtype, device=self.device)
+        model = (self.ctx.place(SeqScoreModel(cfg.model, self.dtype,
+                                              device=self.device))
                  if cfg.resume_path else self.init_model(cfg.seed))
-        state = init_state(model, build_optimizer(
-            cfg.optim, dict(model.named_parameters()), total))
+        state = init_state(model, self.ctx.optimizer(cfg.optim, model, total))
         generator = torch.Generator().manual_seed(cfg.seed + 1)
         step, start_epoch, skip_batches, resume_best = 0, 1, 0, -np.inf
         if cfg.resume_path:
             step, start_epoch, skip_batches, resume_best = resume_fit_state(
-                cfg, state, generator, steps_per_epoch, self.logger)
+                cfg, state, generator, steps_per_epoch, self.logger,
+                self.ctx)
         train_step = make_train_step(self.margin)
-        saver = BestSaver(cfg.output_model_path, self.logger)
+        saver = BestSaver(cfg.output_model_path, self.logger, self.ctx)
         saver.best = max(saver.best, resume_best)
 
         def save_state(step):
@@ -127,7 +132,7 @@ class RewardTrainer:
             if cfg.save_state_steps and step % cfg.save_state_steps == 0:
                 save_train_state(cfg.output_model_path + ".state",
                                  {"model": state}, generator, step,
-                                 saver.best)
+                                 saver.best, self.ctx)
 
         last_eval_step = -1
         for epoch in range(start_epoch, cfg.epochs_num + 1):
@@ -143,12 +148,13 @@ class RewardTrainer:
                 step += 1
                 if step % cfg.report_steps == 0:
                     loss_v = check_finite(
-                        float(loss), step,
+                        float(self.ctx.mean(loss)), step,
                         checkpoint_hint=cfg.output_model_path)
+                    acc_v = float(self.ctx.mean(acc))
                     self.logger.info(f"epoch {epoch} step {step} loss "
-                                     f"{loss_v:.6f} acc {float(acc):.4f}")
+                                     f"{loss_v:.6f} acc {acc_v:.4f}")
                     val_acc = evaluate_pairwise(model, eval_loader,
-                                                self.ctx.put)
+                                                self.ctx.put_eval)
                     self.logger.info(f"val accuracy: {val_acc:.4f}")
                     self.metrics.log(step, loss=loss_v, acc=val_acc)
                     saver.maybe_save(val_acc, model)
@@ -156,7 +162,8 @@ class RewardTrainer:
                 save_state(step)
             # the epoch's last step may just have run the same eval
             if step != last_eval_step:
-                val_acc = evaluate_pairwise(model, eval_loader, self.ctx.put)
+                val_acc = evaluate_pairwise(model, eval_loader,
+                                            self.ctx.put_eval)
                 self.logger.info(f"epoch {epoch} val accuracy: {val_acc:.4f}")
                 saver.maybe_save(val_acc, model)
                 save_state(step)      # with the epoch-end eval's best

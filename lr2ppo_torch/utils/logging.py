@@ -1,6 +1,6 @@
 """Logging: console + optional file (reference utils/logging.py:4-19),
 plus a structured jsonl metric stream (counterpart of
-lr2ppo_tpu/utils/logging.py, for one process)."""
+lr2ppo_tpu/utils/logging.py); under a mesh rank 0 writes both."""
 
 from __future__ import annotations
 
@@ -13,9 +13,14 @@ from typing import Optional
 
 
 def init_logger(log_path: Optional[str] = None,
-                name: str = "lr2ppo_torch") -> logging.Logger:
+                name: str = "lr2ppo_torch",
+                main: bool = True) -> logging.Logger:
+    """Under a mesh only rank 0 (`main`) logs below WARNING and writes the
+    log file."""
     logger = logging.getLogger(name)
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if main else logging.WARNING)
+    if not main:
+        log_path = None
     logger.handlers.clear()
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s",
                             "%Y-%m-%d %H:%M:%S")

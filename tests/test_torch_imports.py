@@ -63,7 +63,10 @@ def test_port_never_imports_jax():
             "lr2ppo_torch.data.pretrain_data",
             "lr2ppo_torch.ops.fast_dropout", "lr2ppo_torch.towers.targets",
             "lr2ppo_torch.train.pretrain",
-            "lr2ppo_torch.utils.remat"} <= set(res["modules"])
+            "lr2ppo_torch.utils.remat", "lr2ppo_torch.parallel",
+            "lr2ppo_torch.parallel.mesh", "lr2ppo_torch.parallel.tp",
+            "lr2ppo_torch.parallel.fsdp",
+            "lr2ppo_torch.parallel.dryrun"} <= set(res["modules"])
     assert res["loaded"] == [], f"the port imported {res['loaded']}"
     assert res["lazy"] == [], f"imported at import time: {res['lazy']}"
 

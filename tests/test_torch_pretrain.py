@@ -29,6 +29,19 @@ from lr2ppo_torch.train.checkpoints import save_model
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _restore_special_ids():
+    """The JAX CLI sets the processors' module-wide special ids from its
+    tokenizer (lr2ppo_tpu/cli/pretrain.py); restore them after each test,
+    so a later test in the same worker frames its instances with the
+    defaults."""
+    from lr2ppo_tpu.data import pretrain_processors as pp
+
+    old = (pp.CLS, pp.PAD, pp.SEP)
+    yield
+    pp.set_special_ids(*old)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOKENS = ["<pad>", "<unk>", "<s>", "</s>", "<mask>"] + list("abcdefgh")
 TOWER = {"emb_size": 16, "hidden_size": 16, "feedforward_size": 32,
@@ -160,20 +173,39 @@ def test_adafactor_and_remat_pretrain(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--dp", "2"], "ROADMAP"), (["--tp", "2"], "ROADMAP"),
-    (["--pp", "2"], "ROADMAP"), (["--zero1"], "ROADMAP"),
-    (["--fsdp"], "ROADMAP"), (["--distributed"], "ROADMAP"),
+    (["--pp", "2"], "ROADMAP"), (["--sp", "--tp", "2"], "ROADMAP"),
     (["--data_processor", "vit"], "ROADMAP"),
     (["--data_processor", "t5"], "ROADMAP"),
     (["--jax_platform", "cpu"], "--device"),
-], ids=["dp", "tp", "pp", "zero1", "fsdp", "distributed", "vit", "t5",
-        "jax_platform"])
+], ids=["pp", "sp", "vit", "t5", "jax_platform"])
 def test_what_is_not_ported_raises(tmp_path, extra, match):
     files = _files(tmp_path)
     with pytest.raises((NotImplementedError, SystemExit), match=match):
         tcli.main(_argv(files, str(tmp_path / "x"), *extra), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         str2tokenizer["image"]()
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--dp", "2"], "needs 2 devices, have 1"),
+    (["--tp", "2"], "needs 2 devices, have 1"),
+    (["--zero1"], None), (["--fsdp"], None),
+    (["--distributed"], "--num_processes"),
+], ids=["dp", "tp", "zero1", "fsdp", "distributed"])
+def test_mesh_flags_take_the_jax_meaning(tmp_path, extra, match):
+    """In one process: a mesh larger than the world raises, as the JAX
+    make_mesh asserts; zero1 and fsdp do nothing at dp 1; --distributed
+    without a rank and a world raises. Multi-process runs are in
+    tests/test_torch_parallel*.py."""
+    files = _files(tmp_path)
+    argv = _argv(files, str(tmp_path / "x"), "--total_steps", "1", *extra)
+    if match is None:
+        tcli.main(argv, device="cpu")
+        assert np.isfinite([r["loss"] for r in
+                            _records(str(tmp_path / "x"))]).all()
+        return
+    with pytest.raises(ValueError, match=match):
+        tcli.main(argv, device="cpu")
 
 
 def test_no_gpu_raises_rather_than_running_on_the_cpu(tmp_path):
