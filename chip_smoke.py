@@ -112,7 +112,29 @@ Phases, each of which raises on failure (exit code other than 0):
      update's CUDA-event times, the collectives' time in a traced update
      and the peak memory. `--parallel_only` runs the build and (a) alone,
      adding on two or more cards dp with zero1 over NCCL (bit-equal to
-     plain dp), and on four dp x tp 2.
+     plain dp), and on four dp x tp 2;
+ 16. pipeline stages, sequence parallelism, Adafactor under tp and serving
+     on a mesh: hash dropout at the sp place ((32, 64, 768) of (32, 128,
+     768), float32, the second tp rank's tokens) against its plain version
+     forward and backward; XLM-R base MLM through cli.pretrain (phase 14's
+     width, corpus and batch, P16_STEPS steps) in this process at dropout
+     0 and, under Adafactor, at dropout 0.1 with hash dropout, as the
+     references; then legs of two gloo ranks sharing card 0, each in
+     processes of its own: pp 2 (M = 4) at dropout 0 against the reference
+     (losses within P16_LOSS_RTOL, parameters within P16_PARAM_GAP, the
+     unpacked -best loaded strict), tp 2 with and without --sp at dropout
+     0.1 (bit equality reported, the gap held), pp 2 at dropout 0.1 (hash
+     dropout's launches on each stage as its layers give them, every
+     stage's tensors moved), tp 2 with --sp under Adafactor against its
+     reference; per rank one more step's CUDA-event time, its P2P bytes
+     and seconds (pp), the tp collectives' seconds (a step with each
+     collective timed alone) and the peak memory; then the int8 service of
+     phase 4's weights (P16_SERVE_BATCHES batches) in this process and at
+     dp 2 (the same orders, K1 on each rank) and tp 2 (no K1), scores
+     within phase 4's gate. `--parallel_only` runs, after phase 15's, pp 4,
+     pp 2 x tp 2, pp 2 x dp 2 and fsdp at dp 4 over NCCL against the
+     reference, tp 2 with and without --sp over NCCL, and the service at
+     dp 4.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -2498,8 +2520,7 @@ def dist_backend() -> str:
     return dist.get_backend() if dist.is_initialized() else ""
 
 
-def p15_rank(rank, world, url, backend, dp, tp, zero1, batch, seed,
-             ref_path, queue) -> None:
+def p15_rank(rank, world, url, backend, job, queue) -> None:
     """One rank of a phase-15 leg, in its own process: NCCL ranks each on
     their card, gloo ranks sharing card 0, and the reference ("none") in
     one process without torch.distributed. Every leg runs with the same
@@ -2510,6 +2531,7 @@ def p15_rank(rank, world, url, backend, dp, tp, zero1, batch, seed,
 
     import torch.distributed as dist
 
+    dp, tp, zero1, batch, seed, ref_path = job
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     try:
         torch.use_deterministic_algorithms(True, warn_only=True)
@@ -2543,20 +2565,29 @@ def free_port() -> int:
 def p15_leg(world: int, backend: str, dp: int, tp: int, zero1: bool,
             batch: int, seed: int, ref_path: str,
             timeout: float = 600.0) -> list:
-    """Spawn the ranks of one leg and collect their results; every process
-    is joined, or killed at the time limit. The reference leg (backend
-    "none") writes its trained parameters to `ref_path`, which the other
-    legs read."""
+    """Spawn the ranks of one leg (spawn_leg) and collect their results.
+    The reference leg (backend "none") writes its trained parameters to
+    `ref_path`, which the other legs read."""
+    return spawn_leg(f"phase 15 leg {backend} dp {dp} tp {tp}", world,
+                     backend, (dp, tp, zero1, batch, seed, ref_path),
+                     p15_rank, timeout)
+
+
+def spawn_leg(name: str, world: int, backend: str, job, target,
+              timeout: float = 600.0) -> list:
+    """target(rank, world, url, backend, job, queue) in `world` spawned
+    processes; returns their results in rank order. Every process is
+    joined, or killed at the time limit; a rank that dies without a result
+    or raises fails the leg."""
     import multiprocessing as mp
     import queue as queue_mod
 
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     url = f"tcp://localhost:{free_port()}"
-    procs = [ctx.Process(target=p15_rank, args=(
-        r, world, url, backend, dp, tp, zero1, batch, seed, ref_path,
-        queue))
-        for r in range(world)]
+    procs = [ctx.Process(target=target,
+                         args=(r, world, url, backend, job, queue))
+             for r in range(world)]
     for p in procs:
         p.start()
     got = {}
@@ -2571,9 +2602,8 @@ def p15_leg(world: int, backend: str, dp: int, tp: int, zero1: bool,
                         if r not in got and p.exitcode is not None]
                 if dead or time.time() > deadline:
                     raise RuntimeError(
-                        f"phase 15 leg {backend} dp {dp} tp {tp}: ranks "
-                        f"{dead} exited without a result, or the leg "
-                        f"outlived {timeout} s")
+                        f"{name}: ranks {dead} exited without a result, or "
+                        f"the leg outlived {timeout} s")
                 continue
             got[rank] = res
     finally:
@@ -2584,8 +2614,7 @@ def p15_leg(world: int, backend: str, dp: int, tp: int, zero1: bool,
                 p.join()
     errors = {r: v["error"] for r, v in got.items() if "error" in v}
     if errors:
-        raise RuntimeError(f"phase 15 leg {backend} dp {dp} tp {tp}: "
-                           f"{errors}")
+        raise RuntimeError(f"{name}: {errors}")
     return [got[r] for r in range(world)]
 
 
@@ -2713,13 +2742,482 @@ def parallel_path(args, dev, card_line: str, shared: bool = True) -> dict:
                                   for r in ranks)}
 
 
+# -- phase 16: pipeline stages, sequence parallelism, Adafactor under tp,
+# serving on a mesh ---------------------------------------------------------
+P16_STEPS = 2                          # optimizer steps of every leg
+P16_MICRO = 4                          # --pp_microbatches
+P16_SERVE_BATCHES = 2
+# the hash dropout site at the sp place: (B, S/2, 768) of XLM-R base's
+# residual stream at batch 32 x 128, the second tp rank's tokens
+P16_SP_SHAPE = (PRE_BS, PRE_SEQ // 2, 768)
+P16_SP_PLACE = (0, PRE_SEQ // 2 * 768, PRE_SEQ * 768, PRE_SEQ // 2 * 768)
+# a leg against its one-process run from the same weights: the largest,
+# over the held leaves, of ||p - p_ref|| / ||p_ref - p_init|| (param_gap).
+# Sound legs read 3.1e-5 (pp 2), 7.3e-5 (tp 2 + sp under Adafactor) and 0
+# (sp against tp); planted faults 0.372 (pp 2 with one microbatch's
+# gradient sent back as zeros) and 0.443 (sp with the norms' and biases'
+# gradients summed over the rank's own tokens only); PERF.md section 6
+P16_PARAM_GAP = 0.01
+# the losses of a leg against its one-process run, relative
+P16_LOSS_RTOL = 1e-3
+# leaves whose gradient is 0 but for rounding (a softmax ignores a shift
+# shared by every key): read, not held
+P16_SHIFT_LEAVES = ("self_attn.linear_layers.1.bias",)
+
+
+def p16_files(tmp: str, seed: int) -> dict:
+    """Phase 14's vocabulary and corpus, and XLM-R base's config at dropout
+    0.1 and at dropout 0."""
+    paths = pretrain_corpus(tmp, seed)
+    paths["tower0"] = os.path.join(tmp, "xlmr_base_dropout0.json")
+    with open(paths["tower0"], "w") as f:
+        json.dump({**XLMR_BASE, "dropout": 0.0}, f)
+    return paths
+
+
+def p16_argv(paths: dict, out: str, dropout: bool, *extra) -> list:
+    argv = pretrain_argv(paths, out, P16_STEPS)
+    if not dropout:
+        argv[argv.index("--tower_config") + 1] = paths["tower0"]
+    return argv + ["--pp_microbatches", str(P16_MICRO), *extra]
+
+
+def p16_init(argv: list, dev) -> dict:
+    """The weights every run of `argv` starts from (PretrainTrainer.
+    init_model's seeded draw at full width on card 0)."""
+    args = pretrain.parser().parse_args(argv)
+    cfg = TowerConfig.from_json(args.tower_config, vocab_size=PRE_VOCAB,
+                                max_seq_length=max(args.seq_length, 514))
+    model = TowerModel(cfg, None, dev, with_target=True)
+    init_tower_weights(model, torch.Generator(device=dev).manual_seed(
+        args.seed))
+    return {k: v.detach() for k, v in model.state_dict().items()}
+
+
+def p16_records(path: str) -> list:
+    with open(path) as f:
+        return [{k: r[k] for k in ("loss", "acc")} for r in map(json.loads, f)]
+
+
+def p16_held_gap(full: dict, ref_path: str) -> dict:
+    """param_gap against the one-process run at `ref_path`, with the shift
+    leaves read but not held."""
+    res = param_gap(full, ref_path)
+    held = {k: v for k, v in res["param_gaps"].items()
+            if not k.endswith(P16_SHIFT_LEAVES)}
+    worst = max(held, key=held.get)
+    res.update(param_gap=held[worst], param_gap_leaf=worst,
+               param_gaps=dict(sorted(res["param_gaps"].items(),
+                                      key=lambda kv: -kv[1])[:5]))
+    return res
+
+
+class CollectiveClock:
+    """Host seconds in the tp collectives (parallel/tp.py), each started
+    after the queued work: installed in one rank for one timed step. A
+    collective made of another (gloo's reduce-scatter is an all-reduce)
+    counts once."""
+
+    NAMES = ("_all_reduce", "_gather_seq", "_reduce_scatter_seq")
+
+    def __init__(self):
+        from lr2ppo_torch.parallel import tp as tp_mod
+
+        self.mod, self.real = tp_mod, {}
+        self.seconds, self.calls, self.depth = 0.0, 0, 0
+
+    def _wrap(self, fn):
+        def timed_call(*a, **k):
+            if self.depth:
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.depth += 1
+            try:
+                out = fn(*a, **k)
+            finally:
+                self.depth -= 1
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        return timed_call
+
+    def __enter__(self):
+        for name in self.NAMES:
+            self.real[name] = getattr(self.mod, name)
+            setattr(self.mod, name, self._wrap(self.real[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.mod, name, fn)
+
+
+def p16_pretrain_run(argv: list, dev, adafactor: bool, ref_path: str,
+                     reference: bool = False) -> dict:
+    """One pretraining leg on this process's mesh: cli.pretrain's build and
+    fit (Adafactor where asked), hash dropout's launches over the fit, the
+    full-width trained weights' checksums, the share of each stage's tensors
+    that moved, and their gap to the run that wrote `ref_path` (with
+    `reference`: this run writes it); then one more step timed with CUDA
+    events (and its P2P bytes and seconds under pp) and one with the tp
+    collectives timed."""
+    trainer, loader = pretrain.build(pretrain.parser().parse_args(argv), dev)
+    if adafactor:
+        trainer.cfg.optim.optimizer = "adafactor"
+    m = trainer.ctx.mesh
+    hash_dropout.launches = hash_dropout.place_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, best = trainer.fit(loader, P16_STEPS)
+    torch.cuda.synchronize()
+    res = {"rank": m.rank, "dp": m.dp, "tp": m.tp, "pp": m.pp,
+           "stage": m.pp_rank, "fit_seconds": time.perf_counter() - t0,
+           "hash_dropout_launches": hash_dropout.launches,
+           "hash_dropout_place_launches": hash_dropout.place_launches,
+           "optimizer": type(getattr(state.opt, "inner", state.opt)).__name__,
+           "best_acc": float(best),
+           "fit_peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    out = trainer.cfg.output_model_path
+    full = trainer.ctx.full_state_dict(state.model)
+    if m.is_main:
+        from lr2ppo_torch.parallel.pipeline import stage_owns
+
+        res["records"] = p16_records(out + ".log.jsonl")
+        res["sums"] = {k: checksum(v) for k, v in full.items()}
+        start = p16_init(argv, dev)
+        if reference:
+            res.update(param_gap(full, ref_path, start))
+        else:
+            res.update(p16_held_gap(full, ref_path))
+            # the unpacked -best loads strict into a plain tower
+            TowerModel(trainer.tower_cfg, device="meta",
+                       with_target=True).load_state_dict(
+                load_tower_checkpoint(out + "-best"), strict=True,
+                assign=True)
+        res["moved_by_stage"] = {}
+        for s in range(m.pp):
+            keys = [k for k in full if stage_owns(
+                k, trainer.tower_cfg.layers_num, m.pp, s)]
+            res["moved_by_stage"][s] = sum(
+                not torch.equal(full[k], start[k]) for k in keys) / len(keys)
+        del start
+    del full
+    # one more step on a device-resident batch, then one with the tp
+    # collectives timed; every rank starts each together (rank 0 ran the
+    # checks above alone)
+    import torch.distributed as dist
+
+    sync = dist.barrier if dist.is_initialized() else (lambda: None)
+    batch = trainer.ctx.put({k: v for k, v in next(iter(loader)).items()
+                             if not k.startswith("_")})
+    gen = torch.Generator().manual_seed(1)
+    pipe = trainer.pipe
+    if pipe is not None:
+        pipe.p2p.bytes, pipe.p2p.seconds = 0, 0.0
+    sync()
+    res["step_ms"] = cuda_ms(lambda: trainer.step_fn(state, gen, batch),
+                             iters=1, warmup=0)
+    if pipe is not None:
+        res["p2p_bytes_a_step"] = pipe.p2p.bytes
+        res["p2p_host_seconds_a_step"] = pipe.p2p.seconds
+    if m.tp > 1:
+        sync()
+        with CollectiveClock() as clock:
+            trainer.step_fn(state, gen, batch)
+        res["tp_collective_seconds_a_step"] = clock.seconds
+        res["tp_collectives_a_step"] = clock.calls
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def p16_serve_run(dev, seed: int, path: str, cfg=None) -> dict:
+    """The int8 service of phase 4's weights (ScoreModel at flagship width,
+    seeded on card 0) on this process's mesh, P16_SERVE_BATCHES of phase
+    4's batches, through serve.serving_model and serve.serve_batches as
+    serve.main runs them; rank 0 writes `path`. Returns the K1 launches
+    and the batch seconds."""
+    from lr2ppo_torch.train.common import device_ctx
+
+    cfg = cfg or parse_config([], "phase 16")
+    cfg.mesh.compute_dtype = "bfloat16"
+    mcfg = cfg.model                     # ModelConfig(): the flagship
+    model = ScoreModel(mcfg, torch.bfloat16, device=dev)
+    init_weights(model, torch.Generator(device=dev).manual_seed(seed))
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    del model
+    ctx = device_ctx(cfg, dev)
+    model = serve.serving_model(cfg, state, True, ctx)
+    del state
+    batches, ds = synthetic_batches(P16_SERVE_BATCHES, mcfg, seed + 1)
+    put = ctx.put_eval if ctx.mesh.world > 1 else None
+    serve.serve_batches(model, batches[:1], ds, None, dev, put=put)
+    torch.cuda.synchronize()
+    int8_mlp.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    sink = open(path, "w") if ctx.is_main else None
+    try:
+        res = serve.serve_batches(model, batches, ds, sink, dev, put=put)
+    finally:
+        if sink is not None:
+            sink.close()
+    out = {"rank": ctx.mesh.rank, "dp": ctx.mesh.dp, "tp": ctx.mesh.tp,
+           "k1_launches": int8_mlp.launches, "items": res["items"],
+           "batch_ms": [1e3 * s for s in res["batch_seconds"]],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "fc2_local_in": ctx.named_parameters(model)[
+               "out_layer.fc2.weight"].shape[1]}
+    if ctx.is_main:
+        out["scores"] = {k: v.tolist() for k, v in
+                         read_rankings(path, ds).items()}
+        with open(path) as f:
+            out["orders"] = {ln["id"]: ln["pred_order"]
+                             for ln in map(json.loads, f)}
+    return out
+
+
+def p16_rank(rank, world, url, backend, job, queue) -> None:
+    """One rank of a phase-16 leg, in its own process: NCCL ranks each on
+    their card, gloo ranks sharing card 0. `job` is a pretraining leg
+    ({"kind": "pretrain", "argv", "adafactor", "ref_path", "reference"}) or
+    a serving leg ({"kind": "serve", "argv" (the mesh flags), "seed",
+    "path"})."""
+    import traceback
+
+    import torch.distributed as dist
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+        require_cuda()
+        dist.init_process_group(backend, init_method=url, rank=rank,
+                                world_size=world)
+        if job["kind"] == "serve":
+            res = p16_serve_run(dev, job["seed"], job["path"],
+                                parse_config(job["argv"], "phase 16"))
+        else:
+            res = p16_pretrain_run(job["argv"], dev, job["adafactor"],
+                                   job["ref_path"], job["reference"])
+        res["backend"] = backend
+        res["card"] = card()
+        queue.put((rank, res))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def p16_expected_launches(cfg, pp: int, stage: int) -> int:
+    """Hash dropout's launches on one rank over a fit: the embedding's site
+    (stage 0) once a micro-batch, each of the stage's layers' 3 sites once
+    a pipeline microbatch; forward and backward."""
+    per = (cfg.layers_num // pp) * 3 * (P16_MICRO if pp > 1 else 1)
+    if stage == 0:
+        per += 1
+    return per * 2 * PRE_ACCUM * P16_STEPS
+
+
+def p16_check(name: str, ranks: list, ref: dict, cfg, phase: str,
+              bit_equal: bool = False) -> None:
+    """Emit each rank of a pretraining leg and hold its rank 0 against the
+    run it is compared with: the losses within P16_LOSS_RTOL (equal where
+    `bit_equal` is asked, and then the trained bits are reported), the
+    trained parameters within P16_PARAM_GAP, every stage's tensors moved,
+    and hash dropout's launches on each rank the count its layers give."""
+    main = ranks[0]
+    losses, want = ([r["loss"] for r in main["records"]],
+                    [r["loss"] for r in ref["records"]])
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    dropout = any(r["hash_dropout_launches"] for r in ranks)
+    expected = [p16_expected_launches(cfg, r["pp"], r["stage"]) if dropout
+                else 0 for r in ranks]
+    same_bits = main["sums"] == ref["sums"]
+    for r, e in zip(ranks, expected):
+        emit(phase=phase, leg=name, losses=losses, reference_losses=want,
+             loss_gap=loss_gap, bit_equal=same_bits if bit_equal else None,
+             param_gap_limit=P16_PARAM_GAP,
+             hash_dropout_launches_expected=e,
+             **{k: v for k, v in r.items() if k not in ("sums", "records")})
+    ok = (len(losses) == P16_STEPS and np.isfinite(losses).all()
+          and loss_gap <= P16_LOSS_RTOL
+          and main["param_gap"] <= P16_PARAM_GAP
+          and all(v >= 0.9 for v in main["moved_by_stage"].values())
+          and [r["hash_dropout_launches"] for r in ranks] == expected)
+    if not ok:
+        raise AssertionError(
+            f"phase 16 leg {name}: losses {losses} against {want}, "
+            f"parameters {main['param_gap']} from the reference's (limit "
+            f"{P16_PARAM_GAP}, at {main['param_gap_leaf']}), moved "
+            f"{main['moved_by_stage']}, hash dropout launches "
+            f"{[r['hash_dropout_launches'] for r in ranks]} (want "
+            f"{expected})")
+
+
+def p16_serve_check(name: str, ranks: list, ref: dict, card_line: str,
+                    k1_each: int) -> None:
+    """A serving leg against the one-process service: the same orders at
+    dp, the scores within phase 4's gate (5% of their spread), K1's
+    launches on each rank."""
+    main = ranks[0]
+    spread = max(float(np.abs(v).max()) for v in ref["scores"].values())
+    err = max(float(np.abs(np.subtract(main["scores"][k], v)).max())
+              for k, v in ref["scores"].items())
+    same_orders = sum(main["orders"][k] == v for k, v in ref["orders"].items())
+    for r in ranks:
+        emit(phase="pipeline_serve", leg=name, max_score_err=err,
+             score_spread=spread, same_orders=same_orders,
+             reference_items=len(ref["orders"]), k1_launches_expected=k1_each,
+             **{k: v for k, v in r.items() if k not in ("scores", "orders")})
+    dp = main["dp"] > 1
+    ok = (main["scores"].keys() == ref["scores"].keys()
+          and err < 0.05 * spread
+          and (not dp or same_orders == len(ref["orders"]))
+          and all(r["k1_launches"] == k1_each for r in ranks))
+    if not ok:
+        raise AssertionError(
+            f"phase 16 serving leg {name}: score error {err} (spread "
+            f"{spread}), {same_orders} of {len(ref['orders'])} orders equal, "
+            f"K1 {[r['k1_launches'] for r in ranks]} (want {k1_each} each)")
+
+
+def pipeline_path(args, dev, card_line: str, shared: bool = True) -> dict:
+    """Phase 16: pipeline stages, sequence parallelism, Adafactor under tp
+    and serving on a mesh. Hash dropout at the sp place against its plain
+    version; XLM-R base MLM through cli.pretrain in this process at dropout
+    0 (AdamW) and at dropout 0.1 (Adafactor) as the references; then legs
+    in processes of their own, gloo ranks sharing card 0 (`shared`): pp 2
+    at dropout 0 against the reference, tp 2 and tp 2 with --sp at dropout
+    0.1 against each other, pp 2 at dropout 0.1 (hash dropout's launches
+    on each stage), tp 2 with --sp under Adafactor against its reference;
+    and the int8 service of phase 4's weights at dp 2 and tp 2 against the
+    service in this process. Without `shared` (four cards) the legs are pp
+    4, pp 2 x tp 2, pp 2 x dp 2, fsdp at dp 4 and tp 2 with and without
+    --sp over NCCL, and the service at dp 4."""
+    site = check_dropout("hash_dropout", P16_SP_SHAPE, torch.float32,
+                         args.seed + 60, dev, True, card_line,
+                         (P16_SP_PLACE,))
+    torch.cuda.empty_cache()
+    cfg = TowerConfig.from_dict(XLMR_BASE)
+    world = torch.cuda.device_count()
+    legs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = p16_files(tmp, args.seed + 61)
+
+        def job(name, dropout, *extra, adafactor=False, ref="ref0",
+                reference=False):
+            return {"kind": "pretrain", "adafactor": adafactor,
+                    "argv": p16_argv(paths, os.path.join(tmp, name),
+                                     dropout, *extra),
+                    "ref_path": os.path.join(tmp, ref + ".pt"),
+                    "reference": reference}
+
+        refs = {}
+        for name, dropout, ada in (("ref0", False, False),
+                                   ("ref_ada", True, True))[:2 if shared
+                                                            else 1]:
+            j = job(name, dropout, adafactor=ada, ref=name, reference=True)
+            refs[name] = p16_pretrain_run(j["argv"], dev, ada,
+                                          j["ref_path"], True)
+            emit(phase="pipeline_reference", leg=name, card=card_line,
+                 **{k: v for k, v in refs[name].items() if k != "sums"})
+            torch.cuda.empty_cache()
+        if shared:
+            specs = {
+                "pp2": (2, job("pp2", False, "--pp", "2"), "ref0", False),
+                "tp2_dropout": (2, job("tp2d", True, "--tp", "2",
+                                       ref="tp2d", reference=True),
+                                None, False),
+                "tp2_sp_dropout": (2, job("sp2d", True, "--tp", "2", "--sp",
+                                          ref="tp2d"), "tp2_dropout", True),
+                "pp2_dropout": (2, job("pp2d", True, "--pp", "2",
+                                       ref="pp2d", reference=True), None,
+                                False),
+                "tp2_sp_adafactor": (2, job("sp2ada", True, "--tp", "2",
+                                            "--sp", adafactor=True,
+                                            ref="ref_ada"), "ref_ada",
+                                     False)}
+            backend = "gloo"
+        else:
+            specs = {
+                f"pp{world}": (world, job("ppw", False, "--pp", str(world)),
+                               "ref0", False),
+                "pp2_tp2": (4, job("pptp", False, "--pp", "2", "--tp", "2"),
+                            "ref0", False),
+                "pp2_dp2": (4, job("ppdp", False, "--pp", "2", "--dp", "2"),
+                            "ref0", False),
+                f"fsdp{world}": (world, job("fsdp", False, "--dp",
+                                            str(world), "--fsdp"), "ref0",
+                                 False),
+                # --sp's reduce-scatter over NCCL, against tp 2 there
+                "tp2_dropout": (2, job("tp2d", True, "--tp", "2",
+                                       ref="tp2d", reference=True),
+                                None, False),
+                "tp2_sp_dropout": (2, job("sp2d", True, "--tp", "2", "--sp",
+                                          ref="tp2d"), "tp2_dropout", True)}
+            backend = "nccl"
+            specs = {k: v for k, v in specs.items() if v[0] <= world}
+        for name, (w, j, against, bits) in specs.items():
+            ranks = spawn_leg(f"phase 16 leg {name}", w, backend, j,
+                              p16_rank)
+            legs[name] = ranks
+            torch.cuda.empty_cache()
+            if against is None:
+                # the reference of the next leg, or pp 2 at dropout 0.1:
+                # finite losses, moved stages and the launch counts
+                ref = {"records": ranks[0]["records"],
+                       "sums": ranks[0]["sums"]}
+                ranks[0].update(param_gap=0.0, param_gap_leaf=None)
+            else:
+                ref = refs.get(against) or legs[against][0]
+            p16_check(name, ranks, ref, cfg, f"pipeline_{backend}", bits)
+
+        # serving: the one-process service here, then the mesh legs
+        one = p16_serve_run(dev, args.seed, os.path.join(tmp, "one.jsonl"))
+        emit(phase="pipeline_serve_reference", card=card_line,
+             **{k: v for k, v in one.items() if k not in ("scores",
+                                                           "orders")})
+        serve_specs = ({"serve_dp2": (2, ["--dp", "2", "--tp", "1"]),
+                        "serve_tp2": (2, ["--dp", "1", "--tp", "2"])}
+                       if shared else
+                       {f"serve_dp{world}": (world, ["--dp", str(world),
+                                                     "--tp", "1"])})
+        for name, (w, mesh_argv) in serve_specs.items():
+            ranks = spawn_leg(f"phase 16 leg {name}", w, backend, {
+                "kind": "serve", "argv": mesh_argv, "seed": args.seed,
+                "path": os.path.join(tmp, name + ".jsonl")}, p16_rank)
+            legs[name] = ranks
+            dp = ranks[0]["dp"] > 1
+            p16_serve_check(name, ranks, one, card_line,
+                            2 * P16_SERVE_BATCHES if dp else 0)
+            if not dp and not all(2 * r["fc2_local_in"] == one["fc2_local_in"]
+                                  for r in ranks):
+                raise AssertionError(f"{name}: fc2 is not split over tp")
+            torch.cuda.empty_cache()
+    sp_legs = [r for k, v in legs.items() if "_sp_" in k for r in v]
+    return {
+        "site": site,
+        "sp_place_launches": sum(r["hash_dropout_place_launches"]
+                                 for r in sp_legs),
+        "pp_launches": sum(r["hash_dropout_launches"]
+                           for r in legs.get("pp2_dropout", [])),
+        "serve_k1_launches": sum(r["k1_launches"] for k, v in legs.items()
+                                 if k.startswith("serve_dp") for r in v)}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pipeline_only", action="store_true",
+                    help="build and run phase 16 alone on one card")
     ap.add_argument("--parallel_only", action="store_true",
-                    help="build and run phase 15's NCCL legs alone (dp = "
-                         "the card count; on two or more cards dp with "
-                         "zero1, and dp x tp 2 on four)")
+                    help="build and run phase 15's and phase 16's NCCL legs "
+                         "alone (dp = the card count; on two or more cards "
+                         "dp with zero1, and dp x tp 2 on four; pp, pp x "
+                         "tp 2, pp x dp 2, fsdp and the service at dp)")
     args = ap.parse_args(argv)
 
     dev = require_cuda()                       # raises without a card
@@ -2739,8 +3237,17 @@ def main(argv=None) -> None:
                 for k, v in built.items()})
     for name in build.ENTRIES:
         build.library(name)
+    if args.pipeline_only:
+        pipeline_path(args, dev, card_line)
+        print(card_line, flush=True)
+        emit(ok=True, device={"platform": "gpu",
+                              "kind": torch.cuda.get_device_name(0),
+                              "count": torch.cuda.device_count()})
+        return
     if args.parallel_only:
         parallel_path(args, dev, card_line, shared=False)
+        torch.cuda.empty_cache()
+        pipeline_path(args, dev, card_line, shared=False)
         print(card_line, flush=True)
         emit(ok=True, device={"platform": "gpu",
                               "kind": torch.cuda.get_device_name(0),
@@ -2781,23 +3288,26 @@ def main(argv=None) -> None:
     pre = pretrain_path(args, dev, card_line)
     torch.cuda.empty_cache()
     par = parallel_path(args, dev, card_line)
+    torch.cuda.empty_cache()
+    p16 = pipeline_path(args, dev, card_line)
 
     main_k1 = serve_shape[torch.bfloat16]       # the serving path's dtype
     kernels = [{
         "name": "int8_mlp", "route": "cuda",
         "source": "lr2ppo_torch/kernels/csrc/int8_mlp.cu",
         "replaces": "lr2ppo_tpu/ops/pallas_int8_mlp.py:139",
-        "launches": serve_launches + train_launches["int8_mlp"],
+        "launches": (serve_launches + train_launches["int8_mlp"]
+                     + p16["serve_k1_launches"]),
         "max_abs_err": max(r["max_abs_err"] for r in results),
         "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
         "bound_ms": main_k1["bound_ms"], "bound_by": main_k1["bound_by"],
         "library_ms": None}]
-    # hash dropout's launches: phase 7's, the tabular path's and the
-    # pretraining run's
+    # hash dropout's launches: phase 7's, the tabular path's, the
+    # pretraining run's and the pipeline stages'
     for name, launches, err in (
             ("hash_dropout",
              train_launches["hash_dropout"] + tab["launches"]
-             + pre["launches"],
+             + pre["launches"] + p16["pp_launches"],
              max([drop["hash_dropout"]["max_abs_err"]]
                  + [r["max_abs_err"] for r in tab["sites"]]
                  + [r["max_abs_err"] for r in pre["sites"].values()])),
@@ -2822,6 +3332,17 @@ def main(argv=None) -> None:
         "max_abs_err": max(v["max_abs_err"] for k, v in par["sites"].items()
                            if not k.startswith("philox")),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the sequence-parallel place: a tp rank's tokens of the residual
+    # stream, launched in phase 16's --sp legs
+    r = p16["site"]
+    kernels.append({
+        "name": "hash_dropout_sp_place", "route": "cuda",
+        "source": "lr2ppo_torch/kernels/csrc/hash_dropout.cu",
+        "replaces": DROPOUT_KERNELS["hash_dropout"][2],
+        "launches": p16["sp_place_launches"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     main_k4 = attn[("text", torch.float32)]     # the extraction path's dtype
     kernels.append({

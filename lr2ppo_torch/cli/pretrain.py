@@ -10,10 +10,12 @@ pretrain ...` or `--distributed --coordinator --num_processes
         --hash_dropout --output_model_path ckpt/mlm --total_steps 10000
 
 It takes the JAX CLI's flags, with their meaning: --batch_size is the
-global batch, --dp -1 takes the world over --tp, --zero1 and --fsdp shard
-the optimizer and the parameters over dp. The mlm, lm and cls processors
-run; every other processor, the image tokenizers, --pp and --sp raise,
-naming ROADMAP.md.
+global batch, --dp -1 takes the world over --pp and --tp, --zero1 and
+--fsdp shard the optimizer and the parameters over dp, --pp N runs the
+encoder as N pipeline stages of --pp_microbatches microbatches (GPipe,
+parallel/pipeline.py), --sp (with --tp > 1) splits the residual stream
+along the sequence over tp. The mlm, lm and cls processors run; every
+other processor and the image tokenizers raise, naming ROADMAP.md.
 It runs on the GPU unless `--device cpu` is given, and raises where there
 is no GPU. The checkpoints are reference-keyed `.bin` files.
 """

@@ -11,7 +11,14 @@ JSON line per item:
     {"id", "pred_order", "pred_scores"[, "tags", "tags_rearranged"][, "ndcg"]}
 
 It takes the JAX package's flags (lr2ppo_torch/config.py, the port's copy
-of its flag table) and runs on one GPU: `--dp`/`--tp` above 1 raise.
+of its flag table) and runs on one GPU, or on one process per GPU under
+torchrun or --distributed with --dp and --tp, as the JAX service serves at
+dp (serve.py:84-124): the model is quantized whole first and only then split
+over tp, so a row-split layer keeps the global per-channel scales; each
+rank scores its dp slice of every batch (DeviceCtx.put_eval), the scores
+are gathered in rank order, and rank 0 alone writes the rankings. The fused
+int8 FFN runs per rank at dp and not under tp (models/layers.py:
+fused_int8_ffn_ok).
 """
 
 from __future__ import annotations
@@ -27,10 +34,12 @@ import torch
 
 from lr2ppo_torch.cli._common import movienet_eval_loader
 from lr2ppo_torch.config import ModelConfig, parse_config
-from lr2ppo_torch.device import compute_dtype, require_cuda
+from lr2ppo_torch.device import compute_dtype
 from lr2ppo_torch.models.scorer import ScoreModel
 from lr2ppo_torch.ops.int8 import quantize_state_dict
+from lr2ppo_torch.parallel.mesh import active, fetch_global
 from lr2ppo_torch.train.checkpoints import load_any
+from lr2ppo_torch.train.common import device_ctx
 from lr2ppo_torch.train.evaluate import scores_and_ndcg
 from lr2ppo_torch.utils import init_logger
 
@@ -55,6 +64,17 @@ def load_model(mcfg: ModelConfig, state: dict, dtype: torch.dtype,
     return model.eval()
 
 
+def serving_model(cfg, state: dict, int8: bool, ctx) -> ScoreModel:
+    """The service's model on `ctx` (train/common.py:device_ctx): `state`
+    quantized whole to int8 where `int8`, and only then split over the mesh,
+    so a row-split layer keeps the global per-channel scales (the JAX
+    service's quantize_tree, then place)."""
+    dtype = compute_dtype(cfg.mesh.compute_dtype)
+    model = load_model(dataclasses.replace(cfg.model, int8=int8), state,
+                       dtype, ctx.device)
+    return ctx.place(model, fsdp=False)
+
+
 def _tensor(a, device: torch.device) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":          # ml_dtypes arrays from the loader
@@ -64,27 +84,32 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 
 
 def serve_batches(model: ScoreModel, batches, ds, sink,
-                  device: torch.device) -> dict:
+                  device: torch.device, put=None) -> dict:
     """Score EvalLoader batches (`text`, `img`, `tgts`, `mask`, `_idx`) and
     write one ranking line per real item to `sink` (None writes nothing).
     `ds.examples[i]` is (item id, tag indices); `ds.tag_names`, where
-    present, maps an id to its tag names. Returns the item count and each
-    batch's seconds, host to host."""
+    present, maps an id to its tag names. `put` (DeviceCtx.put_eval) moves
+    this dp rank's rows of a batch to the device, and the scores of every
+    rank are gathered (every rank calls it); without it the whole batch
+    goes to `device`. Returns the item count and each batch's seconds, host
+    to host."""
     n_items, seconds = 0, []
+    mesh = active()
     for batch in batches:
         if "_idx" not in batch:
             raise ValueError("serve needs an EvalLoader batch "
                              "(with '_idx' row indices)")
         t0 = time.perf_counter()
-        scores, rows = scores_and_ndcg(
-            model, _tensor(batch["text"], device),
-            _tensor(batch["img"], device), _tensor(batch["tgts"], device),
-            _tensor(batch["mask"], device))
-        scores = scores.float().cpu().numpy()
-        rows = rows.cpu().numpy()
+        inputs = {k: batch[k] for k in ("text", "img", "tgts", "mask")}
+        b = (put(inputs) if put is not None
+             else {k: _tensor(v, device) for k, v in inputs.items()})
+        scores, rows = scores_and_ndcg(model, b["text"], b["img"], b["tgts"],
+                                       b["mask"])
+        mask = np.asarray(batch["mask"])
+        scores = fetch_global(scores.float(), mesh)[:mask.shape[0]]
+        rows = fetch_global(rows, mesh)[:mask.shape[0]]
         seconds.append(time.perf_counter() - t0)
         idx = np.asarray(batch["_idx"])
-        mask = np.asarray(batch["mask"])
         tgts = np.asarray(batch["tgts"])
         for b in range(mask.shape[0]):
             if not mask[b].any() or idx[b] < 0:
@@ -110,31 +135,32 @@ def serve_batches(model: ScoreModel, batches, ds, sink,
 
 def main(argv=None, device=None):
     """`device` defaults to the GPU (raising where there is none); the CPU
-    parity tests pass torch.device("cpu")."""
+    parity tests pass torch.device("cpu"). Under a mesh every rank serves
+    and rank 0 writes."""
     argv = list(sys.argv[1:] if argv is None else argv)
     cfg = parse_config(argv, "lr2ppo-torch ranking service")
-    if cfg.mesh.dp > 1 or cfg.mesh.tp > 1:
-        raise ValueError(f"--dp {cfg.mesh.dp} --tp {cfg.mesh.tp}: the port "
-                         "serves on one GPU; serving at dp is not ported yet "
-                         "(ROADMAP.md, A: multi-GPU)")
-    dtype = compute_dtype(cfg.mesh.compute_dtype)
-    device = require_cuda() if device is None else torch.device(device)
-    logger = init_logger(cfg.log_path)
+    ctx = device_ctx(cfg, device)
+    logger = init_logger(cfg.log_path, main=ctx.is_main)
 
     int8 = int8_flag(argv, cfg.model.int8)
     ckpt = load_any(cfg.pretrained_model_path, kind="actor_critic")
-    state = ckpt["actor"] if "actor" in ckpt else ckpt
-    model = load_model(dataclasses.replace(cfg.model, int8=int8), state,
-                       dtype, device)
+    model = serving_model(cfg, ckpt["actor"] if "actor" in ckpt else ckpt,
+                          int8, ctx)
+    device = ctx.device
 
     path = cfg.data.test_path or cfg.data.dev_path
     ev = movienet_eval_loader(cfg, path=path)
     out_path = cfg.data.ranking_path
-    if os.path.dirname(out_path):
+    if ctx.is_main and os.path.dirname(out_path):
         os.makedirs(os.path.dirname(out_path), exist_ok=True)
     t0 = time.perf_counter()
-    with open(out_path, "w") as sink:
-        res = serve_batches(model, ev, ev.ds, sink, device)
+    sink = open(out_path, "w") if ctx.is_main else None
+    try:
+        res = serve_batches(model, ev, ev.ds, sink, device,
+                            put=ctx.put_eval if ctx.mesh.world > 1 else None)
+    finally:
+        if sink is not None:
+            sink.close()
     dt = time.perf_counter() - t0
     n_items = res["items"]
     logger.info("served %d items in %.2fs (%.1f items/s, int8=%s, %s) -> %s",

@@ -28,7 +28,8 @@ from torch import nn
 from lr2ppo_torch.ops import int8 as int8_ops
 from lr2ppo_torch.ops.hash_dropout import module_dropout
 from lr2ppo_torch.ops.int8_mlp import int8_mlp, supported
-from lr2ppo_torch.parallel.tp import copy_to_tp, reduce_from_tp
+from lr2ppo_torch.parallel.tp import (copy_to_tp, gather_seq, reduce_from_tp,
+                                      reduce_scatter_seq, seq_param)
 
 
 def cast(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -42,7 +43,15 @@ class Linear(nn.Module):
 
     With `int8`, a weight that passes `should_quantize` is an int8 tensor
     with a float32 `weight_scale` sibling (the layout quantize_state_dict
-    writes); smaller weights stay float, as in JAX."""
+    writes); smaller weights stay float, as in JAX.
+
+    A layer marked `seq_parallel` (a tower layer's, under --sp) gets its tp
+    mesh as `sp_mesh` from shard_tp: split over tp, it reads and writes the
+    sequence-split stream (parallel/tp.py: gather_seq, reduce_scatter_seq).
+    """
+
+    seq_parallel = False
+    sp_mesh = None
 
     def __init__(self, in_features: int, out_features: int,
                  init_style: str = "torch_default", bias: bool = True,
@@ -108,8 +117,9 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
+        sp = self.sp_mesh is not None and self.tp_dim is not None
         if self.tp_dim == 0:
-            x = copy_to_tp(x, self.mesh)
+            x = gather_seq(x, self.mesh) if sp else copy_to_tp(x, self.mesh)
         if self.use_int8:
             # the route gates see the global shape, as in JAX; a row split
             # quantizes x per row over the whole row (amax over tp)
@@ -120,9 +130,12 @@ class Linear(nn.Module):
         else:
             y = torch.matmul(x.to(dt), self.weight.to(dt).t())
         if self.tp_dim == 1:
-            y = reduce_from_tp(y, self.mesh)
+            y = (reduce_scatter_seq(y, self.mesh) if sp
+                 else reduce_from_tp(y, self.mesh))
         if self.bias is not None:
-            y = y + self.bias.to(y.dtype)
+            bias = self.bias.to(y.dtype)
+            y = y + (seq_param(bias, y, self.mesh)
+                     if sp and self.tp_dim == 1 else bias)
         return y
 
 

@@ -241,7 +241,10 @@ def shard_place(x: torch.Tensor, tp_from: Optional[int] = None):
     under the active mesh, or None where x is the whole array. The batch
     axis leads and is split over dp; `tp_from` is the first dim of a
     tp-split trailing block (the column-split hidden: -1; head-split
-    attention probabilities: 1), None where x is whole on every tp rank."""
+    attention probabilities: 1; under --sp a residual branch's (B, S/tp,
+    H) sequence shard: 1, so a token s of the shard at s0 hashes b * S * H
+    + (s0 + s) * H + h, its index in the global array), None where x is
+    whole on every tp rank."""
     from lr2ppo_torch.parallel.mesh import active
 
     mesh = active()

@@ -7,13 +7,18 @@ One process drives one device. The mesh has the JAX package's axes:
        batch; gradients are averaged over dp after every backward;
   tp — tensor parallel: Megatron column/row splits of the wide matmuls, by
        the JAX package's rule table over the port's reference-keyed
-       parameter names (parallel/tp.py holds the split layers).
+       parameter names (parallel/tp.py holds the split layers);
+  pp — pipeline stages of the tower encoder (parallel/pipeline.py): stage s
+       holds layers [s * L/pp, (s+1) * L/pp) and passes its activations to
+       stage s + 1.
 
-Rank r sits at (dp_rank, tp_rank) = (r // tp, r % tp), the JAX grid's
-`devices.reshape(dp, tp)` order, so the ranks of one tp group are
-neighbours. Under zero1 each dp rank owns a slice of every optimizer moment,
-under fsdp also of every parameter: `zero_dim` is the JAX `_zero_spec` rule,
-the largest free axis that divides dp.
+Rank r sits at (dp_rank, pp_rank, tp_rank), the JAX grid's
+`devices.reshape(dp, pp, tp)` order (pipeline.py:make_pp_mesh): tp is the
+innermost axis, so the ranks of one tp group are neighbours, and at pp 1 the
+grid is the (dp, tp) grid `devices.reshape(dp, tp)`. Under zero1 each dp
+rank owns a slice of every optimizer moment, under fsdp also of every
+parameter: `zero_dim` is the JAX `_zero_spec` rule, the largest free axis
+that divides dp.
 
 `init_runtime` joins the process group: NCCL on the GPU, gloo where the
 caller asks for it (the CPU tests, two ranks sharing one card). The rank and
@@ -96,25 +101,55 @@ def local_device_index(rank: int) -> int:
 
 @dataclass
 class Mesh:
-    """A (dp, tp) grid of processes; `dp_group`/`tp_group` are the process
-    groups of this rank's row and column (None in a single process)."""
+    """A (dp, pp, tp) grid of processes; `dp_group`/`tp_group`/`pp_group`
+    are the process groups of the ranks that differ from this one only in
+    that coordinate (None in a single process; `pp_group` None at pp 1).
+    `host_group` carries host objects between the stages (a gloo group
+    over every rank; None where the default group is gloo already)."""
     dp: int = 1
     tp: int = 1
     rank: int = 0
     dp_group: object = None
     tp_group: object = None
+    pp: int = 1
+    pp_group: object = None
+    host_group: object = None
 
     @property
     def world(self) -> int:
-        return self.dp * self.tp
+        return self.dp * self.pp * self.tp
 
     @property
     def dp_rank(self) -> int:
-        return self.rank // self.tp
+        return self.rank // (self.pp * self.tp)
+
+    @property
+    def pp_rank(self) -> int:
+        return (self.rank // self.tp) % self.pp
 
     @property
     def tp_rank(self) -> int:
         return self.rank % self.tp
+
+    @property
+    def prev_stage(self) -> Optional[int]:
+        """The global rank of the previous stage at this (dp, tp), or None
+        on the first stage."""
+        return self.rank - self.tp if self.pp_rank > 0 else None
+
+    @property
+    def next_stage(self) -> Optional[int]:
+        """The global rank of the next stage at this (dp, tp), or None on
+        the last stage."""
+        return self.rank + self.tp if self.pp_rank < self.pp - 1 else None
+
+    @property
+    def first_stage(self) -> bool:
+        return self.pp_rank == 0
+
+    @property
+    def last_stage(self) -> bool:
+        return self.pp_rank == self.pp - 1
 
     @property
     def distributed(self) -> bool:
@@ -125,35 +160,52 @@ class Mesh:
         return self.rank == 0
 
 
-def make_mesh(dp: int = -1, tp: int = 1) -> Mesh:
-    """The (dp, tp) mesh over the process group (a single process where
-    none is up). dp = -1 takes the world size over tp; a mesh larger than
-    the world raises, as the JAX package's make_mesh asserts, and so does
-    one that leaves a rank out."""
+def make_mesh(dp: int = -1, tp: int = 1, pp: int = 1) -> Mesh:
+    """The (dp, pp, tp) mesh over the process group (a single process where
+    none is up). dp = -1 takes the world size over pp * tp; a mesh larger
+    than the world raises, as the JAX package's make_mesh asserts, and so
+    does one that leaves a rank out."""
     world = dist.get_world_size() if dist.is_initialized() else 1
-    tp = max(int(tp), 1)
+    tp, pp = max(int(tp), 1), max(int(pp), 1)
     if dp == -1:
-        dp = max(world // tp, 1)
-    if dp * tp > world:
-        raise ValueError(f"mesh {dp}x{tp} needs {dp * tp} devices, have "
+        dp = max(world // (pp * tp), 1)
+    shape = f"{dp}x{tp}" if pp == 1 else f"{dp}x{pp}x{tp}"
+    if dp * pp * tp > world:
+        raise ValueError(f"mesh {shape} needs {dp * pp * tp} devices, have "
                          f"{world}")
     if not dist.is_initialized():
-        return Mesh(dp, tp)
-    if dp * tp < world:
-        raise ValueError(f"mesh {dp}x{tp} holds {dp * tp} of the {world} "
+        return Mesh(dp, tp, pp=pp)
+    if dp * pp * tp < world:
+        raise ValueError(f"mesh {shape} holds {dp * pp * tp} of the {world} "
                          "processes; every rank takes a place in the mesh")
     rank = dist.get_rank()
-    dp_group = tp_group = None
-    # every rank creates every group, in one order
-    for i in range(dp):
-        g = dist.new_group([i * tp + j for j in range(tp)])
-        if rank // tp == i:
-            tp_group = g
-    for j in range(tp):
-        g = dist.new_group([i * tp + j for i in range(dp)])
-        if rank % tp == j:
-            dp_group = g
-    return Mesh(dp, tp, rank, dp_group, tp_group)
+
+    def at(d, s, t):
+        return (d * pp + s) * tp + t
+
+    me = (rank // (pp * tp), (rank // tp) % pp, rank % tp)
+    dp_group = tp_group = pp_group = host_group = None
+    # every rank creates every group, in one order (at pp 1: the tp groups
+    # of each dp row, then the dp groups of each tp column)
+    for d in range(dp):
+        for s in range(pp):
+            g = dist.new_group([at(d, s, t) for t in range(tp)])
+            if me[:2] == (d, s):
+                tp_group = g
+    for s in range(pp):
+        for t in range(tp):
+            g = dist.new_group([at(d, s, t) for d in range(dp)])
+            if me[1:] == (s, t):
+                dp_group = g
+    if pp > 1:
+        for d in range(dp):
+            for t in range(tp):
+                g = dist.new_group([at(d, s, t) for s in range(pp)])
+                if (me[0], me[2]) == (d, t):
+                    pp_group = g
+        if dist.get_backend() != "gloo":
+            host_group = dist.new_group(backend="gloo")
+    return Mesh(dp, tp, rank, dp_group, tp_group, pp, pp_group, host_group)
 
 
 _ACTIVE: Optional[Mesh] = None

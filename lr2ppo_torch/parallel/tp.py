@@ -11,10 +11,25 @@ columns of its weight and the whole bias; its partial products pass
 from the weights world 1 would draw (Linear's init bounds come from the
 global fan-in).
 
+Sequence parallelism (`--sp`, Megatron-SP) keeps the residual stream between
+the tower's layers split along the sequence over tp: each tp rank holds
+S/tp tokens, and layer norm, dropout and the residual add run on that
+shard. A column-parallel Linear then gathers its input along S
+(`gather_seq`, whose backward is a reduce-scatter) instead of `copy_to_tp`,
+and a row-parallel one reduce-scatters its partial products along S
+(`reduce_scatter_seq`, whose backward is an all-gather) instead of
+`reduce_from_tp`. A parameter applied to the shard (a layer norm's gamma and
+beta, a row-parallel bias) goes through `seq_param`: its gradient is
+gathered along S and reduced over the whole sequence, as the tp run reduces
+it, so `--sp` trains to the tp run's bits at tp 2 (a sum of two addends
+does not depend on their order).
+
 Each collective is an autograd Function over torch.distributed, so it runs
-on gloo and NCCL alike. `dp_sum` is the all-reduce whose backward is an
-all-reduce too: a loss whose denominator counts over the global batch sums
-its numerator with it, and the dp-averaged gradients are then exact.
+on gloo and NCCL alike. gloo has no reduce-scatter of CUDA tensors, so there
+the reduce-scatter is an all-reduce and a slice, the same sum. `dp_sum` is
+the all-reduce whose backward is an all-reduce too: a loss whose
+denominator counts over the global batch sums its numerator with it, and
+the dp-averaged gradients are then exact.
 """
 
 from __future__ import annotations
@@ -78,6 +93,131 @@ class _SumBothWays(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_reduce(g, ctx.group), None
+
+
+def _gather_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return all_gather_dim(x, 1, mesh.tp_group, mesh.tp)
+
+
+def _reduce_scatter_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over tp of x (B, S, ...), this rank's S/tp rows of it."""
+    n = x.shape[1] // mesh.tp
+    if dist.get_backend(mesh.tp_group) == "nccl":
+        parts = [p.contiguous() for p in x.split(n, dim=1)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=mesh.tp_group)
+        return out
+    return _all_reduce(x, mesh.tp_group).narrow(
+        1, mesh.tp_rank * n, n).contiguous()
+
+
+def _seq_part(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    n = x.shape[1] // mesh.tp
+    return x.narrow(1, mesh.tp_rank * n, n).contiguous()
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along S; backward: reduce-scatter along S (the consumer,
+    a column-parallel product, leaves a partial gradient on each rank)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _gather_seq(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_seq(g, ctx.mesh), None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    """Reduce-scatter along S; backward: all-gather along S."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _reduce_scatter_seq(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g.contiguous(), ctx.mesh), None
+
+
+class _SplitSeq(torch.autograd.Function):
+    """This rank's S/tp rows of a tensor replicated over tp; backward:
+    all-gather along S (the embedding's output entering the stream)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _seq_part(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g.contiguous(), ctx.mesh), None
+
+
+class _GatherSeqReplicated(torch.autograd.Function):
+    """All-gather along S into a tensor whose consumers are replicated over
+    tp; backward: this rank's rows of the (whole, replicated) gradient (the
+    stream leaving for the target)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _gather_seq(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_part(g, ctx.mesh), None
+
+
+class _SeqParam(torch.autograd.Function):
+    """p broadcast to a sequence shard's shape; backward: the per-token
+    gradient gathered along S and summed to p's shape over the whole
+    sequence, as autograd sums the gradient of p broadcast to the whole
+    sequence. Every tp rank so holds the tp run's gradient of p."""
+
+    @staticmethod
+    def forward(ctx, p, shape, mesh):
+        ctx.mesh, ctx.shape = mesh, p.shape
+        return p.expand(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = _gather_seq(g.contiguous(), ctx.mesh)
+        return full.sum_to_size(ctx.shape), None, None
+
+
+def gather_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return _GatherSeq.apply(x, mesh)
+
+
+def reduce_scatter_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    if x.shape[1] % mesh.tp:
+        raise ValueError(f"--sp: the sequence ({x.shape[1]}) must split "
+                         f"over tp ({mesh.tp})")
+    return _ReduceScatterSeq.apply(x, mesh)
+
+
+def split_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    if x.shape[1] % mesh.tp:
+        raise ValueError(f"--sp: the sequence ({x.shape[1]}) must split "
+                         f"over tp ({mesh.tp})")
+    return _SplitSeq.apply(x, mesh)
+
+
+def gather_seq_replicated(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return _GatherSeqReplicated.apply(x, mesh)
+
+
+def seq_param(p: torch.Tensor, like: torch.Tensor, mesh) -> torch.Tensor:
+    """p as applied to the sequence shard `like`: itself where `mesh` is
+    None (no --sp), else broadcast to like's shape with _SeqParam's
+    gradient."""
+    if mesh is None:
+        return p
+    return _SeqParam.apply(p, like.shape, mesh)
 
 
 def copy_to_tp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -164,8 +304,9 @@ def vocab_parallel_argmax(logits: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def shard_tp(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     """Split every Linear the rule table names over tp, in place: the
     module keeps this rank's part of its weight (and of its bias and int8
-    scales where they split with it). Raises where a large parameter
-    matches no rule."""
+    scales where they split with it), and every module marked
+    `seq_parallel` (--sp) gets the mesh as its `sp_mesh`. Raises where a
+    large parameter matches no rule."""
     from lr2ppo_torch.models.layers import Linear
 
     if mesh.tp == 1:
@@ -176,4 +317,6 @@ def shard_tp(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
             d = tp_dim(f"{name}.weight")
             if d is not None:
                 mod.split_tp(d, mesh)
+        if getattr(mod, "seq_parallel", False):
+            mod.sp_mesh = mesh
     return model

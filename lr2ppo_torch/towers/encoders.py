@@ -12,9 +12,15 @@ With `remat`, each layer of a pass that records gradients runs under
 utils/remat.py, which recomputes its activations in the backward with the
 dropout seeds of the forward (the JAX package's `nn.remat` of the layer).
 
-The RNN family, the gated CNN, dual encoders, relative positions, residual
-attention and `seq_parallel` raise (ROADMAP A: the rest of the towers;
-multi-GPU).
+With `seq_parallel` (--sp) and a tp mesh, the residual stream between the
+layers is split along the sequence over tp, the JAX package's
+`P('dp', 'tp')` constraint (encoders.py:91-120): the embedding's output is
+split (parallel/tp.py:split_seq), every layer computes on its S/tp tokens
+(towers/layers.py:TransformerLayer), and the stream is gathered whole again
+before the final norm and the target. At tp 1 it does nothing, as in JAX.
+
+The RNN family, the gated CNN, dual encoders, relative positions and
+residual attention raise (ROADMAP A: the rest of the towers).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 from torch import nn
 
 from lr2ppo_torch.models.layers import Linear
+from lr2ppo_torch.parallel.tp import gather_seq_replicated, split_seq
 from lr2ppo_torch.towers.layers import (NOT_PORTED, TransformerLayer,
                                         additive_mask_from_seg,
                                         make_layer_norm)
@@ -34,10 +41,12 @@ from lr2ppo_torch.utils.remat import remat
 class TransformerEncoder(nn.Module):
     """transformer_encoder.py:7-138 (the BERT/ViT-style stack)."""
 
+    seq_parallel = False
+    sp_mesh = None
+
     def __init__(self, cfg, dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
-        for flag in ("relative_position_embedding", "has_residual_attention",
-                     "seq_parallel"):
+        for flag in ("relative_position_embedding", "has_residual_attention"):
             if getattr(cfg, flag):
                 raise NotImplementedError(f"{flag} is {NOT_PORTED}")
         self.cfg = cfg
@@ -58,6 +67,13 @@ class TransformerEncoder(nn.Module):
         self.transformer = (layer() if cfg.parameter_sharing
                             else nn.ModuleList(layer()
                                                for _ in range(cfg.layers_num)))
+        if cfg.seq_parallel:
+            # the stack and every module inside it read the split stream
+            # once shard_tp hands them the tp mesh
+            self.seq_parallel = True
+            for m in self.transformer.modules():
+                if hasattr(type(m), "seq_parallel"):
+                    m.seq_parallel = True
         if cfg.layernorm_positioning == "pre":
             self.layer_norm = make_layer_norm(cfg.layernorm, cfg.hidden_size,
                                               dtype, device)
@@ -79,7 +95,8 @@ class TransformerEncoder(nn.Module):
         mask = (additive_mask_from_seg(seg, cfg.mask)
                 if key_bias is None or cfg.remove_attention_scale else None)
         recompute = cfg.remat and torch.is_grad_enabled()
-        hidden = emb
+        sp = self.sp_mesh
+        hidden = emb if sp is None else split_seq(emb, sp)
         for i in range(cfg.layers_num):
             blk = (self.transformer if cfg.parameter_sharing
                    else self.transformer[i])
@@ -89,6 +106,8 @@ class TransformerEncoder(nn.Module):
             else:
                 hidden = blk(hidden, mask, key_bias, deterministic,
                              generator)
+        if sp is not None:
+            hidden = gather_seq_replicated(hidden, sp)
         if cfg.layernorm_positioning == "pre":
             hidden = self.layer_norm(hidden)
         return hidden

@@ -13,6 +13,8 @@ JAX package's:
   * attention masks are additive -10000 biases; the plain path divides the
     scores by sqrt(dh) and then adds the mask.
 
+Under --sp the layers compute on a sequence shard (TransformerLayer).
+
 Training mode (`deterministic=False`) applies the JAX layer's dropout sites
 through `module_dropout` (ops/hash_dropout.py): the attention probabilities
 and the two residual branches of each layer. Every active site draws its seed
@@ -33,6 +35,7 @@ from torch import nn
 from lr2ppo_torch.models.layers import Linear
 from lr2ppo_torch.ops.attention import fused_attention
 from lr2ppo_torch.ops.hash_dropout import module_dropout
+from lr2ppo_torch.parallel.tp import seq_param
 
 ACTS: dict = {
     "gelu": lambda x: F.gelu(x, approximate="none"),
@@ -50,7 +53,12 @@ NOT_PORTED = ("not ported yet (ROADMAP A: the rest of the towers, with "
 class RefLayerNorm(nn.Module):
     """gamma * (x - mean) / (std + eps) + beta with a Bessel-corrected std,
     taken as sqrt(max(var, 1e-20)); float32 statistics; weights named gamma
-    and beta (reference layer_norm.py:5-21)."""
+    and beta (reference layer_norm.py:5-21). Under --sp (`sp_mesh` set by
+    shard_tp) it normalizes a sequence shard, and gamma and beta take the
+    whole sequence's gradient (parallel/tp.py:seq_param)."""
+
+    seq_parallel = False
+    sp_mesh = None
 
     def __init__(self, d: int, eps: float = 1e-6,
                  dtype: Optional[torch.dtype] = None, device=None):
@@ -72,12 +80,18 @@ class RefLayerNorm(nn.Module):
         var = (centered * centered).mean(-1, keepdim=True)
         var = var * (d / max(d - 1, 1))                # unbiased
         std = torch.sqrt(torch.clamp_min(var, 1e-20))
-        out = self.gamma * centered / (std + self.eps) + self.beta
+        gamma = seq_param(self.gamma, centered, self.sp_mesh)
+        beta = seq_param(self.beta, centered, self.sp_mesh)
+        out = gamma * centered / (std + self.eps) + beta
         return out.to(self.dtype or x.dtype)
 
 
 class T5LayerNorm(nn.Module):
-    """RMS norm with float32 statistics (reference layer_norm.py:24-39)."""
+    """RMS norm with float32 statistics (reference layer_norm.py:24-39);
+    under --sp as RefLayerNorm."""
+
+    seq_parallel = False
+    sp_mesh = None
 
     def __init__(self, d: int, eps: float = 1e-6,
                  dtype: Optional[torch.dtype] = None, device=None):
@@ -92,7 +106,8 @@ class T5LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         var = x.float().square().mean(-1, keepdim=True)
         out = x * torch.rsqrt(var + self.eps).to(x.dtype)
-        return self.weight.to(self.dtype or x.dtype) * out
+        return seq_param(self.weight.to(self.dtype or x.dtype), out,
+                         self.sp_mesh) * out
 
 
 def make_layer_norm(kind: str, d: int, dtype=None, device=None) -> nn.Module:
@@ -225,7 +240,15 @@ class GatedFeedForward(nn.Module):
 class TransformerLayer(nn.Module):
     """Pre- or post-LN encoder block (transformer.py:8-74). In training mode
     it has three dropout sites, in the order their seeds are drawn: the
-    attention probabilities, the attention branch and the FFN branch."""
+    attention probabilities, the attention branch and the FFN branch.
+
+    Under --sp (`sp_mesh` set by shard_tp) `hidden` is this tp rank's S/tp
+    tokens: the column-parallel products gather the sequence, the
+    row-parallel ones reduce-scatter it, and the branch dropout sites draw
+    the global mask at the shard's place (dims 1.. split over tp)."""
+
+    seq_parallel = False
+    sp_mesh = None
 
     def __init__(self, hidden_size: int, heads_num: int,
                  feedforward_size: int, hidden_act: str = "gelu",
@@ -255,9 +278,11 @@ class TransformerLayer(nn.Module):
                 key_bias: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        seq = 1 if self.sp_mesh is not None else None
+
         def drop(x):
             return module_dropout(x, self.dropout, deterministic, generator,
-                                  self.hash_dropout)
+                                  self.hash_dropout, tp_from=seq)
 
         if not self.pre:
             inter = self.self_attn(hidden, hidden, hidden, mask, key_bias,

@@ -149,10 +149,9 @@ class DeviceCtx:
             return build_optimizer(optim_cfg, named, train_steps, **kw)
         fsdp_dims = getattr(model, "_fsdp_dims", {})
         adafactor = optim_cfg.optimizer == "adafactor"
-        if adafactor and (self.mesh.tp > 1 or fsdp_dims):
-            raise NotImplementedError(
-                "Adafactor under tp or fsdp is not ported yet (ROADMAP.md, "
-                "A: multi-GPU); zero1 at dp takes it")
+        if adafactor:
+            kw["splits"] = DistributedOptimizer.adafactor_splits(
+                named, self.mesh, fsdp_dims)
         views = {}
         if self.zero1 and not adafactor:
             for k, p in named.items():
@@ -171,7 +170,9 @@ class DeviceCtx:
     @torch.no_grad()
     def full_state_dict(self, model: nn.Module) -> dict:
         """The model's reference-keyed state_dict at full width: fsdp parts
-        gathered over dp, tp parts over tp. Every rank must call it."""
+        gathered over dp, tp parts over tp, and under pp the stages' parts
+        on rank 0 (the whole model there, a stage's part elsewhere). Every
+        rank must call it."""
         mesh, dims = self.mesh, getattr(model, "_fsdp_dims", {})
         out = {}
         for k, v in model.state_dict().items():
@@ -182,15 +183,22 @@ class DeviceCtx:
             if d is not None and _is_split(model, k):
                 v = all_gather_dim(v, d, mesh.tp_group, mesh.tp)
             out[k] = v
+        if mesh.pp > 1:
+            from lr2ppo_torch.parallel.pipeline import gather_to_first
+
+            out = gather_to_first(out, mesh)
         return out
 
     @torch.no_grad()
     def load_full_state(self, model: nn.Module, state: dict) -> None:
         """Load a full-width reference-keyed state_dict (strict) into a
-        placed model: each tensor sliced to this rank's part."""
+        placed model: each tensor sliced to this rank's part (under pp, the
+        stage's keys of a whole model's state)."""
         mesh, dims = self.mesh, getattr(model, "_fsdp_dims", {})
         local = {}
         keys = {clean_name(k): k for k in model.state_dict()}
+        if mesh.pp > 1:
+            state = {k: v for k, v in state.items() if k in keys}
         if set(keys) != set(state):
             raise KeyError(
                 f"state_dict mismatch: missing {sorted(set(keys) - set(state))}"
@@ -218,27 +226,28 @@ def _is_split(model: nn.Module, key: str) -> bool:
     return getattr(mod, "tp_dim", None) is not None
 
 
-def check_unported(cfg: Config) -> None:
+def check_unported(cfg: Config, allow_pp: bool = False) -> None:
     """Refuse what the port does not run: a non-pickle checkpoint backend,
-    --profile_dir and --pp."""
+    --profile_dir, and --pp outside tower pretraining (`allow_pp`), as the
+    JAX package pipelines only the tower encoder."""
     checkpoints.check_backend(cfg.ckpt_backend)
     if cfg.profile_dir:
         raise NotImplementedError(
             "--profile_dir (the trace window) is not ported yet (ROADMAP.md, "
             "A: the remainder)")
-    if getattr(cfg.mesh, "pp", 1) > 1:
-        raise NotImplementedError(
-            "--pp (pipeline stages) is not ported yet (ROADMAP.md, A: "
-            "multi-GPU, parallel/pipeline.py)")
+    if getattr(cfg.mesh, "pp", 1) > 1 and not allow_pp:
+        raise ValueError("--pp pipelines the tower encoder: it runs in "
+                         "tower pretraining (cli/pretrain.py) only")
 
 
-def device_ctx(cfg: Config, device=None, cast_dtype=None) -> DeviceCtx:
+def device_ctx(cfg: Config, device=None, cast_dtype=None,
+               allow_pp: bool = False) -> DeviceCtx:
     """The run's DeviceCtx: joins the process group where --distributed is
-    set or torchrun started the process, builds the (dp, tp) mesh and makes
-    it the active one. The device is `device` where the caller passes one,
-    else the GPU (raising where there is none); a rank of an NCCL group
+    set or torchrun started the process, builds the (dp, pp, tp) mesh and
+    makes it the active one. The device is `device` where the caller passes
+    one, else the GPU (raising where there is none); a rank of an NCCL group
     takes its own card."""
-    check_unported(cfg)
+    check_unported(cfg, allow_pp)
     m = cfg.mesh
     up = init_runtime(m.distributed, m.coordinator or None,
                       m.num_processes or None,
@@ -246,11 +255,11 @@ def device_ctx(cfg: Config, device=None, cast_dtype=None) -> DeviceCtx:
                       device=device)
     mesh = active()
     world = dist.get_world_size() if up else 1
-    tp = max(m.tp, 1)
-    dp = max(world // tp, 1) if m.dp == -1 else m.dp
-    if not (mesh.distributed and (mesh.dp, mesh.tp) == (dp, tp)):
+    tp, pp = max(m.tp, 1), max(getattr(m, "pp", 1), 1)
+    dp = max(world // (tp * pp), 1) if m.dp == -1 else m.dp
+    if not (mesh.distributed and (mesh.dp, mesh.tp, mesh.pp) == (dp, tp, pp)):
         # a second trainer of the same run keeps the mesh and its groups
-        mesh = make_mesh(m.dp, m.tp)
+        mesh = make_mesh(m.dp, m.tp, pp)
     set_active(mesh)
     if device is None or torch.device(device).type == "cuda":
         require_cuda()

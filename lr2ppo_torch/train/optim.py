@@ -222,13 +222,17 @@ class Adafactor:
     MIN_PARAM_SCALE = 1e-3
 
     def __init__(self, named_params: Dict[str, torch.nn.Parameter],
-                 schedule: Callable[[int], float]):
+                 schedule: Callable[[int], float],
+                 splits: Optional[dict] = None):
         self.params = dict(named_params)
         self.schedule = schedule
+        # key -> {param dim: (process group, parts)} of a tensor this rank
+        # holds a part of (tp, fsdp)
+        self.splits = dict(splits or {})
         self.count = 0
         self.v_row, self.v_col, self.v = {}, {}, {}
         for k, p in self.params.items():
-            dims = self.factored_dims(p.shape)
+            dims = self.factored_dims(self.global_shape(k))
             if dims is None:
                 self.v[k] = torch.zeros_like(p)
             else:
@@ -250,6 +254,37 @@ class Adafactor:
             return None
         return int(order[-2]), int(order[-1])
 
+    def global_shape(self, k: str) -> tuple:
+        """The whole tensor's shape of the part this rank holds."""
+        shape = list(self.params[k].shape)
+        for d, (_group, parts) in self.splits.get(k, {}).items():
+            shape[d] *= parts
+        return tuple(shape)
+
+    def _mean(self, t: torch.Tensor, dim: int, k: str, pdim: int,
+              keepdim: bool = False) -> torch.Tensor:
+        """The mean of t along `dim`, the parameter's dim `pdim`: over the
+        whole tensor where the ranks split pdim (a sum all-reduced over
+        their group)."""
+        split = self.splits.get(k, {}).get(pdim)
+        if split is None:
+            return t.mean(dim, keepdim=keepdim)
+        group, parts = split
+        total = t.sum(dim, keepdim=keepdim)
+        dist.all_reduce(total, group=group)
+        return total / (t.shape[dim] * parts)
+
+    def _mean_all(self, t: torch.Tensor, k: str) -> torch.Tensor:
+        """The mean of every element of the whole tensor."""
+        split = self.splits.get(k)
+        if not split:
+            return torch.mean(t)
+        total, n = t.sum(), t.numel()
+        for group, parts in split.values():
+            dist.all_reduce(total, group=group)
+            n *= parts
+        return total / n
+
     def lr(self) -> float:
         """The lr the next step uses."""
         return float(self.schedule(self.count))
@@ -270,25 +305,38 @@ class Adafactor:
             g = (torch.zeros_like(p) if grads.get(k) is None
                  else grads[k].to(p.dtype))
             g2 = g * g + self.EPS
-            dims = self.factored_dims(p.shape)
+            dims = self.factored_dims(self.global_shape(k))
             if dims is None:
                 v = decay * self.v[k] + (1.0 - decay) * g2
                 self.v[k] = v
                 upd = g * v ** -0.5
             else:
                 d1, d0 = dims
-                vr = decay * self.v_row[k] + (1.0 - decay) * g2.mean(d0)
-                vc = decay * self.v_col[k] + (1.0 - decay) * g2.mean(d1)
+                vr = (decay * self.v_row[k]
+                      + (1.0 - decay) * self._mean(g2, d0, k, d0))
+                vc = (decay * self.v_col[k]
+                      + (1.0 - decay) * self._mean(g2, d1, k, d1))
                 self.v_row[k], self.v_col[k] = vr, vc
                 r1 = d1 - 1 if d1 > d0 else d1
-                row = (vr / vr.mean(r1, keepdim=True)) ** -0.5
+                row = (vr / self._mean(vr, r1, k, d1, keepdim=True)) ** -0.5
                 upd = g * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
             upd = upd / torch.clamp_min(
-                torch.sqrt(torch.mean(upd * upd)) / self.CLIP, 1.0)
+                torch.sqrt(self._mean_all(upd * upd, k)) / self.CLIP, 1.0)
             upd = upd * lr
-            rms = torch.sqrt(torch.mean(p * p))
+            rms = torch.sqrt(self._mean_all(p * p, k))
             upd = upd * torch.clamp_min(rms, self.MIN_PARAM_SCALE)
             p.add_(upd * -1.0)
+
+    def stat_dim(self, table: str, k: str, pdim: int) -> Optional[int]:
+        """The dim of statistic `table` of key k that the parameter's dim
+        `pdim` becomes, or None where the statistic reduced it away."""
+        if table == "v":
+            return pdim
+        d1, d0 = self.factored_dims(self.global_shape(k))
+        gone = d0 if table == "v_row" else d1
+        if pdim == gone:
+            return None
+        return pdim - 1 if pdim > gone else pdim
 
     def zero_grad(self) -> None:
         for p in self.params.values():
@@ -312,19 +360,20 @@ class Adafactor:
 
 def build_optimizer(optim_cfg, named_params: Dict[str, torch.nn.Parameter],
                     train_steps: int, lr: Optional[float] = None,
-                    schedule_wrap=None):
+                    schedule_wrap=None, splits: Optional[dict] = None):
     """AdamW or Adafactor + schedule, mirroring build_optimizer
     (ppo.py:378-419); Adafactor takes only the schedule, as in JAX. `lr`
     overrides the base lr (actor vs critic); `schedule_wrap(sched) -> sched`
     remaps the step axis — PPO ticks its schedulers once per update SWEEP
-    (ppo.py:612-613) via `lambda s: lambda t: s(t // upd)`."""
+    (ppo.py:612-613) via `lambda s: lambda t: s(t // upd)`. `splits` are
+    Adafactor's split parameters under a mesh (DistributedOptimizer)."""
     base_lr = lr if lr is not None else optim_cfg.learning_rate
     sched = make_schedule(optim_cfg.scheduler, base_lr, train_steps,
                           optim_cfg.warmup)
     if schedule_wrap is not None:
         sched = schedule_wrap(sched)
     if optim_cfg.optimizer == "adafactor":
-        return Adafactor(named_params, sched)
+        return Adafactor(named_params, sched, splits)
     moment_dtype = getattr(optim_cfg, "moment_dtype", None)
     return AdamW(named_params, sched, optim_cfg.beta1, optim_cfg.beta2,
                  optim_cfg.adam_eps, optim_cfg.weight_decay,
@@ -338,9 +387,10 @@ BUCKET_ELEMENTS = 1 << 25
 
 
 class DistributedOptimizer:
-    """AdamW or Adafactor under a (dp, tp) mesh: the counterpart of the JAX
-    package's sharded optax transformation (parallel/mesh.py:
-    shard_optimizer), as an object with the optimizers' interface.
+    """AdamW or Adafactor under a (dp, pp, tp) mesh: the counterpart of the
+    JAX package's sharded optax transformation (parallel/mesh.py:
+    shard_optimizer), as an object with the optimizers' interface. Under pp
+    each rank's optimizer holds its stage's parameters.
 
     `step()` averages the gradients over dp (all-reduce in buckets; an fsdp
     shard's gradient arrives averaged from its gather's backward), then
@@ -355,11 +405,24 @@ class DistributedOptimizer:
         slice of each statistic between steps, gathers them for the step,
         which it computes whole, and slices them again.
 
+    Adafactor under tp and fsdp: a rank holds part of a parameter, and its
+    update reads whole-tensor statistics. Which dims it factors is decided
+    on the global shape; the row and column means, the update's RMS clip and
+    multiply_by_parameter_scale's rms(p) sum their partial sums over the
+    group that splits the reduced dim (Adafactor.splits). The partial sums
+    are chosen over gathering each statistic whole, as zero1 does: they move
+    a few numbers a tensor, never a tensor, and no rank ever holds a whole
+    tp- or fsdp-split parameter or gradient; they differ from one process
+    in the order of the sums only. Each statistic is kept as this rank's
+    part (a factored statistic whose reduced dim was the split one is whole
+    on every rank).
+
     grad_clip's norm is taken over the global gradient: the squared sums of
-    tp-split and fsdp-sharded parameters are summed over their groups.
-    `state_dict()` gathers every moment to its global shape (every rank
-    calls it); `load_state_dict` slices a global one, so a `.state` written
-    at one world resumes at any other."""
+    tp-split and fsdp-sharded parameters are summed over their groups, and
+    the stages' sums over pp. `state_dict()` gathers every moment to its
+    global shape and, under pp, the stages' to rank 0 (every rank calls it);
+    `load_state_dict` slices a global one (under pp, its stage's keys), so a
+    `.state` written at one world resumes at any other with the same pp."""
 
     def __init__(self, inner, params: dict, mesh, zero1: bool,
                  fsdp_dims: dict, views: dict):
@@ -372,10 +435,27 @@ class DistributedOptimizer:
         if mesh.tp > 1:
             self.tp_dims = {k: tp_dim(k) for k in params
                             if tp_dim(k) is not None}
-        # Adafactor under zero1: statistic (table, key) -> its dp dim
+        # Adafactor under zero1: statistic (table, key) -> its dp dim (the
+        # statistics of tp- and fsdp-split parameters are parts already)
         self.stat_dims = {}
         if zero1 and isinstance(inner, Adafactor):
             self._slice_stats(first=True)
+
+    @staticmethod
+    def adafactor_splits(named: dict, mesh, fsdp_dims: dict) -> dict:
+        """Adafactor.splits of this rank's parameters: the tp dim over the
+        tp group, the fsdp dim over the dp group."""
+        out = {}
+        for k in named:
+            split = {}
+            d = tp_dim(k) if mesh.tp > 1 else None
+            if d is not None:
+                split[d] = (mesh.tp_group, mesh.tp)
+            if k in fsdp_dims:
+                split[fsdp_dims[k]] = (mesh.dp_group, mesh.dp)
+            if split:
+                out[k] = split
+        return out
 
     # -- the optimizer interface ---------------------------------------
     @property
@@ -401,7 +481,8 @@ class DistributedOptimizer:
             grads[k] = g
         if isinstance(self.inner, AdamW):
             norm = (self._global_norm() if self.inner.grad_clip
-                    and (self.views or self.fsdp_dims or self.tp_dims)
+                    and (self.views or self.fsdp_dims or self.tp_dims
+                         or self.mesh.pp > 1)
                     else None)
             self.inner.step(grads, norm)
         else:
@@ -443,7 +524,8 @@ class DistributedOptimizer:
 
     def _global_norm(self) -> torch.Tensor:
         """sqrt of the global squared gradient sum, each parameter counted
-        once: sums of split parameters are all-reduced over their groups."""
+        once: sums of split parameters are all-reduced over their groups,
+        and the stages' totals over pp."""
         mesh = self.mesh
         sums = {}
         for k, p in self.params.items():
@@ -460,7 +542,11 @@ class DistributedOptimizer:
             if tp_split:
                 dist.all_reduce(v, group=mesh.tp_group)
             total = total + v
-        return torch.sqrt(torch.as_tensor(total))
+        total = torch.as_tensor(total)
+        if mesh.pp > 1:
+            total = total.clone()
+            dist.all_reduce(total, group=mesh.pp_group)
+        return torch.sqrt(total)
 
     @torch.no_grad()
     def _gather_views(self) -> None:
@@ -478,6 +564,8 @@ class DistributedOptimizer:
     def _slice_stats(self, first: bool = False) -> None:
         for tname, table in self._stat_tables().items():
             for k, t in table.items():
+                if first and k in self.fsdp_dims:
+                    continue
                 d = (zero_dim(t.shape, self.mesh.dp) if first
                      else self.stat_dims.get((tname, k)))
                 if d is None:
@@ -498,6 +586,18 @@ class DistributedOptimizer:
         return (self.views.get(k, self.fsdp_dims.get(k)),
                 self.tp_dims.get(k))
 
+    def _split_stat_dims(self, tname: str, k: str):
+        """[(stat dim, group, parts)] of an Adafactor statistic of a split
+        parameter, the fsdp split first."""
+        out = []
+        split = self.inner.splits.get(k, {})
+        for pd, (group, parts) in sorted(
+                split.items(), key=lambda kv: kv[1][0] is self.mesh.tp_group):
+            d = self.inner.stat_dim(tname, k, pd)
+            if d is not None:
+                out.append((d, group, parts))
+        return out
+
     @torch.no_grad()
     def state_dict(self) -> dict:
         mesh = self.mesh
@@ -509,7 +609,12 @@ class DistributedOptimizer:
                       if isinstance(t, dict) else t) for n, t in sd.items()}
             if self.stat_dims:
                 self._slice_stats()
-            return sd
+            for tname in ("v_row", "v_col", "v"):
+                for k, v in sd[tname].items():
+                    for d, group, parts in self._split_stat_dims(tname, k):
+                        v = all_gather_dim(v, d, group, parts)
+                    sd[tname][k] = v
+            return self._gather_stages(sd, ("v_row", "v_col", "v"))
         sd = self.inner.state_dict()
         for table in ("mu", "nu"):
             out = {}
@@ -521,22 +626,48 @@ class DistributedOptimizer:
                     v = all_gather_dim(v, td, mesh.tp_group, mesh.tp)
                 out[k] = v
             sd[table] = out
-        return sd
+        return self._gather_stages(sd, ("mu", "nu"))
+
+    def _gather_stages(self, sd: dict, tables) -> dict:
+        if self.mesh.pp == 1:
+            return sd
+        from lr2ppo_torch.parallel.pipeline import gather_to_first
+
+        return {**sd, **{t: gather_to_first(sd[t], self.mesh)
+                         for t in tables}}
+
+    def _own(self, state: dict, tables) -> dict:
+        """Under pp, a whole model's state cut to this stage's keys."""
+        if self.mesh.pp == 1:
+            return state
+        return {**state, **{t: {k: v for k, v in state[t].items()
+                                if k in self.params} for t in tables}}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         mesh = self.mesh
         if isinstance(self.inner, Adafactor):
+            local = self._own(state, ("v_row", "v_col", "v"))
+            for tname in ("v_row", "v_col", "v"):
+                table = {}
+                for k, v in local[tname].items():
+                    for d, group, parts in reversed(
+                            self._split_stat_dims(tname, k)):
+                        index = (mesh.tp_rank if group is mesh.tp_group
+                                 else mesh.dp_rank)
+                        v = shard_slice(v, d, index, parts)
+                    table[k] = v
+                local[tname] = table
             if self.stat_dims:
                 self._gather_stats()
-            self.inner.load_state_dict(state)
+            self.inner.load_state_dict(local)
             if self.stat_dims:
                 self._slice_stats()
             return
-        local = dict(state)
+        local = self._own(state, ("mu", "nu"))
         for table in ("mu", "nu"):
             out = {}
-            for k, v in state[table].items():
+            for k, v in local[table].items():
                 dd, td = self._moment_dims(k)
                 if td is not None:
                     v = shard_slice(v, td, mesh.tp_rank, mesh.tp)

@@ -22,9 +22,15 @@ Only the 'simple' batch form (mlm, lm, cls) is ported. Under --dp/--tp
 (train/common.py:device_ctx) each rank takes its slice of every micro-batch
 (the loader shards per accumulation chunk), the masked means divide by the
 global counts (towers/targets.py) and the vocabulary heads are split over
-tp; --zero1 and --fsdp shard the optimizer and the parameters over dp.
-Pipeline stages (--pp) and sequence parallelism (--sp) raise (ROADMAP.md,
-A: multi-GPU).
+tp; --zero1 and --fsdp shard the optimizer and the parameters over dp; --sp
+(with --tp) splits the residual stream along the sequence over tp
+(towers/encoders.py). Under --pp each rank holds one stage of the tower
+(parallel/pipeline.py) and a micro-batch runs the GPipe schedule over
+--pp_microbatches microbatches (0: pp); the checks are the JAX trainer's
+(pretrain.py:158-175,270-285). Its `-best` and final checkpoints hold the
+whole tower under the reference keys (rank 0 gathers the stages), and its
+`.state` the whole model and optimizer, which a run at the same --pp
+resumes.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ import torch
 from lr2ppo_torch.config import Config
 from lr2ppo_torch.device import compute_dtype
 from lr2ppo_torch.parallel.mesh import active
+from lr2ppo_torch.parallel.pipeline import (GPipe, check_pp_supported,
+                                            keep_stage)
 from lr2ppo_torch.towers.model import TowerConfig, TowerModel, init_weights
 from lr2ppo_torch.towers.torch_import import load_tower_checkpoint
 from lr2ppo_torch.train import checkpoints
@@ -47,9 +55,6 @@ from lr2ppo_torch.train.common import (BestSaver, TrainState, apply_updates,
                                        peek_batch, resume_fit_state,
                                        save_train_state)
 from lr2ppo_torch.utils import MetricLogger, check_finite, init_logger
-
-MULTI_GPU = "not ported yet (ROADMAP.md, A: multi-GPU)"
-
 
 def norm_target_out(out, rows: int):
     """(loss, correct, denom) from a target's output: mlm, lm and bilm give
@@ -65,10 +70,25 @@ def norm_target_out(out, rows: int):
     return out
 
 
-def make_pretrain_step(accum: int = 1):
+def make_pretrain_step(accum: int = 1, pipe: Optional[GPipe] = None):
     """step(state, generator, batch) -> {"loss", "acc"} as detached
     tensors; `batch` holds device tensors of accum x micro rows of the
-    'simple' form (src, tgt, seg). The state is updated in place."""
+    'simple' form (src, tgt, seg). The state is updated in place. Under pp
+    (`pipe`, the JAX make_pretrain_step_pp) each micro-batch runs pipe's
+    GPipe schedule, its dropout seeds keyed by one draw from the generator,
+    and every stage returns the last stage's metrics."""
+    from lr2ppo_torch.ops.hash_dropout import draw_seed
+
+    def micro(model, generator, mb):
+        if pipe is not None:
+            return pipe.forward_backward(mb["src"], mb["tgt"], mb["seg"],
+                                         draw_seed(generator))
+        out = model(mb["src"], mb["tgt"], mb["seg"], deterministic=False,
+                    generator=generator)
+        loss, correct, denom = norm_target_out(
+            out, mb["src"].shape[0] * active().dp)
+        loss.backward()
+        return loss.detach(), correct.detach(), denom.detach()
 
     def step(state: TrainState, generator: torch.Generator, batch: dict):
         model = state.model
@@ -76,14 +96,8 @@ def make_pretrain_step(accum: int = 1):
         for a in range(accum):
             mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[a]
                   for k, v in batch.items()}
-            out = model(mb["src"], mb["tgt"], mb["seg"], deterministic=False,
-                        generator=generator)
-            loss, correct, denom = norm_target_out(
-                out, mb["src"].shape[0] * active().dp)
-            loss.backward()
-            lsum = lsum + loss.detach()
-            csum = csum + correct.detach()
-            dsum = dsum + denom.detach()
+            loss, correct, denom = micro(model, generator, mb)
+            lsum, csum, dsum = lsum + loss, csum + correct, dsum + denom
         if accum > 1:
             for p in model.parameters():
                 if p.grad is not None:
@@ -102,11 +116,11 @@ class PretrainTrainer:
 
     def __init__(self, cfg: Config, tower_cfg: TowerConfig,
                  accumulation_steps: int = 1, device=None):
-        for flag, on in (("--pp", cfg.mesh.pp > 1),
-                         ("--sp", tower_cfg.seq_parallel)):
-            if on:
-                raise NotImplementedError(f"{flag} is {MULTI_GPU}")
-        self.ctx = device_ctx(cfg, device)
+        self.pp = max(cfg.mesh.pp, 1)
+        if self.pp > 1:
+            check_pp_supported(tower_cfg, cfg.mesh)
+        self.pp_micro = cfg.mesh.pp_microbatches or self.pp
+        self.ctx = device_ctx(cfg, device, allow_pp=True)
         self.device = self.ctx.device
         self.cfg, self.tower_cfg = cfg, tower_cfg
         self.accum = max(accumulation_steps, 1)
@@ -119,6 +133,13 @@ class PretrainTrainer:
     def build_model(self) -> TowerModel:
         return TowerModel(self.tower_cfg, self.dtype, self.device,
                           with_target=True)
+
+    def place(self, model: TowerModel) -> TowerModel:
+        """A full-width model placed on the mesh: under pp cut to this
+        rank's stage first."""
+        if self.pp > 1:
+            keep_stage(model, self.pp, self.ctx.mesh.pp_rank)
+        return self.ctx.place(model)
 
     def init_model(self) -> TowerModel:
         """The tower with its target, from pretrained_model_path (a
@@ -134,7 +155,7 @@ class PretrainTrainer:
         else:
             init_weights(model, torch.Generator(
                 device=self.device).manual_seed(self.cfg.seed))
-        return self.ctx.place(model)
+        return self.place(model)
 
     def fit(self, train_loader, total_steps: Optional[int] = None,
             save_checkpoint_steps: int = 0):
@@ -153,7 +174,17 @@ class PretrainTrainer:
         if rows % self.accum:
             raise ValueError(f"batch_size {rows} must be divisible by "
                              f"accumulation_steps {self.accum}")
-        model = (self.ctx.place(self.build_model()) if cfg.resume_path
+        if self.pp > 1:
+            # `rows` is this rank's share: the global micro-batch is dp x
+            # larger
+            dp, m = self.ctx.mesh.dp, self.pp_micro
+            global_micro = rows // self.accum * dp
+            if global_micro % m or (global_micro // m) % dp:
+                raise ValueError(
+                    f"micro-batch {global_micro} must split into "
+                    f"--pp_microbatches={m} pipeline microbatches each "
+                    f"divisible by dp={dp}")
+        model = (self.place(self.build_model()) if cfg.resume_path
                  else self.init_model())
         state = init_state(model, self.ctx.optimizer(cfg.optim, model, total))
         generator = torch.Generator().manual_seed(cfg.seed + 1)
@@ -162,7 +193,10 @@ class PretrainTrainer:
             step, start_epoch, skip_batches, resume_best = resume_fit_state(
                 cfg, state, generator, steps_per_epoch, self.logger,
                 self.ctx)
-        step_fn = make_pretrain_step(self.accum)
+        self.pipe = (GPipe(model, self.ctx.mesh, self.pp_micro, self.dtype,
+                           self.device) if self.pp > 1 else None)
+        # the step of this fit, for a caller that times one more
+        self.step_fn = step_fn = make_pretrain_step(self.accum, self.pipe)
         saver = BestSaver(cfg.output_model_path + "-best"
                           if cfg.output_model_path else "", self.logger,
                           self.ctx)

@@ -66,7 +66,8 @@ def test_port_never_imports_jax():
             "lr2ppo_torch.utils.remat", "lr2ppo_torch.parallel",
             "lr2ppo_torch.parallel.mesh", "lr2ppo_torch.parallel.tp",
             "lr2ppo_torch.parallel.fsdp",
-            "lr2ppo_torch.parallel.dryrun"} <= set(res["modules"])
+            "lr2ppo_torch.parallel.dryrun",
+            "lr2ppo_torch.parallel.pipeline"} <= set(res["modules"])
     assert res["loaded"] == [], f"the port imported {res['loaded']}"
     assert res["lazy"] == [], f"imported at import time: {res['lazy']}"
 

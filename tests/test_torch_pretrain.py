@@ -173,14 +173,17 @@ def test_adafactor_and_remat_pretrain(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--pp", "2"], "ROADMAP"), (["--sp", "--tp", "2"], "ROADMAP"),
+    # --pp and --sp run (tests/test_torch_pipeline.py, test_torch_sp.py);
+    # what stays refused is outside their envelope, as in JAX
+    (["--pp", "2", "--fsdp"], "zero1/fsdp"), (["--sp"], "--tp > 1"),
     (["--data_processor", "vit"], "ROADMAP"),
     (["--data_processor", "t5"], "ROADMAP"),
     (["--jax_platform", "cpu"], "--device"),
 ], ids=["pp", "sp", "vit", "t5", "jax_platform"])
 def test_what_is_not_ported_raises(tmp_path, extra, match):
     files = _files(tmp_path)
-    with pytest.raises((NotImplementedError, SystemExit), match=match):
+    with pytest.raises((NotImplementedError, SystemExit, ValueError),
+                       match=match):
         tcli.main(_argv(files, str(tmp_path / "x"), *extra), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         str2tokenizer["image"]()

@@ -134,8 +134,11 @@ def test_serve_int8_flag_is_exact():
 
 
 def test_serve_refuses_multi_gpu(runs, tmp_path):
+    """In one process a mesh larger than the world raises, as the JAX
+    make_mesh asserts; serving at dp and tp runs in
+    tests/test_torch_serve_mesh.py."""
     jp, ckpt, _ = runs
     argv = _argv(ckpt, jp, str(tmp_path / "r.jsonl"), "false")
     argv[argv.index("--dp") + 1] = "2"
-    with pytest.raises(ValueError, match="one GPU"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         serve.main(argv, device="cpu")
