@@ -3,7 +3,8 @@
 three-stage LR2PPO recipe of both families, feature extraction, tower
 pretraining and multi-GPU training at full width.
 
-    python3 chip_smoke.py [--seed N] [--parallel_only]
+    python3 chip_smoke.py [--seed N] [--parallel_only | --pipeline_only |
+                           --processors_only]
 
 Phases, each of which raises on failure (exit code other than 0):
   1. device: torch and CUDA versions, the card's name and power limit;
@@ -134,7 +135,22 @@ Phases, each of which raises on failure (exit code other than 0):
      within phase 4's gate. `--parallel_only` runs, after phase 15's, pp 4,
      pp 2 x tp 2, pp 2 x dp 2 and fsdp at dp 4 over NCCL against the
      reference, tp 2 with and without --sp over NCCL, and the service at
-     dp 4.
+     dp 4;
+ 17. the encoder-only pretraining processors, K2 under tp and the trace
+     window: hash dropout against its plain version at bert's two sites;
+     cli.pretrain's build and fit at --data_processor bert --hash_dropout
+     (XLM-R base with the mlm and sp targets, phase 14's batch, P17_STEPS
+     steps, a synthetic documents corpus from the seed; the launches,
+     finite losses and moved weights held, one more step timed); K2's tp
+     entry (the int32 product and the epilogue) bit for bit against their
+     plain versions at a tp-2 rank's shard of the rollout's fc2 site, timed
+     beside torch._int_mm; one spawn of two gloo ranks sharing card 0: the
+     fc2 site at tp 2 with NARROW_SITES on, bit-equal to K2 at world 1, and
+     project_tsv of a seeded flagship-width 2-data model at dp 2 (world
+     1's file byte for byte) and tp 2 (within float32 rounding), rank 0
+     writing; stage 1 at phase 12's geometry with --profile_dir for 21
+     steps, whose trace of steps 10-20 must exist and name the kernels.
+     `--processors_only` runs the build and phase 17 alone.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -179,7 +195,9 @@ from lr2ppo_torch.ops.dropout import philox_dropout, philox_dropout_reference
 from lr2ppo_torch.ops.hash_dropout import hash_dropout, hash_dropout_reference
 from lr2ppo_torch.ops import int8 as int8_ops
 from lr2ppo_torch.ops.int8 import quantize_rows, quantize_weight
-from lr2ppo_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+from lr2ppo_torch.ops.int8_matmul import (int8_dot_s32, int8_dot_s32_reference,
+                                          int8_matmul, int8_matmul_reference,
+                                          s32_epilogue, s32_epilogue_reference)
 from lr2ppo_torch.ops.int8_mlp import int8_mlp, int8_mlp_reference
 from lr2ppo_torch.train.checkpoints import load_any, trad_dims_from_state_dict
 from lr2ppo_torch.train.common import init_state
@@ -2156,11 +2174,12 @@ def traced_ms(prof, name: str) -> list:
             if e.device_type == DeviceType.CUDA and name in e.name]
 
 
-def hash_trace_ms(x, n: int = 20) -> tuple:
+def hash_trace_ms(x, n: int = 20, place=None) -> tuple:
     """The hash dropout kernel's median device time a launch over a trace
-    of n launches on x, and the count of launches the trace holds."""
+    of n launches on x (at `place`, a shard's), and the count of launches
+    the trace holds."""
     times = traced_ms(steady_trace(
-        lambda: [hash_dropout(x, i, DROP_RATE) for i in range(n)]),
+        lambda: [hash_dropout(x, i, DROP_RATE, place) for i in range(n)]),
         "hash_dropout")
     if not times:
         raise AssertionError(f"the trace of {n} hash dropout launches holds "
@@ -3100,6 +3119,15 @@ def pipeline_path(args, dev, card_line: str, shared: bool = True) -> dict:
     site = check_dropout("hash_dropout", P16_SP_SHAPE, torch.float32,
                          args.seed + 60, dev, True, card_line,
                          (P16_SP_PLACE,))
+    # the device time a launch, beside the one call's (host path included)
+    x = torch.randn(P16_SP_SHAPE, device=dev)
+    site["trace_ms"], site["traced_launches"] = hash_trace_ms(
+        x, place=P16_SP_PLACE)
+    site["bound_share_trace"] = site["bound_ms"] / site["trace_ms"]
+    emit(phase="sp_place_trace", trace_ms=site["trace_ms"],
+         traced_launches=site["traced_launches"],
+         bound_share_trace=site["bound_share_trace"], card=card_line)
+    del x
     torch.cuda.empty_cache()
     cfg = TowerConfig.from_dict(XLMR_BASE)
     world = torch.cuda.device_count()
@@ -3208,11 +3236,364 @@ def pipeline_path(args, dev, card_line: str, shared: bool = True) -> dict:
                                  if k.startswith("serve_dp") for r in v)}
 
 
+# -- phase 17: the encoder-only pretraining processors, K2 under tp, the
+# trace window ---------------------------------------------------------------
+P17_STEPS = 3                       # bert's optimizer steps
+P17_DOCS = 260                      # documents of the synthetic bert corpus
+# a tp-2 rank's half of the rollout's fc2 site: (rows, K / 2, N)
+K2_TP_SHAPE = (ROLLOUT_ROWS, H // 2, D)
+P17_TSV_ROWS = 9630                 # MQ2008's rows, phase 13's shape
+P17_PROFILE_STEPS = 21              # stage 1 past the window (10 to 20)
+
+
+def bert_files(tmp: str, seed: int) -> dict:
+    """Phase 14's vocabulary, a corpus of P17_DOCS documents (blank-line
+    separated, 4 to 9 sentences of 8 to 40 Zipf-distributed words each),
+    and XLM-R base's config with the mlm and sp targets (bert's)."""
+    paths = pretrain_corpus(tmp, seed)
+    rng = np.random.default_rng(seed + 1)
+    n_words = PRE_VOCAB - len(PRE_SPECIALS)
+    lines = []
+    for _ in range(P17_DOCS):
+        for _ in range(int(rng.integers(4, 10))):
+            ranks = rng.zipf(1.1, size=int(rng.integers(8, 41)))
+            lines.append(" ".join(f"w{min(r, n_words) - 1}" for r in ranks))
+        lines.append("")
+    paths["docs"] = os.path.join(tmp, "docs.txt")
+    with open(paths["docs"], "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    paths["bert_tower"] = os.path.join(tmp, "xlmr_base_bert.json")
+    with open(paths["bert_tower"], "w") as f:
+        json.dump({**XLMR_BASE, "target": ["mlm", "sp"]}, f)
+    return paths
+
+
+def bert_path(seed: int, dev, card_line: str) -> dict:
+    """Phase 17, first: hash dropout against its plain version at bert's
+    two sites, then `cli.pretrain` at --data_processor bert --hash_dropout
+    (XLM-R base, the mlm and sp targets, 2 micro-batches of 32 x 128, the
+    pair_sp form) for P17_STEPS steps, built as main builds it; the
+    launches, finite losses and moved weights held; one more step timed on
+    a device-resident batch. Returns the sites and the launches."""
+    sites = {name: check_dropout("hash_dropout", shape, torch.float32,
+                                 seed + i, dev, False, card_line)
+             for i, (name, shape) in enumerate(PRE_SITES.items())}
+    cfg = TowerConfig.from_dict(XLMR_BASE)
+    want = (1 + 3 * cfg.layers_num) * 2 * PRE_ACCUM * P17_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = bert_files(tmp, seed + 2)
+        out = os.path.join(tmp, "bert")
+        argv = pretrain_argv(paths, out, P17_STEPS)
+        for flag, key in (("--corpus_path", "docs"),
+                          ("--tower_config", "bert_tower")):
+            argv[argv.index(flag) + 1] = paths[key]
+        argv[argv.index("--data_processor") + 1] = "bert"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, loader = pretrain.build(pretrain.parser().parse_args(argv),
+                                         dev)
+        build_s = time.perf_counter() - t0
+        hash_dropout.launches = 0
+        with watched_init() as seen:
+            state, best = trainer.fit(loader, P17_STEPS)
+        torch.cuda.synchronize()
+        launches = hash_dropout.launches
+        fit_s = time.perf_counter() - t0 - build_s
+        with open(out + ".log.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        params = dict(state.model.named_parameters())
+        move = {k: float((params[k].detach().cpu() - v).abs().max())
+                for k, v in seen[0].items()}
+        losses = [r["loss"] for r in recs]
+        instances = len(loader.ds)
+        if not (trainer.form == "pair_sp" and len(recs) == P17_STEPS
+                and np.isfinite(losses).all()
+                and all(v > 0 for v in move.values())
+                and launches == want):
+            raise AssertionError(
+                f"bert: form {trainer.form}, losses {losses}, moved {move}, "
+                f"{launches} hash dropout launches (want {want})")
+        batch = trainer.ctx.put({k: v for k, v in next(iter(loader)).items()
+                                 if not k.startswith("_")})
+        gen = torch.Generator().manual_seed(seed)
+        step_ms = cuda_ms(lambda: trainer.step_fn(state, gen, batch),
+                          iters=2, warmup=1)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        del trainer, loader, state, params, batch
+    torch.cuda.empty_cache()
+    tokens = PRE_BS * PRE_ACCUM * PRE_SEQ
+    emit(phase="bert", processor="bert", form="pair_sp",
+         targets=["mlm", "sp"], micro_batch=[PRE_BS, PRE_SEQ],
+         accumulation=PRE_ACCUM, steps=P17_STEPS, instances=instances,
+         losses=losses, accs=[r["acc"] for r in recs], best_acc=best,
+         moved=move, hash_dropout_launches=launches,
+         hash_dropout_launches_expected=want, build_seconds=build_s,
+         fit_seconds=fit_s, step_ms=step_ms, tokens_a_step=tokens,
+         tokens_s=tokens / (step_ms / 1e3), peak_mem_gb=peak_gb,
+         sites={k: v["forward_bit_equal"] and v["backward_bit_equal"]
+                for k, v in sites.items()},
+         card=card_line)
+    return {"sites": sites, "launches": launches}
+
+
+def check_k2_tp(seed: int, dev, card_line: str) -> dict:
+    """Phase 17: the tp entry's two kernels against their plain versions,
+    bit for bit, at a tp-2 rank's shard of the rollout's fc2 site, with
+    their times beside the plain versions', the bounds and torch._int_mm's
+    (the same int32 product from the same int8 operands)."""
+    rows, k, n = K2_TP_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, k, device=dev, generator=gen).to(torch.bfloat16)
+    q, s = quantize_weight(torch.randn(n, k, device=dev, generator=gen)
+                           * 0.05)
+    xq, xs = quantize_rows(x.float())
+    del x
+    acc = int8_dot_s32(xq, q)
+    y = s32_epilogue(acc, xs, s, torch.bfloat16)
+    torch.cuda.synchronize()
+    acc_ref = int8_dot_s32_reference(xq, q)
+    y_ref = s32_epilogue_reference(acc, xs, s, torch.bfloat16)
+    out = {
+        "int8_dot_s32": {"bit_equal": bool(torch.equal(acc, acc_ref)),
+                         "max_abs_err": float((acc - acc_ref).abs().max())},
+        "s32_epilogue": {"bit_equal": bool(torch.equal(y, y_ref)),
+                         "max_abs_err": float((y.float() - y_ref.float())
+                                              .abs().max())}}
+    del acc_ref, y, y_ref
+    if not all(r["bit_equal"] for r in out.values()):
+        emit(phase="k2_tp_vs_plain", failed=True, **out)
+        raise AssertionError(f"the tp entry disagrees with its plain "
+                             f"versions: {out}")
+    r = out["int8_dot_s32"]
+    r["ms"] = cuda_ms(lambda: int8_dot_s32(xq, q))
+    r["plain_ms"] = cuda_ms(lambda: int8_dot_s32_reference(xq, q), iters=3,
+                            warmup=1)
+    r["library_ms"] = cuda_ms(lambda: torch._int_mm(xq, q.t()))
+    r.update(bound(rows * k + n * k + 4 * rows * n, 2 * rows * k * n,
+                   INT8_TENSOR_OPS_PER_S))
+    r = out["s32_epilogue"]
+    r["ms"] = cuda_ms(lambda: s32_epilogue(acc, xs, s, torch.bfloat16))
+    r["plain_ms"] = cuda_ms(
+        lambda: s32_epilogue_reference(acc, xs, s, torch.bfloat16))
+    r["library_ms"] = None          # no one PyTorch call rescales int32
+    r.update(bound(4 * rows * n + 4 * rows + 4 * n + 2 * rows * n,
+                   2 * rows * n, VECTOR_OPS_PER_S))
+    for name, r in out.items():
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        emit(phase="k2_tp_vs_plain", kernel=name, rows=rows, k=k, n=n,
+             card=card_line, **r)
+    del xq, xs, acc
+    torch.cuda.empty_cache()
+    return out
+
+
+def p17_k2_leg(mesh, dev, seed: int) -> dict:
+    """The rollout's fc2 site at tp 2 with NARROW_SITES on: this rank's
+    half of K through int8_linear (the tp entry, its int32 parts summed
+    over tp), held bit for bit against K2 on the whole arrays, which each
+    rank also computes. The tp entry's launches are counted from 0 over
+    the tp call alone."""
+    rows, k, n = ROLLOUT_ROWS, H, D
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, k, device=dev, generator=gen).to(torch.bfloat16)
+    q, s = quantize_weight(torch.randn(n, k, device=dev, generator=gen)
+                           * 0.05)
+    half = slice(mesh.tp_rank * k // 2, (mesh.tp_rank + 1) * k // 2)
+    xh, qh = x[:, half].contiguous(), q[:, half].contiguous()
+    with int8_routing(NARROW_SITES=True):
+        int8_dot_s32.launches = s32_epilogue.launches = 0
+        int8_matmul.launches = 0
+        got = int8_ops.int8_linear(xh, qh, s, torch.bfloat16, shape=(n, k),
+                                   mesh=mesh)
+        torch.cuda.synchronize()
+        counts = {"int8_dot_s32": int8_dot_s32.launches,
+                  "s32_epilogue": s32_epilogue.launches,
+                  "int8_matmul": int8_matmul.launches}
+    want = int8_matmul(x, q, s, torch.bfloat16)
+    torch.cuda.synchronize()
+    return {"launches": counts, "bit_equal": bool(torch.equal(got, want)),
+            "max_abs_err": float((got.float() - want.float()).abs().max())}
+
+
+def p17_project_leg(job: dict, dp: int, tp: int, dev) -> str:
+    """project_tsv of the phase's tsv at (dp, tp) on this rank's device;
+    rank 0 writes. Returns the file rank 0 wrote."""
+    from lr2ppo_torch.parallel.mesh import active
+
+    cfg = tab_config(job["tmp"], f"p17_dp{dp}_tp{tp}", job["seed"],
+                     "--dp", str(dp), "--tp", str(tp))
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                trad_dims=job["dims"]))
+    out = os.path.join(job["tmp"], f"projected_dp{dp}_tp{tp}.tsv")
+    sd = torch.load(job["state"], map_location=dev)
+    project_tsv(cfg, sd, job["tsv"], out, device=dev)
+    return out if active().is_main else None
+
+
+def p17_rank(rank, world, url, backend, job, queue) -> None:
+    """One gloo rank of phase 17's spawn, sharing card 0: the K2 tp leg,
+    then project_tsv at dp 2 and at tp 2."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from lr2ppo_torch.parallel.mesh import make_mesh, set_active
+
+    try:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=url, rank=rank,
+                                world_size=world)
+        mesh = make_mesh(1, 2)
+        set_active(mesh)
+        res = {"k2": p17_k2_leg(mesh, dev, job["seed"])}
+        torch.cuda.empty_cache()
+        res["projected"] = {f"dp{dp}_tp{tp}": p17_project_leg(job, dp, tp,
+                                                              dev)
+                            for dp, tp in ((2, 1), (1, 2))}
+        res["card"] = card()
+        queue.put((rank, res))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh_legs(seed: int, dev, card_line: str) -> dict:
+    """Phase 17's one spawn of two gloo ranks sharing card 0: K2's tp route
+    at the rollout's fc2 site bit-equal to K2 at world 1 on each rank; the
+    export of a seeded flagship-width 2-data model's projection of an
+    MQ2008-shaped tsv at dp 2 (world 1's file byte for byte) and at tp 2
+    (within float32 rounding of world 1's), rank 0 writing."""
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(seed)
+        n, feats = P17_TSV_ROWS, LETOR_SHAPES["mq2008"][1]
+        rows = np.concatenate(
+            [rng.integers(0, 3, (n, 1)), np.sort(rng.integers(0, 400, (n, 1)),
+                                                 axis=0),
+             rng.standard_normal((n, feats))], axis=1).astype(np.float32)
+        tsv = os.path.join(tmp, "mq2008.tsv")
+        write_tsv(rows, tsv)
+        dims = [feats, LETOR_SHAPES["web10k"][1]]
+        cfg = tab_config(tmp, "p17_world1", seed)
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    trad_dims=dims))
+        model = TwoDataScoreModel(cfg.model, device=dev)
+        init_weights(model, torch.Generator(device=dev).manual_seed(seed))
+        state = os.path.join(tmp, "two_data.pt")
+        torch.save(model.state_dict(), state)
+        one = os.path.join(tmp, "projected_world1.tsv")
+        project_tsv(cfg, model.state_dict(), tsv, one, device=dev)
+        del model
+        job = {"tmp": tmp, "seed": seed, "dims": dims, "tsv": tsv,
+               "state": state}
+        t0 = time.perf_counter()
+        ranks = spawn_leg("phase 17", 2, "gloo", job, p17_rank,
+                          timeout=300)
+        leg_s = time.perf_counter() - t0
+        with open(one) as f:
+            want = f.read()
+        files = ranks[0]["projected"]
+        with open(files["dp2_tp1"]) as f:
+            dp_equal = f.read() == want
+        a, b = read_tsv(files["dp1_tp2"]), read_tsv(one)
+        tp_gap = float(np.abs(a - b).max())
+        tp_scale = float(np.abs(b[:, 2:]).max())
+        rank1_wrote = any(v is not None
+                          for v in ranks[1]["projected"].values())
+    k2 = [r["k2"] for r in ranks]
+    res = {"k2_tp_bit_equal": [r["bit_equal"] for r in k2],
+           "k2_tp_launches": [r["launches"] for r in k2],
+           "project_dp2_byte_equal": dp_equal,
+           "project_tp2_max_abs_diff": tp_gap,
+           "project_tp2_scale": tp_scale, "project_head_equal":
+               bool(np.array_equal(a[:, :2], b[:, :2])),
+           "rank1_wrote": rank1_wrote, "leg_seconds": leg_s,
+           "ranks_card": [r["card"] for r in ranks], "card": card_line}
+    emit(phase="p17_mesh_legs", **res)
+    if not (all(res["k2_tp_bit_equal"]) and dp_equal
+            and res["project_head_equal"] and not rank1_wrote
+            and tp_gap <= 1e-5 * tp_scale
+            and all(c == {"int8_dot_s32": 1, "s32_epilogue": 1,
+                          "int8_matmul": 0} for c in res["k2_tp_launches"])):
+        raise AssertionError(f"phase 17's mesh legs: {res}")
+    return {"launches": {name: sum(c[name] for c in res["k2_tp_launches"])
+                         for name in ("int8_dot_s32", "s32_epilogue")},
+            "max_abs_err": max(r["max_abs_err"] for r in k2)}
+
+
+def traced_stage1(seed: int, dev, card_line: str) -> dict:
+    """Phase 17, last: stage 1 at phase 12's geometry (batch 32 x 32 tags,
+    --profile fast) for P17_PROFILE_STEPS steps with --profile_dir: the
+    window of steps 10 to 20 is written as one Chrome trace, which must
+    name the hash dropout kernel (6 launches a step) and the products."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = stage_config(tmp, "p17_stage1", seed, BUCKET)
+        cfg = cfg.replace(profile_dir=os.path.join(tmp, "profile"),
+                          report_steps=P17_PROFILE_STEPS)
+        trainer = PointwiseTrainer(cfg, dev)
+        # three batches in turn: 21 of 616 MB would take a while to draw
+        batches = item_batches(3, cfg.model, seed, STAGE_BS, BUCKET)
+        loader = BatchList([batches[i % 3]
+                            for i in range(P17_PROFILE_STEPS)])
+        evb, _ = synthetic_batches(1, cfg.model, seed + 1, items=8,
+                                   bucket=8, tags=(2, 8))
+        t0 = time.perf_counter()
+        state, _ = trainer.fit(loader, evb)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        path = trainer.trace_path
+        if not (path and os.path.exists(path)):
+            raise AssertionError(f"stage 1 with --profile_dir wrote no "
+                                 f"trace (trace_path {path})")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        kernels = sorted({e["name"] for e in events
+                          if e.get("cat") == "kernel"})
+        hash_n = sum(1 for e in events if e.get("cat") == "kernel"
+                     and "hash_dropout" in e.get("name", ""))
+        steps = state.step
+        del trainer, state, loader, batches, events
+    torch.cuda.empty_cache()
+    res = {"steps": steps, "trace": os.path.basename(path),
+           "trace_bytes": size, "kernel_names": len(kernels),
+           "kernels": kernels[:40], "hash_dropout_kernels_traced": hash_n,
+           "hash_dropout_launches_in_window": 6 * 10,
+           "ops_named": sorted(n for n in names if n.startswith("aten::"))[
+               :20], "fit_seconds": fit_s, "card": card_line}
+    emit(phase="p17_profile_dir", **res)
+    if not (steps == P17_PROFILE_STEPS and size > 0 and hash_n > 0
+            and "aten::mm" in names):
+        raise AssertionError(f"stage 1 with --profile_dir: {res}")
+    return res
+
+
+def processors_path(args, dev, card_line: str) -> dict:
+    """Phase 17: bert at XLM-R base width, the tp entry's kernels, the
+    spawn of two gloo ranks (K2 at tp 2, project_tsv at dp 2 and tp 2) and
+    stage 1's trace window. Returns the kernels' runs and launches."""
+    t0 = time.perf_counter()
+    bert = bert_path(args.seed + 70, dev, card_line)
+    k2tp = check_k2_tp(args.seed + 71, dev, card_line)
+    legs = mesh_legs(args.seed + 72, dev, card_line)
+    traced_stage1(args.seed + 73, dev, card_line)
+    emit(phase="p17_seconds", seconds=time.perf_counter() - t0,
+         card=card_line)
+    return {"bert": bert, "k2_tp": k2tp, "legs": legs}
+
+
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pipeline_only", action="store_true",
                     help="build and run phase 16 alone on one card")
+    ap.add_argument("--processors_only", action="store_true",
+                    help="build and run phase 17 alone on one card")
     ap.add_argument("--parallel_only", action="store_true",
                     help="build and run phase 15's and phase 16's NCCL legs "
                          "alone (dp = the card count; on two or more cards "
@@ -3237,6 +3618,13 @@ def main(argv=None) -> None:
                 for k, v in built.items()})
     for name in build.ENTRIES:
         build.library(name)
+    if args.processors_only:
+        processors_path(args, dev, card_line)
+        print(card_line, flush=True)
+        emit(ok=True, device={"platform": "gpu",
+                              "kind": torch.cuda.get_device_name(0),
+                              "count": torch.cuda.device_count()})
+        return
     if args.pipeline_only:
         pipeline_path(args, dev, card_line)
         print(card_line, flush=True)
@@ -3290,6 +3678,8 @@ def main(argv=None) -> None:
     par = parallel_path(args, dev, card_line)
     torch.cuda.empty_cache()
     p16 = pipeline_path(args, dev, card_line)
+    torch.cuda.empty_cache()
+    p17 = processors_path(args, dev, card_line)
 
     main_k1 = serve_shape[torch.bfloat16]       # the serving path's dtype
     kernels = [{
@@ -3303,14 +3693,17 @@ def main(argv=None) -> None:
         "bound_ms": main_k1["bound_ms"], "bound_by": main_k1["bound_by"],
         "library_ms": None}]
     # hash dropout's launches: phase 7's, the tabular path's, the
-    # pretraining run's and the pipeline stages'
+    # pretraining run's, the pipeline stages' and bert's
     for name, launches, err in (
             ("hash_dropout",
              train_launches["hash_dropout"] + tab["launches"]
-             + pre["launches"] + p16["pp_launches"],
+             + pre["launches"] + p16["pp_launches"]
+             + p17["bert"]["launches"],
              max([drop["hash_dropout"]["max_abs_err"]]
                  + [r["max_abs_err"] for r in tab["sites"]]
-                 + [r["max_abs_err"] for r in pre["sites"].values()])),
+                 + [r["max_abs_err"] for r in pre["sites"].values()]
+                 + [r["max_abs_err"]
+                    for r in p17["bert"]["sites"].values()])),
             ("philox_dropout", k3_launches,
              drop["philox_dropout"]["max_abs_err"])):
         r = drop[name]
@@ -3366,6 +3759,21 @@ def main(argv=None) -> None:
         # no one PyTorch call quantizes x per row and multiplies in s8;
         # torch._int_mm on operands already quantized is in phase 11
         "library_ms": None})
+    # K2's tp entry: its two kernels at a tp-2 rank's shard of the
+    # rollout's fc2 site, launched in phase 17's tp leg
+    for name, entry in (("int8_dot_s32", "lr2ppo_int8_dot_s32"),
+                        ("s32_epilogue", "lr2ppo_int8_s32_epilogue")):
+        r = p17["k2_tp"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "entry": entry,
+            "source": "lr2ppo_torch/kernels/csrc/int8_matmul.cu",
+            "replaces": "lr2ppo_tpu/ops/pallas_int8_matmul.py:81",
+            "launches": p17["legs"]["launches"][name],
+            "max_abs_err": max(r["max_abs_err"],
+                               p17["legs"]["max_abs_err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     print(card_line, flush=True)
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",

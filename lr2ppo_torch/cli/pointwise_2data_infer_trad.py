@@ -24,19 +24,20 @@ from lr2ppo_torch.train.pointwise import project_tsv
 
 
 def main(argv=None, device=None) -> None:
-    """`device` defaults to the GPU (raising where there is none); the CPU
-    tests pass "cpu"."""
+    """`device` defaults to the GPU (raising where there is none; under a
+    mesh each rank's own card); the CPU tests pass "cpu"."""
     cfg = force_family(parse_config(
         argv, "lr2ppo-torch 2-data projection exporter"), "tabular")
     # the device first: without a GPU nothing is read
-    dev = require_cuda() if device is None else device
+    if device is None:
+        require_cuda()
     state_dict = checkpoints.load_any(cfg.pretrained_model_path)
     dims = checkpoints.trad_dims_from_state_dict(state_dict)
     if dims:
         cfg = cfg.replace(
             model=dataclasses.replace(cfg.model, trad_dims=dims))
     project_tsv(cfg, state_dict, cfg.data.input_features_path,
-                cfg.data.output_features_path, device=dev)
+                cfg.data.output_features_path, device=device)
 
 
 if __name__ == "__main__":

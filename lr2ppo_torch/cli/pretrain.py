@@ -14,8 +14,10 @@ global batch, --dp -1 takes the world over --pp and --tp, --zero1 and
 --fsdp shard the optimizer and the parameters over dp, --pp N runs the
 encoder as N pipeline stages of --pp_microbatches microbatches (GPipe,
 parallel/pipeline.py), --sp (with --tp > 1) splits the residual stream
-along the sequence over tp. The mlm, lm and cls processors run; every
-other processor and the image tokenizers raise, naming ROADMAP.md.
+along the sequence over tp. The mlm, lm, cls, bert, albert, cls_mlm, bilm
+and prefixlm processors run (data/pretrain_processors.py, in the batch
+form of str2form); every other processor and the image tokenizers raise,
+naming ROADMAP.md.
 It runs on the GPU unless `--device cpu` is given, and raises where there
 is no GPU. The checkpoints are reference-keyed `.bin` files.
 """
@@ -26,16 +28,22 @@ import argparse
 import json
 
 from lr2ppo_torch.config import Config, _parse_bool
+from lr2ppo_torch.data import pretrain_processors as processors
 from lr2ppo_torch.data.pipeline import Loader
 from lr2ppo_torch.data.pretrain_data import (ClsTsvDataset, LmCorpusDataset,
                                              MlmCorpusDataset)
+from lr2ppo_torch.data.pretrain_processors import (AlbertDocsDataset,
+                                                   BertDocsDataset,
+                                                   BilmCorpusDataset,
+                                                   ClsMlmTsvDataset,
+                                                   PrefixlmTsvDataset)
 from lr2ppo_torch.data.tokenizers import str2tokenizer
 from lr2ppo_torch.towers.model import TowerConfig
 from lr2ppo_torch.train.pretrain import PretrainTrainer
 
-# the JAX CLI's processors that wait (ROADMAP.md, queue A)
-NOT_PORTED_PROCESSORS = ("bert", "albert", "cls_mlm", "bilm", "mt", "t5",
-                         "gsg", "bart", "prefixlm", "vit", "clip", "vilt",
+# the JAX CLI's processors that wait (ROADMAP.md, queue A: the seq2seq
+# towers, then image and speech pretraining)
+NOT_PORTED_PROCESSORS = ("mt", "t5", "gsg", "bart", "vit", "clip", "vilt",
                          "s2t", "beit", "dalle")
 
 
@@ -70,8 +78,13 @@ def _mask_id(tok):
     return mid
 
 
-# data_processor -> dataset builder; each gives the 'simple' batch form
-# (src, tgt, seg) of the JAX trainer
+# data_processor -> the trainer's batch form (train/pretrain.py:form_args),
+# as in the JAX CLI
+str2form = {"mlm": "simple", "lm": "simple", "cls": "simple",
+            "prefixlm": "simple", "bert": "pair_sp", "albert": "pair_sp",
+            "cls_mlm": "pair_cls", "bilm": "bilm"}
+
+# data_processor -> dataset builder, the JAX CLI's
 str2dataset = {
     "mlm": lambda path, tok, args, cfg: MlmCorpusDataset(
         path, tok, args.seq_length, cfg.vocab_size, _mask_id(tok),
@@ -81,6 +94,21 @@ str2dataset = {
         *_special_ids_csp(tok)),
     "cls": lambda path, tok, args, cfg: ClsTsvDataset(
         path, tok, args.seq_length, *_special_ids_csp(tok)),
+    "bert": lambda path, tok, args, cfg: BertDocsDataset(
+        path, tok, args.seq_length, cfg.vocab_size, _mask_id(tok),
+        seed=args.seed, short_seq_prob=args.short_seq_prob,
+        dup_factor=args.dup_factor),
+    "albert": lambda path, tok, args, cfg: AlbertDocsDataset(
+        path, tok, args.seq_length, cfg.vocab_size, _mask_id(tok),
+        seed=args.seed, short_seq_prob=args.short_seq_prob,
+        dup_factor=args.dup_factor),
+    "cls_mlm": lambda path, tok, args, cfg: ClsMlmTsvDataset(
+        path, tok, args.seq_length, cfg.vocab_size, _mask_id(tok),
+        seed=args.seed),
+    "bilm": lambda path, tok, args, cfg: BilmCorpusDataset(
+        path, tok, args.seq_length),
+    "prefixlm": lambda path, tok, args, cfg: PrefixlmTsvDataset(
+        path, tok, args.seq_length),
 }
 
 
@@ -150,8 +178,8 @@ def build(args, device=None):
     if args.data_processor in NOT_PORTED_PROCESSORS:
         raise SystemExit(
             f"--data_processor {args.data_processor}: not ported yet "
-            "(ROADMAP.md, queue A: the rest of the pretraining processors; "
-            "mlm, lm and cls run)")
+            "(ROADMAP.md, queue A: the seq2seq towers, then image and "
+            f"speech pretraining; {', '.join(sorted(str2dataset))} run)")
     if args.jax_platform:
         raise SystemExit("--jax_platform names a JAX backend; lr2ppo_torch "
                          "takes --device")
@@ -163,6 +191,9 @@ def build(args, device=None):
             tokenizer_json_path=args.tokenizer_json)
     else:
         tok = str2tokenizer[args.tokenizer](args.vocab_path)
+    # frame the processors' instances with the tokenizer's own special ids
+    # (their defaults are the XLM-R layout), as the JAX CLI does
+    processors.set_special_ids(*_special_ids(tok))
 
     vocab_size = max(len(tok.vocab), 1)
     # grow-only max_seq_length: keep the JSON's own value (XLM-R's 514)
@@ -202,7 +233,8 @@ def build(args, device=None):
                            else -1)
     # refuses what is not ported before the corpus is read
     trainer = PretrainTrainer(cfg, tower_cfg, args.accumulation_steps,
-                              device=device)
+                              device=device,
+                              form=str2form[args.data_processor])
 
     ds = str2dataset[args.data_processor](args.corpus_path, tok, args,
                                           tower_cfg)

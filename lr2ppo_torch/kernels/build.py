@@ -43,7 +43,11 @@ ENTRIES = {
     "int8_matmul": {
         "lr2ppo_int8_matmul": ([_vp] * 4 + [_i64] + [_i32] * 4 + [_vp, _vp],
                                _i32),
-        "lr2ppo_int8_matmul_scratch_bytes": ([_i64, _i32], _i64)},
+        "lr2ppo_int8_matmul_scratch_bytes": ([_i64, _i32], _i64),
+        # the tp entry: the int32 product, then the epilogue
+        "lr2ppo_int8_dot_s32": ([_vp] * 3 + [_i64, _i32, _i32, _vp], _i32),
+        "lr2ppo_int8_s32_epilogue": ([_vp] * 4 + [_i64, _i32, _i32, _vp],
+                                     _i32)},
     # the elementwise arguments, then the shard's place in the global
     # array: (row0, col0, width, w) for hash, the element offset for Philox
     "hash_dropout": {"lr2ppo_hash_dropout": (

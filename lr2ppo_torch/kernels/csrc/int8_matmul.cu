@@ -213,6 +213,84 @@ __global__ void __launch_bounds__(BLOCK, 1)
   }
 }
 
+// The tp entry's product (ops/int8_matmul.py:int8_matmul_tp): acc = xq . W^T
+// as exact int32 sums, from int8 rows the caller quantized (a tp rank's K/tp
+// columns of each row, scaled by the row's amax over tp) and the rank's
+// columns of W; no epilogue, so the parts can be summed over tp exactly
+// before one rescale. K1/K2's ring as above, with A streamed by TMA
+// straight from xq: no quantize pass, no scratch, no hand-off barrier.
+// Rows past the end read as zeros and their sums are not stored.
+__global__ void __launch_bounds__(BLOCK, 1)
+    int8_dot_s32_kernel(const __grid_constant__ CUtensorMap map_xq,
+                        const __grid_constant__ CUtensorMap map_w, int* __restrict__ acc_out,
+                        long long rows, int k, int n) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES];
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+
+  if (threadIdx.x == 0) ring_init(full, empty);
+  __syncthreads();
+
+  const long long tiles = (rows + BM - 1) / BM;
+  const int nchunk = (n + BN - 1) / BN;
+  uint32_t it = 0;
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (threadIdx.x != 0) return;
+    for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+      produce(&map_xq, (int)(tile * BM), &map_w, k, nchunk, ring, full, empty, it);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int r0 = (ctid() / 128) * 64 + ((ctid() / 32) & 3) * 16 + (lane >> 2);
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long row0 = tile * BM;
+    const int live = rows - row0 < BM ? (int)(rows - row0) : BM;
+    int* at = acc_out + row0 * n;
+    consume(k, n, ring, full, empty, it, [&](int c, const int (&acc)[2][64], bool second) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (hf == 1 && !second) break;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = c * BN + hf * HALF + j * 8 + 2 * t;
+          if (r0 < live)
+            *reinterpret_cast<int2*>(at + (size_t)r0 * n + col) =
+                make_int2(acc[hf][4 * j], acc[hf][4 * j + 1]);
+          if (r0 + 8 < live)
+            *reinterpret_cast<int2*>(at + (size_t)(r0 + 8) * n + col) =
+                make_int2(acc[hf][4 * j + 2], acc[hf][4 * j + 3]);
+        }
+      }
+    });
+  }
+}
+
+// The tp entry's epilogue: y = (float(acc) * xs[row]) * ws[col], rounded
+// once to O, K2's epilogue (rescale) on the int32 sums over tp. Four
+// elements a thread a step (n is a multiple of 128): 16 bytes of acc in,
+// 8 or 16 bytes of y out. Bytes-bound: 4 + sizeof(O) bytes an element.
+template <typename O>
+__global__ void s32_epilogue_kernel(const int4* __restrict__ acc, const float* __restrict__ xs,
+                                    const float* __restrict__ ws, O* __restrict__ y,
+                                    long long quads, int n) {
+  const int qn = n / 4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < quads;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / qn;
+    const int c = (int)(i - r * qn) * 4;
+    const int4 a = acc[i];
+    const float sx = xs[r];
+    O* dst = y + r * n + c;
+    store2<O>(dst, rescale(a.x, sx, ws[c]), rescale(a.y, sx, ws[c + 1]));
+    store2<O>(dst + 2, rescale(a.z, sx, ws[c + 2]), rescale(a.w, sx, ws[c + 3]));
+  }
+}
+
 template <typename T, typename O>
 int launch(const void* x, const void* w, const void* ws, void* y, long long rows, int k, int n,
            void* scratch, cudaStream_t stream) {
@@ -259,6 +337,46 @@ int lr2ppo_int8_matmul(const void* x, const void* w, const void* ws, void* y, lo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == 0) return launch_out<float>(x, w, ws, y, rows, k, n, out_dtype, scratch, s);
   return launch_out<__nv_bfloat16>(x, w, ws, y, rows, k, n, out_dtype, scratch, s);
+}
+
+// The tp entry's product, launched on `stream`; returns cudaGetLastError().
+// xq is (rows, k) int8 and w (n, k) int8, both row-major and 16-byte
+// aligned; acc is (rows, n) int32. Needs k and n multiples of 128.
+int lr2ppo_int8_dot_s32(const void* xq, const void* w, void* acc, long long rows, int k, int n,
+                        void* stream) {
+  if (rows <= 0 || k <= 0 || n <= 0 || k % 128 != 0 || n % 128 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int err = set_smem(int8_dot_s32_kernel);
+  if (err != 0) return err;
+  CUtensorMap mxq, mw;
+  if (!make_map(&mxq, xq, rows, k, BM) || !make_map(&mw, w, n, k, BN))
+    return (int)cudaErrorInvalidValue;
+  int8_dot_s32_kernel<<<(unsigned)grid_for(rows), BLOCK, SMEM_BYTES,
+                        static_cast<cudaStream_t>(stream)>>>(mxq, mw, static_cast<int*>(acc),
+                                                             rows, k, n);
+  return (int)cudaGetLastError();
+}
+
+// The tp entry's epilogue, launched on `stream`; returns cudaGetLastError().
+// acc is (rows, n) int32, xs (rows,) and ws (n,) float32, y (rows, n) of
+// out_dtype (0 = float32, 1 = bfloat16); n a multiple of 4, every pointer
+// 16-byte aligned.
+int lr2ppo_int8_s32_epilogue(const void* acc, const void* xs, const void* ws, void* y,
+                             long long rows, int n, int out_dtype, void* stream) {
+  if (rows <= 0 || n <= 0 || n % 4 != 0 || (out_dtype != 0 && out_dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const long long quads = rows * (n / 4);
+  const unsigned grid = lr2ppo::grid_for(quads, 256);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int4* a = static_cast<const int4*>(acc);
+  const float* sx = static_cast<const float*>(xs);
+  const float* sw = static_cast<const float*>(ws);
+  if (out_dtype == 0)
+    s32_epilogue_kernel<float><<<grid, 256, 0, s>>>(a, sx, sw, static_cast<float*>(y), quads, n);
+  else
+    s32_epilogue_kernel<__nv_bfloat16>
+        <<<grid, 256, 0, s>>>(a, sx, sw, static_cast<__nv_bfloat16*>(y), quads, n);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -122,16 +122,17 @@ class Linear(nn.Module):
             x = gather_seq(x, self.mesh) if sp else copy_to_tp(x, self.mesh)
         if self.use_int8:
             # the route gates see the global shape, as in JAX; a row split
-            # quantizes x per row over the whole row (amax over tp)
+            # quantizes x per row over the whole row (amax over tp) and
+            # comes back summed over tp
             y = int8_ops.int8_linear(
                 x.to(dt), self.weight, self.weight_scale, dt,
                 shape=(self.out_features, self.in_features),
-                amax_mesh=self.mesh if self.tp_dim == 1 else None)
+                mesh=self.mesh if self.tp_dim == 1 else None)
         else:
             y = torch.matmul(x.to(dt), self.weight.to(dt).t())
-        if self.tp_dim == 1:
-            y = (reduce_scatter_seq(y, self.mesh) if sp
-                 else reduce_from_tp(y, self.mesh))
+            if self.tp_dim == 1:
+                y = (reduce_scatter_seq(y, self.mesh) if sp
+                     else reduce_from_tp(y, self.mesh))
         if self.bias is not None:
             bias = self.bias.to(y.dtype)
             y = y + (seq_param(bias, y, self.mesh)

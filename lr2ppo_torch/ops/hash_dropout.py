@@ -236,21 +236,30 @@ def draw_seed(generator: torch.Generator) -> int:
                              dtype=torch.int64))
 
 
-def shard_place(x: torch.Tensor, tp_from: Optional[int] = None):
+# shard_place's `tp_from` for a --sp sequence shard
+SEQ = "seq"
+
+
+def shard_place(x: torch.Tensor, tp_from=None):
     """This rank's place (row0, col0, width, w) for a dropout site's x
     under the active mesh, or None where x is the whole array. The batch
     axis leads and is split over dp; `tp_from` is the first dim of a
     tp-split trailing block (the column-split hidden: -1; head-split
-    attention probabilities: 1; under --sp a residual branch's (B, S/tp,
-    H) sequence shard: 1, so a token s of the shard at s0 hashes b * S * H
-    + (s0 + s) * H + h, its index in the global array), None where x is
-    whole on every tp rank."""
+    attention probabilities: 1), or SEQ for a --sp residual branch's
+    (B, S/tp, H) sequence shard, so a token s of the shard at s0 hashes
+    b * S * H + (s0 + s) * H + h, its index in the global array (the zero
+    tokens padding an uneven shard hash past its row and are dropped), or
+    None where x is whole on every tp rank."""
     from lr2ppo_torch.parallel.mesh import active
 
     mesh = active()
     if mesh.world == 1 or x.dim() == 0:
         return None
-    if tp_from is not None and mesh.tp > 1:
+    if tp_from == SEQ and mesh.tp > 1:
+        per = math.prod(x.shape[2:])
+        w = x.shape[1] * per
+        width, col0 = mesh.seq_len * per, mesh.tp_rank * w
+    elif tp_from is not None and tp_from != SEQ and mesh.tp > 1:
         w = math.prod(x.shape[tp_from:])
         width, col0 = w * mesh.tp, mesh.tp_rank * w
     else:

@@ -74,7 +74,7 @@ def quantize_weight(w: torch.Tensor):
 
 def int8_linear(x: torch.Tensor, weight: torch.Tensor,
                 weight_scale: torch.Tensor, out_dtype=None, shape=None,
-                amax_mesh=None) -> torch.Tensor:
+                mesh=None) -> torch.Tensor:
     """y = x @ weight.T with the JAX package's routes, in its order
     (lr2ppo_tpu/ops/int8.py:int8_matmul): with NARROW_SITES on, a narrow
     compute-bound site whose shapes the narrow int8 GEMM takes goes to it;
@@ -84,9 +84,17 @@ def int8_linear(x: torch.Tensor, weight: torch.Tensor,
     float weight is quantized first.
 
     A tp-split layer passes its global (out, in) `shape`, which the gates
-    read, and a row split passes `amax_mesh`: x holds part of each row, so
-    the row's amax is the max over tp. A split layer never takes the narrow
-    GEMM (its tp is not ported)."""
+    read, as JAX's gates read the global arrays. A row split (K over tp)
+    passes its `mesh`: x holds this rank's part of each row, the row's amax
+    is the max over tp, and the result is the whole product, summed over
+    tp. Where JAX takes the narrow GEMM, the row split sums exact int32
+    parts (int8_matmul_tp), so its bits are K2's on the global arrays; a
+    shard the kernel's gate refuses (K/tp not a multiple of 128) takes the
+    dequant route, as JAX does for a global shape its gate refuses. The s8 route sums its int32 parts over tp too,
+    as XLA partitions JAX's s32 dot; the dequant route sums its
+    `out_dtype` partial products (reduce_from_tp). A column split (N over
+    tp) never takes the narrow GEMM: no narrow int8 site is column-split
+    (parallel/mesh.py:RULES)."""
     out_dtype = out_dtype or x.dtype
     if weight.dtype != torch.int8:
         weight, weight_scale = quantize_weight(weight)
@@ -95,22 +103,35 @@ def int8_linear(x: torch.Tensor, weight: torch.Tensor,
     compute_bound = 2 * rows * k * n >= INT8_DYNQUANT_MIN_FLOPS
     narrow = n < INT8_DYNQUANT_MIN_WIDTH
     split = tuple(weight.shape) != (n, k)
-    if compute_bound and narrow and NARROW_SITES and not split:
+    row_split = mesh is not None and mesh.tp > 1
+    if compute_bound and narrow and NARROW_SITES:
         from lr2ppo_torch.ops import int8_matmul as k2
 
-        if k2.supported(x.shape, weight.shape):
+        if not split and k2.supported(x.shape, weight.shape):
             return k2.int8_matmul(x, weight, weight_scale.float(), out_dtype)
+        if (row_split and k2.supported((*x.shape[:-1], k), (n, k))
+                and k2.supported(x.shape, weight.shape)):
+            return k2.int8_matmul_tp(x, weight, weight_scale, out_dtype,
+                                     mesh)
     if not compute_bound or narrow:
         w = (weight.float() * weight_scale.float()[:, None]).to(out_dtype)
-        return torch.matmul(x.to(out_dtype), w.t())
+        y = torch.matmul(x.to(out_dtype), w.t())
+        if row_split:
+            from lr2ppo_torch.parallel.tp import reduce_from_tp
+
+            y = reduce_from_tp(y, mesh)
+        return y
     lead = x.shape[:-1]
-    n, k = weight.shape
-    xq, xscale = quantize_rows(x.reshape(rows, k).float(), amax_mesh)
+    xq, xscale = quantize_rows(x.reshape(rows, weight.shape[1]).float(), mesh)
     # the one library s8 product of the port: JAX leaves this dot to XLA,
     # outside any Pallas kernel
     acc = torch._int_mm(xq, weight.t())
+    if row_split:
+        from lr2ppo_torch.parallel.tp import tp_sum_int
+
+        acc = tp_sum_int(acc, mesh)     # exact, as XLA's partitioned s32 dot
     y = acc.float() * xscale * weight_scale.float()
-    return y.to(out_dtype).reshape(*lead, n)
+    return y.to(out_dtype).reshape(*lead, weight.shape[0])
 
 
 def quantize_state_dict(state: dict, other_dtype=torch.bfloat16) -> dict:

@@ -105,7 +105,9 @@ class Mesh:
     are the process groups of the ranks that differ from this one only in
     that coordinate (None in a single process; `pp_group` None at pp 1).
     `host_group` carries host objects between the stages (a gloo group
-    over every rank; None where the default group is gloo already)."""
+    over every rank; None where the default group is gloo already).
+    `seq_len` is the whole sequence of the --sp pass in flight, which
+    parallel/tp.py:split_seq records."""
     dp: int = 1
     tp: int = 1
     rank: int = 0
@@ -114,6 +116,7 @@ class Mesh:
     pp: int = 1
     pp_group: object = None
     host_group: object = None
+    seq_len: int = 0
 
     @property
     def world(self) -> int:

@@ -13,12 +13,13 @@ global fan-in).
 
 Sequence parallelism (`--sp`, Megatron-SP) keeps the residual stream between
 the tower's layers split along the sequence over tp: each tp rank holds
-S/tp tokens, and layer norm, dropout and the residual add run on that
-shard. A column-parallel Linear then gathers its input along S
-(`gather_seq`, whose backward is a reduce-scatter) instead of `copy_to_tp`,
-and a row-parallel one reduce-scatters its partial products along S
-(`reduce_scatter_seq`, whose backward is an all-gather) instead of
-`reduce_from_tp`. A parameter applied to the shard (a layer norm's gamma and
+S/tp tokens (where tp does not divide S, ceil(S/tp) padded with zero
+tokens, as XLA splits it: seq_chunk), and layer norm, dropout and the
+residual add run on that shard. A column-parallel Linear then gathers its
+input along S (`gather_seq`, whose backward is a reduce-scatter) instead
+of `copy_to_tp`, and a row-parallel one reduce-scatters its partial
+products along S (`reduce_scatter_seq`, whose backward is an all-gather)
+instead of `reduce_from_tp`. A parameter applied to the shard (a layer norm's gamma and
 beta, a row-parallel bias) goes through `seq_param`: its gradient is
 gathered along S and reduced over the whole sequence, as the tp run reduces
 it, so `--sp` trains to the tp run's bits at tp 2 (a sum of two addends
@@ -95,13 +96,34 @@ class _SumBothWays(torch.autograd.Function):
         return _all_reduce(g, ctx.group), None
 
 
+def seq_chunk(seq: int, tp: int) -> int:
+    """Tokens of a tp rank's sequence shard: ceil(S / tp), as XLA splits an
+    uneven dim (the first ranks take ceil(S / tp), the last ones the rest,
+    down to none). The port pads each shard to this length with zero
+    tokens; every gather drops them, so no sum over the sequence sees
+    them."""
+    return -(-seq // tp)
+
+
+def _pad_seq(x: torch.Tensor, n: int) -> torch.Tensor:
+    if x.shape[1] == n:
+        return x
+    pad = x.new_zeros(x.shape[0], n - x.shape[1], *x.shape[2:])
+    return torch.cat([x, pad], dim=1)
+
+
 def _gather_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    return all_gather_dim(x, 1, mesh.tp_group, mesh.tp)
+    """The whole (B, S, ...) from the tp ranks' padded shards."""
+    full = all_gather_dim(x, 1, mesh.tp_group, mesh.tp)
+    if full.shape[1] == mesh.seq_len:
+        return full
+    return full.narrow(1, 0, mesh.seq_len).contiguous()
 
 
 def _reduce_scatter_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum over tp of x (B, S, ...), this rank's S/tp rows of it."""
-    n = x.shape[1] // mesh.tp
+    """The sum over tp of x (B, S, ...), this rank's padded shard of it."""
+    n = seq_chunk(x.shape[1], mesh.tp)
+    x = _pad_seq(x, n * mesh.tp)
     if dist.get_backend(mesh.tp_group) == "nccl":
         parts = [p.contiguous() for p in x.split(n, dim=1)]
         out = torch.empty_like(parts[0])
@@ -112,8 +134,9 @@ def _reduce_scatter_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 def _seq_part(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    n = x.shape[1] // mesh.tp
-    return x.narrow(1, mesh.tp_rank * n, n).contiguous()
+    n = seq_chunk(x.shape[1], mesh.tp)
+    return _pad_seq(x, n * mesh.tp).narrow(1, mesh.tp_rank * n,
+                                           n).contiguous()
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -194,16 +217,13 @@ def gather_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 def reduce_scatter_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    if x.shape[1] % mesh.tp:
-        raise ValueError(f"--sp: the sequence ({x.shape[1]}) must split "
-                         f"over tp ({mesh.tp})")
     return _ReduceScatterSeq.apply(x, mesh)
 
 
 def split_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    if x.shape[1] % mesh.tp:
-        raise ValueError(f"--sp: the sequence ({x.shape[1]}) must split "
-                         f"over tp ({mesh.tp})")
+    """This rank's shard of the sequence entering the --sp stream; records
+    its length S on the mesh, which the gathers of the pass read."""
+    mesh.seq_len = x.shape[1]
     return _SplitSeq.apply(x, mesh)
 
 
@@ -245,6 +265,14 @@ def tp_min(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if mesh.tp == 1:
         return x
     return _all_reduce(x.detach(), mesh.tp_group, dist.ReduceOp.MIN)
+
+
+def tp_sum_int(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Sum over tp of an integer tensor, forward only: the exact int32
+    parts of a row-split int8 product (ops/int8_matmul.py:int8_matmul_tp)."""
+    if mesh.tp == 1:
+        return x
+    return _all_reduce(x, mesh.tp_group)
 
 
 def dp_sum(x: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:

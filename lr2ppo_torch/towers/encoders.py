@@ -115,6 +115,7 @@ class TransformerEncoder(nn.Module):
 
 def build_encoder(cfg, dtype=None, device=None) -> TransformerEncoder:
     if cfg.encoder != "transformer":
-        raise NotImplementedError(f"the {cfg.encoder!r} encoder is "
-                                  f"{NOT_PORTED}")
+        raise NotImplementedError(
+            f"the {cfg.encoder!r} encoder is not ported yet (ROADMAP.md A4: "
+            "the other encoders)")
     return TransformerEncoder(cfg, dtype, device)

@@ -34,7 +34,7 @@ from torch import nn
 
 from lr2ppo_torch.models.layers import Linear
 from lr2ppo_torch.ops.attention import fused_attention
-from lr2ppo_torch.ops.hash_dropout import module_dropout
+from lr2ppo_torch.ops.hash_dropout import SEQ, module_dropout
 from lr2ppo_torch.parallel.tp import seq_param
 
 ACTS: dict = {
@@ -278,7 +278,7 @@ class TransformerLayer(nn.Module):
                 key_bias: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        seq = 1 if self.sp_mesh is not None else None
+        seq = SEQ if self.sp_mesh is not None else None
 
         def drop(x):
             return module_dropout(x, self.dropout, deterministic, generator,

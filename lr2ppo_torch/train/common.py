@@ -228,13 +228,9 @@ def _is_split(model: nn.Module, key: str) -> bool:
 
 def check_unported(cfg: Config, allow_pp: bool = False) -> None:
     """Refuse what the port does not run: a non-pickle checkpoint backend,
-    --profile_dir, and --pp outside tower pretraining (`allow_pp`), as the
-    JAX package pipelines only the tower encoder."""
+    and --pp outside tower pretraining (`allow_pp`), as the JAX package
+    pipelines only the tower encoder."""
     checkpoints.check_backend(cfg.ckpt_backend)
-    if cfg.profile_dir:
-        raise NotImplementedError(
-            "--profile_dir (the trace window) is not ported yet (ROADMAP.md, "
-            "A: the remainder)")
     if getattr(cfg.mesh, "pp", 1) > 1 and not allow_pp:
         raise ValueError("--pp pipelines the tower encoder: it runs in "
                          "tower pretraining (cli/pretrain.py) only")

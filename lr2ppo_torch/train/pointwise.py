@@ -30,17 +30,18 @@ import numpy as np
 import torch
 
 from lr2ppo_torch.config import Config
-from lr2ppo_torch.device import compute_dtype, require_cuda
+from lr2ppo_torch.device import compute_dtype
 from lr2ppo_torch.models.layers import init_weights
 from lr2ppo_torch.models.scorer import ScoreModel, TwoDataScoreModel
 from lr2ppo_torch.ops.losses import nll_3way_loss, smooth_l1_loss
 from lr2ppo_torch.train import checkpoints
 from lr2ppo_torch.train.common import (BestSaver, TrainState, apply_updates,
-                                       check_unported, device_ctx, init_state,
+                                       device_ctx, init_state,
                                        logged_path, resume_fit_state,
                                        save_train_state)
 from lr2ppo_torch.train.evaluate import evaluate_ndcg, format_ndcg
-from lr2ppo_torch.utils import MetricLogger, check_finite, init_logger
+from lr2ppo_torch.utils import (MetricLogger, TraceWindow, check_finite,
+                                init_logger)
 
 NDCG_FULL = 100000000
 
@@ -132,6 +133,8 @@ class PointwiseTrainer:
          save_state) = self._start(steps_per_epoch, train_steps)
         model = state.model
         train_step = make_train_step(cfg.model.mode)
+        # steps 10-20 traced where --profile_dir is set, on rank 0 only
+        trace = TraceWindow(cfg.profile_dir if self.ctx.is_main else None)
         self.logger.info(f"Start training: {steps_per_epoch} steps/epoch, "
                          f"{cfg.epochs_num} epochs")
         for epoch in range(start_epoch, cfg.epochs_num + 1):
@@ -144,6 +147,7 @@ class PointwiseTrainer:
                 loss = train_step(state, generator, b["text"],
                                   b.get("img"), b["tgts"])
                 step += 1
+                trace.tick(step)
                 if step % cfg.report_steps == 0:
                     loss_v = check_finite(
                         float(self.ctx.mean(loss)), step,
@@ -162,6 +166,8 @@ class PointwiseTrainer:
                 self._evaluate(model, eval_loader, saver,
                                f"epoch {epoch} NDCG:")
                 save_state(step)      # with the epoch-end eval's best
+        trace.close()
+        self.trace_path = trace.path
         self.logger.info(f"Best NDCG: {saver.best}")
         return state, saver.best
 
@@ -244,17 +250,19 @@ def project_tsv(cfg: Config, state_dict: dict, input_path: str,
     through the 2-data model's projection for its width, in float32, as
     [label, qid, 768 floats] with %.9g. Rows go in batches of `batch`, the
     last padded with zeros to the same shape and trimmed, so every row is
-    computed by the same kernels."""
+    computed by the same kernels.
+
+    Under a mesh (--dp/--tp, as the trainers take them) every rank projects
+    every row, as every JAX process does, and rank 0 alone writes: at dp the
+    file is world 1's byte for byte; at tp the model is split over tp
+    (ctx.place), and the row-split fc2 sums its partial products over tp."""
     import os
 
-    check_unported(cfg)
-    if cfg.mesh.dp > 1 or cfg.mesh.tp > 1:
-        raise NotImplementedError(
-            "project_tsv runs on one device; exporting at dp/tp is not "
-            "ported yet (ROADMAP.md, A: multi-GPU)")
-    dev = require_cuda() if device is None else torch.device(device)
+    ctx = device_ctx(cfg, device)
+    dev = ctx.device
     model = TwoDataScoreModel(cfg.model, device=dev)
     model.load_state_dict(state_dict, strict=True)
+    ctx.place(model, fsdp=False)
     rows = np.loadtxt(input_path, delimiter="\t", dtype=np.float32, ndmin=2)
     head, feats = rows[:, :2], rows[:, 2:]
     outs = []
@@ -266,6 +274,8 @@ def project_tsv(cfg: Config, state_dict: dict, input_path: str,
                 [chunk, np.zeros((batch - n, chunk.shape[1]), np.float32)])
         out = model.project(torch.from_numpy(chunk).to(dev))
         outs.append(out[:n].float().cpu().numpy())
+    if not ctx.is_main:
+        return
     os.makedirs(os.path.dirname(os.path.abspath(output_path)) or ".",
                 exist_ok=True)
     np.savetxt(output_path,

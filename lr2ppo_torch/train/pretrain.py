@@ -1,6 +1,6 @@
 """Tower pretraining on one GPU or one rank per GPU (counterpart of
-lr2ppo_tpu/train/pretrain.py: make_pretrain_step_form in its 'simple' form
-and PretrainTrainer).
+lr2ppo_tpu/train/pretrain.py: make_pretrain_step_form in its simple,
+pair_sp, pair_cls and bilm forms, and PretrainTrainer).
 
 One optimizer step takes `accum` micro-batches of the loader's batch, which
 holds accum x micro rows: each micro-batch runs the tower's forward in
@@ -18,7 +18,11 @@ accuracy saves the model to `<output_model_path>-best`; every
 `output_model_path`. The model checkpoints are reference-keyed `.bin` files
 (embedding, encoder and target keys).
 
-Only the 'simple' batch form (mlm, lm, cls) is ported. Under --dp/--tp
+The batch forms map a processor's batch keys onto TowerModel's (src, tgt,
+seg) (form_args): simple (mlm, lm, cls, prefixlm), pair_sp (bert, albert:
+the mlm and sp targets), pair_cls (cls_mlm) and bilm; the JAX package's
+seq2seq, vilt, clip and beit forms wait with their processors
+(cli/pretrain.py:NOT_PORTED_PROCESSORS). Under --dp/--tp
 (train/common.py:device_ctx) each rank takes its slice of every micro-batch
 (the loader shards per accumulation chunk), the masked means divide by the
 global counts (towers/targets.py) and the vocabulary heads are split over
@@ -70,10 +74,27 @@ def norm_target_out(out, rows: int):
     return out
 
 
-def make_pretrain_step(accum: int = 1, pipe: Optional[GPipe] = None):
+def form_args(form: str, mb: dict):
+    """(src, tgt, seg) of TowerModel.forward from a batch of `form`
+    (lr2ppo_tpu/train/pretrain.py:form_args): tgt is {kind: targets} for
+    the composite targets and (forward, backward) for bilm."""
+    if form == "simple":
+        return mb["src"], mb["tgt"], mb["seg"]
+    if form == "pair_sp":
+        return mb["src"], {"mlm": mb["tgt_mlm"], "sp": mb["tgt_sp"]}, mb["seg"]
+    if form == "pair_cls":
+        return (mb["src"], {"mlm": mb["tgt_mlm"], "cls": mb["tgt_cls"]},
+                mb["seg"])
+    if form == "bilm":
+        return mb["src"], (mb["tgt_fwd"], mb["tgt_bwd"]), mb["seg"]
+    raise KeyError(f"unknown batch form: {form}")
+
+
+def make_pretrain_step(accum: int = 1, pipe: Optional[GPipe] = None,
+                       form: str = "simple"):
     """step(state, generator, batch) -> {"loss", "acc"} as detached
     tensors; `batch` holds device tensors of accum x micro rows of the
-    'simple' form (src, tgt, seg). The state is updated in place. Under pp
+    batch `form` (form_args). The state is updated in place. Under pp
     (`pipe`, the JAX make_pretrain_step_pp) each micro-batch runs pipe's
     GPipe schedule, its dropout seeds keyed by one draw from the generator,
     and every stage returns the last stage's metrics."""
@@ -83,7 +104,7 @@ def make_pretrain_step(accum: int = 1, pipe: Optional[GPipe] = None):
         if pipe is not None:
             return pipe.forward_backward(mb["src"], mb["tgt"], mb["seg"],
                                          draw_seed(generator))
-        out = model(mb["src"], mb["tgt"], mb["seg"], deterministic=False,
+        out = model(*form_args(form, mb), deterministic=False,
                     generator=generator)
         loss, correct, denom = norm_target_out(
             out, mb["src"].shape[0] * active().dp)
@@ -115,10 +136,16 @@ class PretrainTrainer:
     none); the CPU tests pass "cpu"."""
 
     def __init__(self, cfg: Config, tower_cfg: TowerConfig,
-                 accumulation_steps: int = 1, device=None):
+                 accumulation_steps: int = 1, device=None,
+                 form: str = "simple"):
         self.pp = max(cfg.mesh.pp, 1)
         if self.pp > 1:
             check_pp_supported(tower_cfg, cfg.mesh)
+            if form != "simple":
+                raise ValueError(
+                    f"--pp supports the 'simple' batch form "
+                    f"(mlm/lm/cls/vit); got {form!r}")
+        self.form = form
         self.pp_micro = cfg.mesh.pp_microbatches or self.pp
         self.ctx = device_ctx(cfg, device, allow_pp=True)
         self.device = self.ctx.device
@@ -196,7 +223,8 @@ class PretrainTrainer:
         self.pipe = (GPipe(model, self.ctx.mesh, self.pp_micro, self.dtype,
                            self.device) if self.pp > 1 else None)
         # the step of this fit, for a caller that times one more
-        self.step_fn = step_fn = make_pretrain_step(self.accum, self.pipe)
+        self.step_fn = step_fn = make_pretrain_step(self.accum, self.pipe,
+                                                    self.form)
         saver = BestSaver(cfg.output_model_path + "-best"
                           if cfg.output_model_path else "", self.logger,
                           self.ctx)

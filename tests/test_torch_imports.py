@@ -61,6 +61,7 @@ def test_port_never_imports_jax():
             "lr2ppo_torch.cli.reward_trad", "lr2ppo_torch.cli.ppo_trad",
             "lr2ppo_torch.cli.ppo_eval_trad", "lr2ppo_torch.cli.pretrain",
             "lr2ppo_torch.data.pretrain_data",
+            "lr2ppo_torch.data.pretrain_processors",
             "lr2ppo_torch.ops.fast_dropout", "lr2ppo_torch.towers.targets",
             "lr2ppo_torch.train.pretrain",
             "lr2ppo_torch.utils.remat", "lr2ppo_torch.parallel",

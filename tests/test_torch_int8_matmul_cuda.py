@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from lr2ppo_torch.ops import int8 as int8_ops
+from lr2ppo_torch.ops import int8_matmul as tk2
 from lr2ppo_torch.ops.int8 import quantize_weight
 from lr2ppo_torch.ops.int8_matmul import (int8_matmul, int8_matmul_reference,
                                           supported)
@@ -165,3 +166,46 @@ def test_int8_linear_launches_k2_at_narrow_sites(dev, monkeypatch):
     assert torch.equal(got, int8_matmul_reference(x, q, s, torch.float32))
     assert float((got - dequant).abs().max()) < 0.05 * float(
         dequant.abs().max())
+
+
+# -- the tp entry: the int32 product and the epilogue ----------------------
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,k,n", [
+    (100352, 1536, 768),     # the rollout's fc2 at tp 2: a rank's half of K
+    (1040, 128, 384),        # ragged rows; N ends on half a chunk
+    (512, 3072, 128),
+])
+def test_tp_entry_is_bit_equal_to_its_plain_versions(dev, rows, k, n,
+                                                     out_dtype):
+    """int8_dot_s32 against int8_dot_s32_reference (exact int32 sums) and
+    s32_epilogue against s32_epilogue_reference, each one launch; the two
+    together give K2's bits on the same rows."""
+    x, q, s = _operands(rows, k, n, rows + k, dev)
+    x = x.to(torch.bfloat16)
+    xq, xs = int8_ops.quantize_rows(x.float())
+    b0, e0 = tk2.int8_dot_s32.launches, tk2.s32_epilogue.launches
+    acc = tk2.int8_dot_s32(xq, q)
+    y = tk2.s32_epilogue(acc, xs, s, out_dtype)
+    torch.cuda.synchronize()
+    assert (tk2.int8_dot_s32.launches, tk2.s32_epilogue.launches) == (
+        b0 + 1, e0 + 1)
+    assert torch.equal(acc, tk2.int8_dot_s32_reference(xq, q))
+    assert torch.equal(y, tk2.s32_epilogue_reference(acc, xs, s, out_dtype))
+    assert torch.equal(y, int8_matmul_reference(x, q, s, out_dtype))
+
+
+def test_tp_entry_refuses_what_it_does_not_take(dev):
+    """A shard the gate refuses (K 64: K2's K % 128) raises before any
+    launch, as do an unaligned xq and an epilogue width N % 4 != 0."""
+    x, q, s = _operands(1040, 256, 128, 6, dev)
+    xq, xs = int8_ops.quantize_rows(x)
+    b0, e0 = tk2.int8_dot_s32.launches, tk2.s32_epilogue.launches
+    with pytest.raises(ValueError, match="unsupported"):
+        tk2.int8_dot_s32(xq[:, :64].contiguous(), q[:, :64].contiguous())
+    with pytest.raises(ValueError, match="aligned"):
+        buf = torch.zeros(1040 * 256 + 1, dtype=torch.int8, device=dev)
+        tk2.int8_dot_s32(buf[1:].view(1040, 256), q)
+    with pytest.raises(ValueError, match="N % 4"):
+        acc = torch.zeros(1040, 130, dtype=torch.int32, device=dev)
+        tk2.s32_epilogue(acc, xs, torch.ones(130, device=dev))
+    assert (tk2.int8_dot_s32.launches, tk2.s32_epilogue.launches) == (b0, e0)

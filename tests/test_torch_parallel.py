@@ -356,9 +356,8 @@ def _collectives(rank, world, url):
     monkey = (tint8.INT8_DYNQUANT_MIN_FLOPS, tint8.INT8_DYNQUANT_MIN_WIDTH)
     tint8.INT8_DYNQUANT_MIN_FLOPS = tint8.INT8_DYNQUANT_MIN_WIDTH = 0
     qpart = q[:, 4 * rank: 4 * rank + 4]
-    y = ptp.reduce_from_tp(tint8.int8_linear(
-        x[:, 4 * rank: 4 * rank + 4], qpart, s, torch.float32,
-        shape=(4, 8), amax_mesh=tpm), tpm)
+    y = tint8.int8_linear(x[:, 4 * rank: 4 * rank + 4], qpart, s,
+                          torch.float32, shape=(4, 8), mesh=tpm)
     full = tint8.int8_linear(x, q, s, torch.float32)
     tint8.INT8_DYNQUANT_MIN_FLOPS, tint8.INT8_DYNQUANT_MIN_WIDTH = monkey
     out["int8_row_err"] = float((y - full).abs().max()

@@ -32,15 +32,17 @@ torch.set_num_threads(1)
 
 @pytest.fixture(autouse=True)
 def _restore_special_ids():
-    """The JAX CLI sets the processors' module-wide special ids from its
-    tokenizer (lr2ppo_tpu/cli/pretrain.py); restore them after each test,
-    so a later test in the same worker frames its instances with the
-    defaults."""
+    """Both CLIs set their processors' module-wide special ids from the
+    tokenizer (lr2ppo_tpu/cli/pretrain.py, lr2ppo_torch/cli/pretrain.py);
+    restore them after each test, so a later test in the same worker
+    frames its instances with the defaults."""
     from lr2ppo_tpu.data import pretrain_processors as pp
+    from lr2ppo_torch.data import pretrain_processors as tpp
 
-    old = (pp.CLS, pp.PAD, pp.SEP)
+    old = [(m, (m.CLS, m.PAD, m.SEP)) for m in (pp, tpp)]
     yield
-    pp.set_special_ids(*old)
+    for m, ids in old:
+        m.set_special_ids(*ids)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOKENS = ["<pad>", "<unk>", "<s>", "</s>", "<mask>"] + list("abcdefgh")

@@ -194,6 +194,104 @@ def test_hash_dropout_sp_place_is_a_slice_of_the_whole_mask(dtype):
         pm.set_active(None)
 
 
+# -- a sequence that tp does not divide ------------------------------------
+S6, TP4 = 6, 4
+RAW6 = {**RAW, "heads_num": 4, "max_seq_length": S6, "layers_num": 2}
+
+
+def _batch6():
+    rng = np.random.default_rng(3)
+    src = rng.integers(5, V, (4, S6)).astype(np.int32)
+    tgt = np.where(src % 3 == 0, src, 0).astype(np.int32)
+    seg = np.ones((4, S6), np.int32)
+    seg[0, -2:] = 0
+    return src, tgt, seg
+
+
+def _uneven_rank(rank, world, url, state, batch):
+    """{(sp, dropout): (loss, full-width gradients)} at tp 4, S = 6: each
+    --sp rank holds ceil(6 / 4) = 2 tokens, the last none."""
+    from lr2ppo_torch.parallel import mesh as pm
+    from lr2ppo_torch.parallel.tp import seq_chunk
+    from lr2ppo_torch.train.common import DeviceCtx
+
+    mesh = pm.make_mesh(1, TP4)
+    pm.set_active(mesh)
+    ctx = DeviceCtx("cpu", mesh=mesh)
+    out = {"chunk": seq_chunk(S6, TP4)}
+    for sp in (False, True):
+        for rate in (0.0, 0.1):
+            cfg = TowerConfig.from_dict({**RAW6, "seq_parallel": sp,
+                                         "dropout": rate,
+                                         "hash_dropout": True})
+            model = TowerModel(cfg, with_target=True)
+            model.load_state_dict({**model.state_dict(), **state},
+                                  strict=True)
+            ctx.place(model)
+            loss = model(*(torch.from_numpy(a) for a in batch),
+                         deterministic=rate == 0.0,
+                         generator=torch.Generator().manual_seed(5))[0]
+            loss.backward()
+            grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+            with torch.no_grad():
+                for k, p in model.named_parameters():
+                    p.copy_(grads[k])
+            out[sp, rate] = (float(loss.detach()), {
+                k: v.numpy().copy()
+                for k, v in ctx.full_state_dict(model).items()})
+    return out
+
+
+def test_sp_at_an_uneven_sequence_matches_jax_and_tp(tmp_path):
+    """S = 6 at tp 4, which JAX's sp program runs (its sharding constraint
+    splits the sequence unevenly). The port's --sp shards it as XLA does,
+    ceil(S / tp) tokens a rank and the last rank none, padded with zero
+    tokens that no sum sees: the loss and every gradient match JAX's sp
+    program at RTOL of each leaf's scale, and with hash dropout at 0.1
+    --sp has the tp run's bits (the residual sites draw the global mask at
+    the shard's place)."""
+    import jax
+    import jax.numpy as jnp
+
+    from lr2ppo_tpu.parallel.mesh import make_mesh, shard_params
+    from lr2ppo_tpu.towers.model import TowerConfig as JTowerConfig
+    from lr2ppo_tpu.towers.model import TowerModel as JTowerModel
+
+    src, tgt, seg = _batch6()
+    model = JTowerModel(JTowerConfig.from_dict(RAW6))
+    params = jax.tree.map(np.asarray,
+                          model.init(jax.random.PRNGKey(1), src, tgt, seg))
+    mesh = make_mesh(dp=1, tp=TP4)
+    sp_model = JTowerModel(JTowerConfig.from_dict({**RAW6,
+                                                   "seq_parallel": True}))
+    placed = shard_params(jax.tree.map(jnp.asarray, params), mesh)
+
+    def loss(p):
+        return sp_model.apply(p, src, tgt, seg, deterministic=True)[0]
+
+    with jax.set_mesh(mesh):
+        jl, jg = jax.jit(jax.value_and_grad(loss))(placed)
+    want = tower_params_from_flax(jax.tree.map(np.asarray,
+                                               jax.device_get(jg)))
+    ranks = spawn(_uneven_rank, TP4, tmp_path, tower_params_from_flax(params),
+                  (src, tgt, seg), timeout=150)
+    assert ranks[0]["chunk"] == 2
+    top = max(float(w.abs().max()) for w in want.values())
+    for got in ranks:
+        l_sp, g_sp = got[True, 0.0]
+        np.testing.assert_allclose(l_sp, float(jl), rtol=RTOL)
+        assert g_sp.keys() == want.keys()
+        for k, g in g_sp.items():
+            w = want[k].numpy()
+            scale = max(float(np.abs(w).max()), 1e-2 * top)
+            np.testing.assert_allclose(g, w, rtol=0, atol=RTOL * scale,
+                                       err_msg=k)
+        (l_tp, g_tp), (l_sd, g_sd) = got[False, 0.1], got[True, 0.1]
+        assert l_sd == l_tp and l_sd != got[False, 0.0][0]
+        for k in g_tp:
+            np.testing.assert_array_equal(g_sd[k], g_tp[k], err_msg=k)
+
+
 # -- the CLI ----------------------------------------------------------------
 TOKENS = ["<pad>", "<unk>", "<s>", "</s>", "<mask>"] + [
     f"w{i}" for i in range(V - 5)]

@@ -162,6 +162,53 @@ def test_pointwise_2data_infer_trad_writes_the_jax_tsv(tmp_path, rows):
                                rtol=1e-5, atol=1e-6)
 
 
+def _infer_rank(rank, world, url, argv, dp, tp):
+    extra = ["--dp", str(dp), "--tp", str(tp), "--distributed", "true",
+             "--coordinator", url, "--num_processes", str(world),
+             "--process_id", str(rank)]
+    i = argv.index("--output_features_path") + 1
+    argv = argv[:i] + [argv[i] + f".rank{rank}"] + argv[i + 1:]
+    tinfer.main(argv + extra, device="cpu")
+
+
+@pytest.mark.parametrize("dp,tp", [(2, 1), (1, 2)], ids=["dp2", "tp2"])
+def test_project_tsv_on_a_mesh_writes_world_1s_tsv(tmp_path, dp, tp):
+    """The exporter as two gloo ranks: every rank projects every row, as
+    every JAX process does, and rank 0 alone writes. At dp 2 the tsv is
+    world 1's byte for byte; at tp 2 the projection's fc2 is row-split, so
+    its float32 partial products are summed over tp in another order: the
+    label and qid columns are byte-equal and the projection agrees to
+    float32 rounding (rtol 1e-5, atol 1e-6)."""
+    from test_torch_parallel import spawn
+
+    rng = np.random.RandomState(5)
+    rows = 300
+    arr = np.concatenate([rng.randint(0, 3, (rows, 1)),
+                          np.sort(rng.randint(0, 50, (rows, 1)), axis=0),
+                          rng.randn(rows, 7)], axis=1).astype(np.float32)
+    src = str(tmp_path / "in.tsv")
+    write_tsv(arr, src)
+    ckpt = _start(tmp_path)
+    argv = ["--pretrained_model_path", ckpt, "--feat_size", str(D),
+            "--num_heads", str(HEADS), "--input_features_path", src,
+            "--output_features_path"]
+    one = str(tmp_path / "one.tsv")
+    tinfer.main(argv + [one], device="cpu")
+    out = str(tmp_path / "mesh.tsv")
+    spawn(_infer_rank, 2, tmp_path, argv + [out], dp, tp, timeout=120)
+    assert not os.path.exists(out + ".rank1")
+    with open(one) as f, open(out + ".rank0") as g:
+        want, got = f.read(), g.read()
+    if tp == 1:
+        assert got == want
+        return
+    assert ([ln.split("\t", 2)[:2] for ln in got.splitlines()]
+            == [ln.split("\t", 2)[:2] for ln in want.splitlines()])
+    np.testing.assert_allclose(np.loadtxt(out + ".rank0", ndmin=2),
+                               np.loadtxt(one, ndmin=2), rtol=1e-5,
+                               atol=1e-6)
+
+
 class Interrupted(Exception):
     pass
 
