@@ -4,7 +4,7 @@ three-stage LR2PPO recipe of both families, feature extraction, tower
 pretraining and multi-GPU training at full width.
 
     python3 chip_smoke.py [--seed N] [--parallel_only | --pipeline_only |
-                           --processors_only]
+                           --processors_only | --seq2seq_only]
 
 Phases, each of which raises on failure (exit code other than 0):
   1. device: torch and CUDA versions, the card's name and power limit;
@@ -150,7 +150,22 @@ Phases, each of which raises on failure (exit code other than 0):
      1's file byte for byte) and tp 2 (within float32 rounding), rank 0
      writing; stage 1 at phase 12's geometry with --profile_dir for 21
      steps, whose trace of steps 10-20 must exist and name the kernels.
-     `--processors_only` runs the build and phase 17 alone.
+     `--processors_only` runs the build and phase 17 alone;
+ 18. the seq2seq towers: T5-base span corruption through cli.pretrain's
+     build and fit at --data_processor t5 --hash_dropout (12 + 12 layers of
+     768, T5's relative bias, RMS norms at pre-LN, no biases, a 32,028-entry
+     space vocabulary grown by the 100 sentinels to 32,128, a synthetic
+     Zipf corpus, 2 micro-batches of 32 x (128 + 128), float32, 4 steps):
+     the parameter count, losses that fall, moved leaves, 98 hash-dropout
+     sites a pass forward and backward, no K4 launch, one more step's
+     CUDA-event time and tokens/s and a trace of one, the peak memory;
+     the first decoder layer's context probabilities of that batch (32,
+     12, 128, 128) and of a --tgt_seq_length 64 batch (32, 12, 64, 128)
+     through hash dropout against its plain version on the site's own
+     input and seed; then Transformer base (6 + 6 layers of 512,
+     sinusoidal positions, post-LN) at --data_processor mt on a synthetic
+     tsv for 2 steps.
+     `--seq2seq_only` runs the build and phase 18 alone.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -216,6 +231,7 @@ from lr2ppo_torch.towers.torch_import import encoder_state
 from lr2ppo_torch.train.ppo import (PPOTrainer, frozen_copy,
                                     make_rollout_step, make_update_step)
 from lr2ppo_torch.train.pretrain import PretrainTrainer, make_pretrain_step
+from lr2ppo_torch.train.pretrain import form_args as pretrain_form_args
 
 D, H = 768, 3072
 SERVE_ROWS = 32 * 32 * 196            # items x tag bucket x text tokens
@@ -596,11 +612,13 @@ DROP_RATE = 0.1                        # ModelConfig.drop_p / forward_drop_p
 
 
 def check_dropout(name: str, shape, dtype, seed: int, dev, time_it: bool,
-                  card_line: str, extra=()) -> dict:
+                  card_line: str, extra=(), x=None) -> dict:
     """One dropout kernel against its plain version: the forward and the
     backward (the cotangent) bit for bit, the same mask in both, and the
     keep share within 5 sigma of 1 - rate. `extra` are the arguments after
-    the rate: a shard's place (hash) or its offset (Philox)."""
+    the rate: a shard's place (hash) or its offset (Philox). `x`, where
+    given, is the input (a site's tensor from a real pass), else a random
+    one without zeros."""
     fn0, ref0, _ = DROPOUT_KERNELS[name]
 
     def fn(x, seed, rate):
@@ -609,10 +627,13 @@ def check_dropout(name: str, shape, dtype, seed: int, dev, time_it: bool,
     def ref(x, seed, rate):
         return ref0(x, seed, rate, *extra)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    # no zeros in the inputs, so a zero in the output is a dropped element
-    x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    if x is None:
+        # no zeros in the input, so a zero in the output is a dropped
+        # element
+        x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        x[x == 0] = 1.0
+    # nor in the cotangent: its gradient is zero exactly where dropped
     g = torch.randn(shape, device=dev, generator=gen).to(dtype)
-    x[x == 0] = 1.0
     g[g == 0] = 1.0
     xr = x.clone().requires_grad_(True)
     y = fn(xr, seed, DROP_RATE)
@@ -621,13 +642,15 @@ def check_dropout(name: str, shape, dtype, seed: int, dev, time_it: bool,
     torch.cuda.synchronize()
     want_y, want_g = ref(x, seed, DROP_RATE), ref(g, seed, DROP_RATE)
     n = x.numel()
-    share = float((y != 0).float().mean())
+    share = float((xr.grad != 0).float().mean())
     sigma = (DROP_RATE * (1 - DROP_RATE) / n) ** 0.5
+    nonzero = x != 0
     res = {"kernel": name, "shape": list(shape), "shard": list(extra),
            "dtype": str(dtype).replace("torch.", ""),
            "forward_bit_equal": bool(torch.equal(y, want_y)),
            "backward_bit_equal": bool(torch.equal(xr.grad, want_g)),
-           "same_mask": bool(torch.equal(y == 0, xr.grad == 0)),
+           "same_mask": bool(torch.equal((y == 0) & nonzero,
+                                         (xr.grad == 0) & nonzero)),
            "max_abs_err": max(float((y.float() - want_y.float()).abs().max()),
                               float((xr.grad.float()
                                      - want_g.float()).abs().max())),
@@ -638,7 +661,7 @@ def check_dropout(name: str, shape, dtype, seed: int, dev, time_it: bool,
         emit(phase="dropout_vs_plain", failed=True, **res)
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"{res}")
-    del xr, y, want_y, want_g, g
+    del xr, y, want_y, want_g, g, nonzero
     if time_it:
         res["ms"] = cuda_ms(lambda: fn(x, seed, DROP_RATE))
         res["plain_ms"] = cuda_ms(lambda: ref(x, seed, DROP_RATE), iters=3,
@@ -2088,22 +2111,23 @@ PRE_SITES = {"residual": (PRE_BS, PRE_SEQ, 768),
              "probs": (PRE_BS, 12, PRE_SEQ, PRE_SEQ)}
 
 
-def pretrain_corpus(tmp: str, seed: int) -> dict:
-    """The vocabulary (PRE_VOCAB lines: the specials, then synthetic words)
+def pretrain_corpus(tmp: str, seed: int, vocab: int = PRE_VOCAB,
+                    tower: dict = XLMR_BASE) -> dict:
+    """The vocabulary (`vocab` lines: the specials, then synthetic words)
     and a corpus of Zipf-distributed words of it, about PRE_ROWS rows of
-    PRE_SEQ tokens once packed; the tower config is XLMR_BASE."""
+    PRE_SEQ tokens once packed; the tower config (XLMR_BASE by default)."""
     rng = np.random.default_rng(seed)
-    words = PRE_SPECIALS + [f"w{i}" for i in range(PRE_VOCAB
+    words = PRE_SPECIALS + [f"w{i}" for i in range(vocab
                                                      - len(PRE_SPECIALS))]
     paths = {k: os.path.join(tmp, f) for k, f in (
         ("vocab", "vocab.txt"), ("corpus", "corpus.txt"),
-        ("tower", "xlmr_base_config.json"))}
+        ("tower", "tower_config.json"))}
     with open(paths["vocab"], "w", encoding="utf-8") as f:
         f.write("\n".join(words) + "\n")
     # a word's rank follows Zipf's law with exponent 1.1 over the vocabulary
     n_words = PRE_ROWS * PRE_SEQ
     ranks = rng.zipf(1.1, size=3 * n_words)
-    ranks = ranks[ranks <= PRE_VOCAB - len(PRE_SPECIALS)][:n_words]
+    ranks = ranks[ranks <= vocab - len(PRE_SPECIALS)][:n_words]
     lens = rng.integers(20, 120, size=n_words // 20)
     lines, start = [], 0
     for n in lens:
@@ -2115,7 +2139,7 @@ def pretrain_corpus(tmp: str, seed: int) -> dict:
     with open(paths["corpus"], "w", encoding="utf-8") as f:
         f.write("\n".join(lines) + "\n")
     with open(paths["tower"], "w") as f:
-        json.dump(XLMR_BASE, f)
+        json.dump(tower, f)
     return paths
 
 
@@ -2130,16 +2154,15 @@ def pretrain_argv(paths: dict, out: str, steps: int) -> list:
 
 
 @contextmanager
-def watched_init():
-    """PretrainTrainer.init_model keeps copies of PRE_WATCHED as they
-    start, for each trainer built inside the block."""
+def watched_init(names=PRE_WATCHED):
+    """PretrainTrainer.init_model keeps copies of `names` as they start,
+    for each trainer built inside the block."""
     seen, real = [], PretrainTrainer.init_model
 
     def init_model(self):
         model = real(self)
         params = dict(model.named_parameters())
-        seen.append({k: params[k].detach().cpu().clone()
-                     for k in PRE_WATCHED})
+        seen.append({k: params[k].detach().cpu().clone() for k in names})
         return model
 
     PretrainTrainer.init_model = init_model
@@ -3586,6 +3609,272 @@ def processors_path(args, dev, card_line: str) -> dict:
 
 
 
+# -- phase 18: the seq2seq towers -------------------------------------------
+# T5-base as Raffel et al. (2020) publish it: google-t5/t5-base's
+# config.json, which TencentPretrain's models/t5/base_config.json mirrors
+# (12 + 12 layers of 768, 12 heads, FFN 3072, ReLU, RMS norms at pre-LN, no
+# biases, no attention scale, no embedding norm, 32 relative-position
+# buckets, untied target-side words, no LM-head bias)
+T5_BASE = {
+    "emb_size": 768, "hidden_size": 768, "feedforward_size": 3072,
+    "heads_num": 12, "layers_num": 12, "decoder_layers_num": 12,
+    "hidden_act": "relu", "dropout": 0.1, "embedding": ["word"],
+    "tgt_embedding": ["word"], "encoder": "transformer",
+    "mask": "fully_visible", "decoder": "transformer", "target": ["lm"],
+    "layernorm": "t5", "layernorm_positioning": "pre",
+    "feed_forward": "dense", "remove_transformer_bias": True,
+    "remove_attention_scale": True, "remove_embedding_layernorm": True,
+    "relative_position_embedding": True,
+    "relative_attention_buckets_num": 32, "has_lmtarget_bias": False,
+}
+# Transformer base as Vaswani et al. (2017, Table 3 "base") publish it:
+# 6 + 6 layers of 512, 8 heads, FFN 2048, ReLU, word + sinusoidal positions
+# on both sides, post-LN, dropout 0.1
+TRANSFORMER_BASE = {
+    "emb_size": 512, "hidden_size": 512, "feedforward_size": 2048,
+    "heads_num": 8, "layers_num": 6, "decoder_layers_num": 6,
+    "hidden_act": "relu", "dropout": 0.1,
+    "embedding": ["word", "sinusoidalpos"],
+    "tgt_embedding": ["word", "sinusoidalpos"], "encoder": "transformer",
+    "mask": "fully_visible", "decoder": "transformer", "target": ["lm"],
+    "layernorm_positioning": "post",
+}
+# a space vocabulary of 32,028 entries, specials first; the t5 processor
+# adds its 100 sentinels: T5's 32,128
+S2S_VOCAB, S2S_SENTINELS = 32028, 100
+S2S_BS, S2S_ACCUM, S2S_SEQ, S2S_TGT = 32, 2, 128, 128
+S2S_STEPS = 4                       # a warm-up step, then 3 timed
+S2S_SHORT_TGT = 64                  # the batch of the non-square site
+MT_STEPS, MT_ROWS = 2, 96           # leg B: optimizer steps, tsv rows
+S2S_WATCHED = ("decoder.transformer_decoder.11.context_attn.linear_layers."
+               "1.weight",
+               "encoder.relative_pos_emb.relative_attention_bias.weight",
+               "target.lm.output_layer.weight")
+# the first decoder layer's context probabilities in a pass's forward order
+# of sites: 1 + 3 x 12 in the encoder, the target embedding, the decoder
+# layer's self-attention probabilities and its branch
+CONTEXT_SITE = 1 + 3 * 12 + 1 + 2
+
+
+def s2s_sites_a_pass(cfg) -> int:
+    """Hash-dropout sites of one training pass: the embedding and 3 a layer
+    in the encoder, the target embedding and 5 a layer in the decoder."""
+    return (1 + 3 * cfg.layers_num
+            + 1 + 5 * (cfg.decoder_layers_num or cfg.layers_num))
+
+
+def s2s_argv(paths: dict, out: str, processor: str, steps: int,
+             tgt: int = None) -> list:
+    return ["--corpus_path", paths["corpus"], "--tower_config",
+            paths["tower"], "--data_processor", processor, "--tokenizer",
+            "space", "--vocab_path", paths["vocab"], "--hash_dropout",
+            "--batch_size", str(S2S_BS), "--accumulation_steps",
+            str(S2S_ACCUM), "--seq_length", str(S2S_SEQ),
+            "--tgt_seq_length", str(tgt or S2S_TGT), "--total_steps",
+            str(steps),
+            "--report_steps", "1", "--output_model_path", out,
+            "--log_path", out + ".log"]
+
+
+def mt_tsv(path: str, seed: int) -> None:
+    """MT_ROWS 'source<TAB>target' rows of Zipf-distributed words of the
+    phase's vocabulary, 20 to 120 words a side."""
+    rng = np.random.default_rng(seed)
+    n_words = S2S_VOCAB - len(PRE_SPECIALS)
+
+    def side():
+        ranks = rng.zipf(1.1, size=int(rng.integers(20, 121)))
+        return " ".join(f"w{min(r, n_words) - 1}" for r in ranks)
+
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("".join(f"{side()}\t{side()}\n" for _ in range(MT_ROWS)))
+
+
+def site_input(model, mb: dict, index: int, seed: int):
+    """The input and seed of the index-th hash-dropout site of one training
+    forward of `model` on micro-batch `mb` (seq2seq form)."""
+    from lr2ppo_torch.ops import hash_dropout as hd
+
+    real, calls, kept = hd.hash_dropout, [0], {}
+
+    def rec(x, seed, rate, *place):
+        if calls[0] == index:
+            kept["x"], kept["seed"] = x.detach().clone(), seed
+        calls[0] += 1
+        return real(x, seed, rate, *place)
+
+    # the kernel's wrapper counts its launches on the module's entry
+    rec.launches, rec.place_launches = real.launches, real.place_launches
+    hd.hash_dropout = rec
+    try:
+        with torch.no_grad():
+            model(*pretrain_form_args("seq2seq", mb), deterministic=False,
+                  generator=torch.Generator().manual_seed(seed))
+    finally:
+        hd.hash_dropout = real
+        real.launches, real.place_launches = (rec.launches,
+                                              rec.place_launches)
+    return kept["x"], kept["seed"]
+
+
+def t5_path(seed: int, dev, card_line: str) -> dict:
+    """Phase 18, leg A: T5-base span corruption through cli.pretrain's
+    build and fit (--data_processor t5 --hash_dropout, full width, 2
+    micro-batches of 32 x (128 + 128), float32, S2S_STEPS steps); the
+    parameter count, losses that fall, moved leaves, the launches; one more
+    step timed and one traced; then the first decoder layer's
+    context-probability site of that batch (32, 12, 128, 128) and of a
+    --tgt_seq_length 64 batch (32, 12, 64, 128) held against the plain hash
+    dropout on the site's own input and seed."""
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = pretrain_corpus(tmp, seed, S2S_VOCAB, T5_BASE)
+        out = os.path.join(tmp, "t5")
+        argv = s2s_argv(paths, out, "t5", S2S_STEPS)
+        t0 = time.perf_counter()
+        trainer, loader = pretrain.build(pretrain.parser().parse_args(argv),
+                                         dev)
+        build_s = time.perf_counter() - t0
+        cfg = trainer.tower_cfg
+        want = s2s_sites_a_pass(cfg) * 2 * S2S_ACCUM * S2S_STEPS
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        hash_dropout.launches = 0
+        t0 = time.perf_counter()
+        with watched_init(S2S_WATCHED) as seen:
+            state, best = trainer.fit(loader, S2S_STEPS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = hash_dropout.launches
+        k4_launches = fused_attention.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        with open(out + ".log.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+        model = state.model
+        params = dict(model.named_parameters())
+        counts = {part: sum(p.numel() for k, p in params.items()
+                            if k.startswith(part))
+                  for part in ("embedding.", "encoder.", "tgt_embedding.",
+                               "decoder.", "target.")}
+        n_params = sum(p.numel() for p in params.values())
+        move = {k: float((params[k].detach().cpu() - v).abs().max())
+                for k, v in seen[0].items()}
+        losses = [r["loss"] for r in recs]
+        if not (trainer.form == "seq2seq"
+                and cfg.vocab_size == S2S_VOCAB + S2S_SENTINELS
+                and len(recs) == S2S_STEPS and np.isfinite(losses).all()
+                and losses[-1] < losses[0]
+                and all(v > 0 for v in move.values())
+                and launches == want and k4_launches == 0):
+            raise AssertionError(
+                f"t5: form {trainer.form}, vocabulary {cfg.vocab_size}, "
+                f"losses {losses}, moved {move}, {launches} hash dropout "
+                f"launches (want {want}), {k4_launches} K4 launches")
+        batch = trainer.ctx.put({k: v for k, v in next(iter(loader)).items()
+                                 if not k.startswith("_")})
+        gen = torch.Generator().manual_seed(seed)
+        clocks_before = clocks()
+        step_ms = cuda_ms(lambda: trainer.step_fn(state, gen, batch),
+                          iters=3, warmup=1)
+        clocks_after = clocks()
+        trace = trace_summary(steady_trace(
+            lambda: trainer.step_fn(state, gen, batch)))
+        tgt_tokens = int(batch["tgt_seg"].sum())
+        micro = {k: v[:S2S_BS] for k, v in batch.items()}
+        _, short_loader = pretrain.build(pretrain.parser().parse_args(
+            s2s_argv(paths, out + "-short", "t5", 1, S2S_SHORT_TGT)), dev)
+        short = trainer.ctx.put({k: v[:S2S_BS] for k, v in
+                                 next(iter(short_loader)).items()
+                                 if not k.startswith("_")})
+        sites = {}
+        for name, mb in (("context_square", micro),
+                         ("context_non_square", short)):
+            x, site_seed = site_input(model, mb, CONTEXT_SITE, seed)
+            sites[name] = check_dropout("hash_dropout", tuple(x.shape),
+                                        torch.float32, seed, dev, True,
+                                        card_line, x=x)
+            sites[name]["site_seed"] = site_seed
+            del x
+        shapes = [s["shape"] for s in sites.values()]
+        if shapes != [[S2S_BS, 12, S2S_TGT, S2S_SEQ],
+                      [S2S_BS, 12, S2S_SHORT_TGT, S2S_SEQ]]:
+            raise AssertionError(f"t5: context sites {shapes}")
+        del trainer, loader, state, model, params, batch, micro, short
+    torch.cuda.empty_cache()
+    tokens = S2S_BS * S2S_ACCUM * (S2S_SEQ + S2S_TGT)
+    emit(phase="t5", processor="t5", form="seq2seq", params=n_params,
+         params_by_part=counts, vocab=cfg.vocab_size,
+         micro_batch=[S2S_BS, S2S_SEQ, S2S_TGT], accumulation=S2S_ACCUM,
+         steps=S2S_STEPS, losses=losses, accs=[r["acc"] for r in recs],
+         best_acc=best, logged_tokens_s=[r["tokens_s"] for r in recs],
+         moved=move, hash_dropout_launches=launches,
+         hash_dropout_launches_expected=want,
+         hash_dropout_sites_a_pass=s2s_sites_a_pass(cfg),
+         build_seconds=build_s, fit_seconds=fit_s, peak_mem_gb=peak_gb,
+         step_ms=step_ms, tokens_a_step=tokens,
+         tokens_s=tokens / (step_ms / 1e3),
+         target_tokens_a_step=tgt_tokens, clocks_before=clocks_before,
+         clocks_after=clocks_after,
+         sites={k: {"shape": v["shape"], "bit_equal":
+                    v["forward_bit_equal"] and v["backward_bit_equal"],
+                    "ms": v["ms"], "bound_ms": v["bound_ms"]}
+                for k, v in sites.items()},
+         card=card_line)
+    emit(phase="t5_breakdown", traced="one optimizer step (2 micro-batches "
+         "of 32 x (128 + 128), T5-base span corruption, float32), the "
+         "second of two under the profiler", card=card_line, **trace)
+    return {"launches": launches, "sites": sites}
+
+
+def mt_path(seed: int, dev, card_line: str) -> dict:
+    """Phase 18, leg B: Transformer base through cli.pretrain at
+    --data_processor mt --hash_dropout (sinusoidal positions, the post-LN
+    decoder) on a synthetic tsv, MT_STEPS steps: finite losses, the
+    launches, the checkpoint reloaded strict."""
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = pretrain_corpus(tmp, seed, S2S_VOCAB, TRANSFORMER_BASE)
+        paths["corpus"] = os.path.join(tmp, "mt.tsv")
+        mt_tsv(paths["corpus"], seed + 1)
+        out = os.path.join(tmp, "mt")
+        trainer, loader = pretrain.build(pretrain.parser().parse_args(
+            s2s_argv(paths, out, "mt", MT_STEPS)), dev)
+        cfg = trainer.tower_cfg
+        want = s2s_sites_a_pass(cfg) * 2 * S2S_ACCUM * MT_STEPS
+        hash_dropout.launches = 0
+        t0 = time.perf_counter()
+        state, _ = trainer.fit(loader, MT_STEPS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = hash_dropout.launches
+        with open(out + ".log.jsonl") as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        n_params = sum(p.numel() for p in state.model.parameters())
+        del trainer, state
+        TowerModel(cfg, device="meta", with_target=True).load_state_dict(
+            load_tower_checkpoint(out), strict=True, assign=True)
+        if not (len(losses) == MT_STEPS and np.isfinite(losses).all()
+                and launches == want):
+            raise AssertionError(f"mt: losses {losses}, {launches} hash "
+                                 f"dropout launches (want {want})")
+    torch.cuda.empty_cache()
+    emit(phase="mt", processor="mt", form="seq2seq", params=n_params,
+         vocab=cfg.vocab_size, rows=len(loader.ds), steps=MT_STEPS,
+         losses=losses, hash_dropout_launches=launches,
+         hash_dropout_launches_expected=want, fit_seconds=fit_s,
+         card=card_line)
+    return {"launches": launches}
+
+
+def seq2seq_path(args, dev, card_line: str) -> dict:
+    """Phase 18: T5-base span corruption (leg A) and Transformer base MT
+    (leg B). Returns the sites' runs and the launches."""
+    t0 = time.perf_counter()
+    t5 = t5_path(args.seed + 80, dev, card_line)
+    mt = mt_path(args.seed + 81, dev, card_line)
+    emit(phase="p18_seconds", seconds=time.perf_counter() - t0,
+         card=card_line)
+    return {"sites": t5["sites"], "launches": t5["launches"]
+            + mt["launches"]}
+
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3594,6 +3883,8 @@ def main(argv=None) -> None:
                     help="build and run phase 16 alone on one card")
     ap.add_argument("--processors_only", action="store_true",
                     help="build and run phase 17 alone on one card")
+    ap.add_argument("--seq2seq_only", action="store_true",
+                    help="build and run phase 18 alone on one card")
     ap.add_argument("--parallel_only", action="store_true",
                     help="build and run phase 15's and phase 16's NCCL legs "
                          "alone (dp = the card count; on two or more cards "
@@ -3618,6 +3909,13 @@ def main(argv=None) -> None:
                 for k, v in built.items()})
     for name in build.ENTRIES:
         build.library(name)
+    if args.seq2seq_only:
+        seq2seq_path(args, dev, card_line)
+        print(card_line, flush=True)
+        emit(ok=True, device={"platform": "gpu",
+                              "kind": torch.cuda.get_device_name(0),
+                              "count": torch.cuda.device_count()})
+        return
     if args.processors_only:
         processors_path(args, dev, card_line)
         print(card_line, flush=True)
@@ -3680,6 +3978,8 @@ def main(argv=None) -> None:
     p16 = pipeline_path(args, dev, card_line)
     torch.cuda.empty_cache()
     p17 = processors_path(args, dev, card_line)
+    torch.cuda.empty_cache()
+    p18 = seq2seq_path(args, dev, card_line)
 
     main_k1 = serve_shape[torch.bfloat16]       # the serving path's dtype
     kernels = [{
@@ -3693,17 +3993,18 @@ def main(argv=None) -> None:
         "bound_ms": main_k1["bound_ms"], "bound_by": main_k1["bound_by"],
         "library_ms": None}]
     # hash dropout's launches: phase 7's, the tabular path's, the
-    # pretraining run's, the pipeline stages' and bert's
+    # pretraining run's, the pipeline stages', bert's and the seq2seq legs'
     for name, launches, err in (
             ("hash_dropout",
              train_launches["hash_dropout"] + tab["launches"]
              + pre["launches"] + p16["pp_launches"]
-             + p17["bert"]["launches"],
+             + p17["bert"]["launches"] + p18["launches"],
              max([drop["hash_dropout"]["max_abs_err"]]
                  + [r["max_abs_err"] for r in tab["sites"]]
                  + [r["max_abs_err"] for r in pre["sites"].values()]
                  + [r["max_abs_err"]
-                    for r in p17["bert"]["sites"].values()])),
+                    for r in p17["bert"]["sites"].values()]
+                 + [r["max_abs_err"] for r in p18["sites"].values()])),
             ("philox_dropout", k3_launches,
              drop["philox_dropout"]["max_abs_err"])):
         r = drop[name]

@@ -14,9 +14,11 @@ global batch, --dp -1 takes the world over --pp and --tp, --zero1 and
 --fsdp shard the optimizer and the parameters over dp, --pp N runs the
 encoder as N pipeline stages of --pp_microbatches microbatches (GPipe,
 parallel/pipeline.py), --sp (with --tp > 1) splits the residual stream
-along the sequence over tp. The mlm, lm, cls, bert, albert, cls_mlm, bilm
-and prefixlm processors run (data/pretrain_processors.py, in the batch
-form of str2form); every other processor and the image tokenizers raise,
+along the sequence over tp. The mlm, lm, cls, bert, albert, cls_mlm, bilm,
+prefixlm, mt, t5, gsg and bart processors run (data/pretrain_processors.py,
+in the batch form of str2form); t5 grows the vocabulary by its 100
+sentinels from --sentinel_start (default: the vocabulary's end), as the JAX
+CLI does. The image and speech processors and the image tokenizers raise,
 naming ROADMAP.md.
 It runs on the GPU unless `--device cpu` is given, and raises where there
 is no GPU. The checkpoints are reference-keyed `.bin` files.
@@ -33,18 +35,23 @@ from lr2ppo_torch.data.pipeline import Loader
 from lr2ppo_torch.data.pretrain_data import (ClsTsvDataset, LmCorpusDataset,
                                              MlmCorpusDataset)
 from lr2ppo_torch.data.pretrain_processors import (AlbertDocsDataset,
+                                                   BartDocsDataset,
                                                    BertDocsDataset,
                                                    BilmCorpusDataset,
                                                    ClsMlmTsvDataset,
-                                                   PrefixlmTsvDataset)
+                                                   GsgDocsDataset,
+                                                   MtTsvDataset,
+                                                   PrefixlmTsvDataset,
+                                                   T5CorpusDataset)
 from lr2ppo_torch.data.tokenizers import str2tokenizer
 from lr2ppo_torch.towers.model import TowerConfig
 from lr2ppo_torch.train.pretrain import PretrainTrainer
 
-# the JAX CLI's processors that wait (ROADMAP.md, queue A: the seq2seq
-# towers, then image and speech pretraining)
-NOT_PORTED_PROCESSORS = ("mt", "t5", "gsg", "bart", "vit", "clip", "vilt",
-                         "s2t", "beit", "dalle")
+# the JAX CLI's processors that wait (ROADMAP.md, queue A5: image and
+# speech pretraining)
+NOT_PORTED_PROCESSORS = ("vit", "clip", "vilt", "s2t", "beit", "dalle")
+# the T5 sentinels, past --sentinel_start
+N_SENTINELS = 100
 
 
 def _special_ids(tok):
@@ -82,7 +89,8 @@ def _mask_id(tok):
 # as in the JAX CLI
 str2form = {"mlm": "simple", "lm": "simple", "cls": "simple",
             "prefixlm": "simple", "bert": "pair_sp", "albert": "pair_sp",
-            "cls_mlm": "pair_cls", "bilm": "bilm"}
+            "cls_mlm": "pair_cls", "bilm": "bilm", "mt": "seq2seq",
+            "t5": "seq2seq", "gsg": "seq2seq", "bart": "seq2seq"}
 
 # data_processor -> dataset builder, the JAX CLI's
 str2dataset = {
@@ -109,7 +117,24 @@ str2dataset = {
         path, tok, args.seq_length),
     "prefixlm": lambda path, tok, args, cfg: PrefixlmTsvDataset(
         path, tok, args.seq_length),
+    "mt": lambda path, tok, args, cfg: MtTsvDataset(
+        path, tok, args.seq_length, args.tgt_seq_length),
+    "t5": lambda path, tok, args, cfg: T5CorpusDataset(
+        path, tok, args.seq_length, args.tgt_seq_length, cfg.vocab_size,
+        sentinel_start=_sentinel_start(tok, args), n_sentinels=N_SENTINELS,
+        seed=args.seed),
+    "gsg": lambda path, tok, args, cfg: GsgDocsDataset(
+        path, tok, args.seq_length, args.tgt_seq_length, _mask_id(tok),
+        strategy=args.sentence_selection_strategy, seed=args.seed),
+    "bart": lambda path, tok, args, cfg: BartDocsDataset(
+        path, tok, args.seq_length, cfg.vocab_size, _mask_id(tok),
+        seed=args.seed),
 }
+
+
+def _sentinel_start(tok, args) -> int:
+    return (args.sentinel_start if args.sentinel_start is not None
+            else len(tok.vocab))
 
 
 def parser() -> argparse.ArgumentParser:
@@ -178,8 +203,8 @@ def build(args, device=None):
     if args.data_processor in NOT_PORTED_PROCESSORS:
         raise SystemExit(
             f"--data_processor {args.data_processor}: not ported yet "
-            "(ROADMAP.md, queue A: the seq2seq towers, then image and "
-            f"speech pretraining; {', '.join(sorted(str2dataset))} run)")
+            "(ROADMAP.md, queue A5: image and speech pretraining; "
+            f"{', '.join(sorted(str2dataset))} run)")
     if args.jax_platform:
         raise SystemExit("--jax_platform names a JAX backend; lr2ppo_torch "
                          "takes --device")
@@ -196,6 +221,11 @@ def build(args, device=None):
     processors.set_special_ids(*_special_ids(tok))
 
     vocab_size = max(len(tok.vocab), 1)
+    if args.data_processor == "t5":
+        # the sentinels fill [start, start + 100): grow the vocabulary to
+        # cover them wherever they start
+        vocab_size += max(0, _sentinel_start(tok, args) + N_SENTINELS
+                          - len(tok.vocab))
     # grow-only max_seq_length: keep the JSON's own value (XLM-R's 514)
     with open(args.tower_config) as f:
         raw = json.load(f)
@@ -210,6 +240,16 @@ def build(args, device=None):
         max_seq_length=max(args.seq_length, raw_msl), max_audio_frames=maf,
         **({"hash_dropout": True} if args.hash_dropout else {}),
         **({"seq_parallel": True} if args.sp else {}))
+
+    tgt_kinds = set(tower_cfg.tgt_embedding or tower_cfg.embedding)
+    if (str2form[args.data_processor] == "seq2seq"
+            and args.tgt_seq_length > tower_cfg.max_seq_length
+            and tgt_kinds & {"pos", "sinusoidalpos"}):
+        # the position tables are sized by --seq_length (or the JSON's
+        # max_seq_length), as in the JAX CLI
+        raise SystemExit(f"--tgt_seq_length {args.tgt_seq_length} exceeds "
+                         f"the position tables' {tower_cfg.max_seq_length} "
+                         "rows; raise --seq_length")
 
     cfg = Config()
     cfg = cfg.replace(

@@ -253,10 +253,11 @@ class GPipe:
         for i in self.layers:
             blk = self.model.encoder.transformer[i]
             gen = site_generator(base, m, i)
+            args = (x, mask, None, None, None, deterministic)
             if self.cfg.remat and torch.is_grad_enabled():
-                x = remat(blk, x, mask, None, deterministic, generator=gen)
+                x = remat(blk, *args, generator=gen)[0]
             else:
-                x = blk(x, mask, None, deterministic, gen)
+                x = blk(*args, gen)[0]
         return x
 
     def forward_backward(self, src, tgt, seg, base: int,

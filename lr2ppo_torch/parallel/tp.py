@@ -85,6 +85,24 @@ class _GatherFromTP(torch.autograd.Function):
         return g.narrow(-1, ctx.rank * n, n).contiguous(), None, None, None
 
 
+class _SplitFromTP(torch.autograd.Function):
+    """This rank's part along `dim` of a tensor replicated over tp; the
+    backward all-gathers the parts' gradients, so every rank holds the
+    whole tensor's gradient (T5's position bias, sliced to a rank's
+    heads)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, rank, parts):
+        ctx.dim, ctx.group, ctx.parts = dim, group, parts
+        n = x.shape[dim] // parts
+        return x.narrow(dim, rank * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather_dim(g.contiguous(), ctx.dim, ctx.group, ctx.parts),
+                None, None, None, None)
+
+
 class _SumBothWays(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -252,6 +270,12 @@ def gather_from_tp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if mesh.tp == 1:
         return x
     return _GatherFromTP.apply(x, mesh.tp_group, mesh.tp_rank, mesh.tp)
+
+
+def split_from_tp(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    if mesh.tp == 1:
+        return x
+    return _SplitFromTP.apply(x, dim, mesh.tp_group, mesh.tp_rank, mesh.tp)
 
 
 def tp_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

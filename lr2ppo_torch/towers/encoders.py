@@ -2,11 +2,15 @@
 lr2ppo_tpu/towers/encoders.py:TransformerEncoder).
 
 Its layers are `encoder.transformer.<i>` (or one shared `encoder.transformer`
-under parameter sharing), then `encoder.layer_norm` for pre-LN stacks. On a
-deterministic fully-visible pass with `pallas_attention` set, the encoder
-hands each layer a (B, S) key bias, which routes attention through the fused
-kernel (ops/attention.py), as the JAX gate (encoders.py:84-89) does. The
-kernel has no backward: a training pass takes the plain attention.
+under parameter sharing), then `encoder.layer_norm` for pre-LN stacks. With
+`relative_position_embedding` (T5) the bidirectional bias table is
+`encoder.relative_pos_emb`, computed once a pass and added in every layer;
+with `has_residual_attention` each layer's chained scores pass to the next.
+On a deterministic fully-visible pass with `pallas_attention` set and
+neither of those two, the encoder hands each layer a (B, S) key bias, which
+routes attention through the fused kernel (ops/attention.py), as the JAX
+gate (encoders.py:84-89) does. The kernel has no backward: a training pass
+takes the plain attention.
 
 With `remat`, each layer of a pass that records gradients runs under
 utils/remat.py, which recomputes its activations in the backward with the
@@ -19,8 +23,8 @@ split (parallel/tp.py:split_seq), every layer computes on its S/tp tokens
 (towers/layers.py:TransformerLayer), and the stream is gathered whole again
 before the final norm and the target. At tp 1 it does nothing, as in JAX.
 
-The RNN family, the gated CNN, dual encoders, relative positions and
-residual attention raise (ROADMAP A: the rest of the towers).
+The RNN family, the gated CNN and dual encoders raise (ROADMAP A4: the other
+encoders).
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from torch import nn
 
 from lr2ppo_torch.models.layers import Linear
 from lr2ppo_torch.parallel.tp import gather_seq_replicated, split_seq
-from lr2ppo_torch.towers.layers import (NOT_PORTED, TransformerLayer,
+from lr2ppo_torch.towers.layers import (RelativePositionEmbedding,
+                                        TransformerLayer,
                                         additive_mask_from_seg,
                                         make_layer_norm)
 from lr2ppo_torch.utils.remat import remat
@@ -46,13 +51,15 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, cfg, dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
-        for flag in ("relative_position_embedding", "has_residual_attention"):
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"{flag} is {NOT_PORTED}")
         self.cfg = cfg
         if cfg.factorized_embedding_parameterization:
             self.linear = Linear(cfg.emb_size, cfg.hidden_size, dtype=dtype,
                                  device=device)
+        if cfg.relative_position_embedding:
+            self.relative_pos_emb = RelativePositionEmbedding(
+                cfg.heads_num, bidirectional=True,
+                num_buckets=cfg.relative_attention_buckets_num,
+                device=device)
 
         def layer() -> TransformerLayer:
             return TransformerLayer(
@@ -85,27 +92,33 @@ class TransformerEncoder(nn.Module):
         if cfg.factorized_embedding_parameterization:
             emb = self.linear(emb)
         # the key-only bias that takes the fused attention kernel, on a
-        # deterministic pass only (the JAX gate also asks for no residual
-        # attention and no relative positions, which this encoder refuses)
+        # deterministic pass without position bias or chained scores only
         key_bias = None
         if (cfg.pallas_attention and cfg.mask == "fully_visible"
-                and deterministic):
+                and deterministic and not cfg.has_residual_attention
+                and not cfg.relative_position_embedding):
             key_bias = torch.where(seg > 0, 0.0, -10000.0)
         # the (B, 1, S, S) mask, where some layer takes the plain path
         mask = (additive_mask_from_seg(seg, cfg.mask)
                 if key_bias is None or cfg.remove_attention_scale else None)
+        position_bias = None
+        if cfg.relative_position_embedding:
+            layer = (self.transformer if cfg.parameter_sharing
+                     else self.transformer[0])
+            position_bias = self.relative_pos_emb(
+                emb.shape[1], emb.shape[1], layer.self_attn.heads_mesh)
         recompute = cfg.remat and torch.is_grad_enabled()
         sp = self.sp_mesh
-        hidden = emb if sp is None else split_seq(emb, sp)
+        hidden, prev_attn = (emb if sp is None else split_seq(emb, sp)), None
         for i in range(cfg.layers_num):
             blk = (self.transformer if cfg.parameter_sharing
                    else self.transformer[i])
-            if recompute:
-                hidden = remat(blk, hidden, mask, key_bias, deterministic,
-                               generator=generator)
-            else:
-                hidden = blk(hidden, mask, key_bias, deterministic,
-                             generator)
+            args = (hidden, mask, position_bias, prev_attn, key_bias,
+                    deterministic)
+            hidden, prev_attn = (remat(blk, *args, generator=generator)
+                                 if recompute else blk(*args, generator))
+            if not cfg.has_residual_attention:
+                prev_attn = None
         if sp is not None:
             hidden = gather_seq_replicated(hidden, sp)
         if cfg.layernorm_positioning == "pre":

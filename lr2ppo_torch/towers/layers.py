@@ -10,22 +10,26 @@ JAX package's:
   * RefLayerNorm divides by (std + eps) with eps outside the square root and
     a Bessel-corrected std; it is neither nn.LayerNorm nor the flax-numerics
     LayerNorm of models/layers.py;
-  * attention masks are additive -10000 biases; the plain path divides the
-    scores by sqrt(dh) and then adds the mask.
+  * attention masks are additive -10000 biases; the plain path adds the T5
+    position bias to the raw scores, divides by sqrt(dh), adds the mask and
+    then the previous layer's chained scores (residual attention), in the
+    JAX layer's order (layers.py:164-170);
+  * T5's relative position buckets are computed on the host in float32,
+    once per (query, key) length, so every device reads JAX's buckets (a
+    one-ulp change of the float32 log flips a bucket).
 
 Under --sp the layers compute on a sequence shard (TransformerLayer).
 
 Training mode (`deterministic=False`) applies the JAX layer's dropout sites
 through `module_dropout` (ops/hash_dropout.py): the attention probabilities
 and the two residual branches of each layer. Every active site draws its seed
-from the caller's CPU `torch.Generator`, in forward order. The T5 relative
-position bias and residual-attention chaining raise (ROADMAP A: the rest of
-the towers).
+from the caller's CPU `torch.Generator`, in forward order.
 """
 
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 from typing import Optional
 
 import torch
@@ -35,7 +39,7 @@ from torch import nn
 from lr2ppo_torch.models.layers import Linear
 from lr2ppo_torch.ops.attention import fused_attention
 from lr2ppo_torch.ops.hash_dropout import SEQ, module_dropout
-from lr2ppo_torch.parallel.tp import seq_param
+from lr2ppo_torch.parallel.tp import seq_param, split_from_tp
 
 ACTS: dict = {
     "gelu": lambda x: F.gelu(x, approximate="none"),
@@ -140,11 +144,14 @@ class MultiHeadedAttention(nn.Module):
     """Reference MHA (multi_headed_attn.py:6-76): separate q/k/v linears
     `linear_layers.{0,1,2}` and the output linear `final_linear`.
 
-    With a `key_bias` (the encoder's gate, on deterministic passes only),
-    attention runs through the fused kernel (ops/attention.py), as the JAX
-    layer takes the Pallas kernel; the plain path drops the probabilities in
-    training mode. The position bias and score chaining of the JAX layer are
-    not ported yet."""
+    With a `key_bias` (the encoder's gate, on deterministic passes only, never
+    with a position bias or chained scores), attention runs through the fused
+    kernel (ops/attention.py), as the JAX layer takes the Pallas kernel; the
+    plain path drops the probabilities in training mode. `position_bias`
+    (1, h, Sq, Sk) and `prev_attn` (B, h, Sq, Sk) hold this rank's heads.
+    Returns (out, scores): the chained scores, before the softmax, that a
+    residual-attention stack hands to its next layer (None on the fused
+    path)."""
 
     def __init__(self, hidden_size: int, heads_num: int,
                  attention_head_size: int, has_bias: bool = True,
@@ -162,11 +169,20 @@ class MultiHeadedAttention(nn.Module):
         self.final_linear = Linear(inner, hidden_size, bias=has_bias,
                                    dtype=dtype, device=device)
 
+    @property
+    def heads_mesh(self):
+        """The tp mesh over which this attention's heads are split, or
+        None."""
+        q = self.linear_layers[0]
+        return q.mesh if q.tp_dim == 0 else None
+
     def forward(self, key: torch.Tensor, value: torch.Tensor,
                 query: torch.Tensor, mask: Optional[torch.Tensor],
+                position_bias: Optional[torch.Tensor] = None,
+                prev_attn: Optional[torch.Tensor] = None,
                 key_bias: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None):
         dh = self.head_size
         q = self.linear_layers[0](query)
         k = self.linear_layers[1](key)
@@ -179,26 +195,32 @@ class MultiHeadedAttention(nn.Module):
         k = k.reshape(b, sk, h, dh).transpose(1, 2)
         v = v.reshape(b, sk, h, dh).transpose(1, 2)
 
-        if key_bias is not None and self.with_scale:
+        scores = None
+        if (key_bias is not None and position_bias is None
+                and prev_attn is None and self.with_scale):
             # the JAX gate (towers/layers.py:145-146): q, k, v as strided
             # (B, H, S, dh) views, read by the kernel in place
             out = fused_attention(q, k, v, key_bias.float(),
                                   1.0 / math.sqrt(float(dh)))
         else:
             scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+            if position_bias is not None:
+                scores = scores + position_bias
             if self.with_scale:
                 # a tensor divisor: a true division on every device, as JAX
                 scores = scores / scores.new_tensor(math.sqrt(float(dh)))
             scores = scores + mask
+            if prev_attn is not None:
+                scores = scores + prev_attn
             probs = torch.softmax(scores, dim=-1).to(self.dtype or q.dtype)
             probs = module_dropout(
                 probs, self.dropout, deterministic, generator,
                 self.hash_dropout,
-                tp_from=1 if self.linear_layers[0].tp_dim == 0 else None)
+                tp_from=None if self.heads_mesh is None else 1)
             out = torch.matmul(probs, v.to(probs.dtype))
             out = out.to(self.dtype or torch.float32)
         out = out.transpose(1, 2).reshape(b, sq, h * dh)
-        return self.final_linear(out)
+        return self.final_linear(out), scores
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -237,10 +259,73 @@ class GatedFeedForward(nn.Module):
         return self.linear_2(self.act(self.linear_gate(x)) * self.linear_1(x))
 
 
+def t5_relative_buckets(relative_position: torch.Tensor, bidirectional: bool,
+                        num_buckets: int, max_distance: int) -> torch.Tensor:
+    """T5 bucketing (relative_position_embedding.py:45-92), in the JAX
+    function's float32 steps: exact up to num_buckets // 4 (// 2 one-way),
+    logarithmic up to max_distance, the last bucket beyond."""
+    rel = relative_position
+    buckets = torch.zeros_like(rel)
+    if bidirectional:
+        num_buckets //= 2
+        buckets = buckets + (rel > 0).to(rel.dtype) * num_buckets
+        rel = rel.abs()
+    else:
+        rel = -torch.clamp_max(rel, 0)
+    max_exact = num_buckets // 2
+    is_small = rel < max_exact
+    rel_large = max_exact + (
+        torch.log(rel.float() / max_exact + 1e-20)
+        / math.log(max_distance / max_exact) * (num_buckets - max_exact)
+    ).to(rel.dtype)
+    rel_large = torch.clamp_max(rel_large, num_buckets - 1)
+    return buckets + torch.where(is_small, rel, rel_large)
+
+
+@lru_cache(maxsize=64)
+def _bucket_table(query_length: int, key_length: int, bidirectional: bool,
+                  num_buckets: int, max_distance: int,
+                  device: torch.device) -> torch.Tensor:
+    """(Sq, Sk) int64 buckets of key - query, computed on the host and kept
+    on `device`."""
+    ctx = torch.arange(query_length, dtype=torch.int32)[:, None]
+    mem = torch.arange(key_length, dtype=torch.int32)[None, :]
+    return t5_relative_buckets(mem - ctx, bidirectional, num_buckets,
+                               max_distance).long().to(device)
+
+
+class RelativePositionEmbedding(nn.Module):
+    """T5's binned relative position bias (relative_position_embedding.py):
+    a (num_buckets, heads) table under `relative_attention_bias.weight`,
+    N(0, 1) at init, read as the (1, heads, Sq, Sk) bias of every layer.
+    `mesh` (an attention's `heads_mesh`) keeps this rank's heads, the whole
+    table's gradient gathered back (parallel/tp.py:split_from_tp), as GSPMD
+    slices the bias in JAX."""
+
+    def __init__(self, heads_num: int, bidirectional: bool = True,
+                 num_buckets: int = 32, max_distance: int = 128,
+                 device=None):
+        super().__init__()
+        self.bidirectional, self.num_buckets = bidirectional, num_buckets
+        self.max_distance = max_distance
+        self.relative_attention_bias = nn.Embedding(num_buckets, heads_num,
+                                                    device=device)
+
+    def forward(self, query_length: int, key_length: int,
+                mesh=None) -> torch.Tensor:
+        table = self.relative_attention_bias.weight
+        bucket = _bucket_table(query_length, key_length, self.bidirectional,
+                               self.num_buckets, self.max_distance,
+                               table.device)
+        bias = table[bucket].permute(2, 0, 1)[None]
+        return bias if mesh is None else split_from_tp(bias, 1, mesh)
+
+
 class TransformerLayer(nn.Module):
     """Pre- or post-LN encoder block (transformer.py:8-74). In training mode
     it has three dropout sites, in the order their seeds are drawn: the
     attention probabilities, the attention branch and the FFN branch.
+    Returns (out, scores), the attention's chained scores (MultiHeadedAttention).
 
     Under --sp (`sp_mesh` set by shard_tp) `hidden` is this tp rank's S/tp
     tokens: the column-parallel products gather the sequence, the
@@ -275,9 +360,11 @@ class TransformerLayer(nn.Module):
                                             device)
 
     def forward(self, hidden: torch.Tensor, mask: Optional[torch.Tensor],
+                position_bias: Optional[torch.Tensor] = None,
+                prev_attn: Optional[torch.Tensor] = None,
                 key_bias: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None):
         seq = SEQ if self.sp_mesh is not None else None
 
         def drop(x):
@@ -285,15 +372,19 @@ class TransformerLayer(nn.Module):
                                   self.hash_dropout, tp_from=seq)
 
         if not self.pre:
-            inter = self.self_attn(hidden, hidden, hidden, mask, key_bias,
-                                   deterministic, generator)
+            inter, scores = self.self_attn(hidden, hidden, hidden, mask,
+                                           position_bias, prev_attn, key_bias,
+                                           deterministic, generator)
             inter = self.layer_norm_1(drop(inter) + hidden)
-            return self.layer_norm_2(drop(self.feed_forward(inter)) + inter)
+            out = self.layer_norm_2(drop(self.feed_forward(inter)) + inter)
+            return out, scores
         normed = self.layer_norm_1(hidden)
-        inter = self.self_attn(normed, normed, normed, mask, key_bias,
-                               deterministic, generator)
+        inter, scores = self.self_attn(normed, normed, normed, mask,
+                                       position_bias, prev_attn, key_bias,
+                                       deterministic, generator)
         hidden = hidden + drop(inter)
-        return drop(self.feed_forward(self.layer_norm_2(hidden))) + hidden
+        out = drop(self.feed_forward(self.layer_norm_2(hidden))) + hidden
+        return out, scores
 
 
 def pooling(memory_bank: torch.Tensor, seg: torch.Tensor,

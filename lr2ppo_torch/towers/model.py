@@ -1,13 +1,15 @@
-"""Tower model: embedding -> encoder, with the reference JSON config schema
-(counterpart of lr2ppo_tpu/towers/model.py).
+"""Tower model: embedding -> encoder [-> decoder], with the reference JSON
+config schema (counterpart of lr2ppo_tpu/towers/model.py).
 
 `TowerConfig` is the port's copy of the JAX package's, field for field, so
 `from_json` reads the reference config files (models/vit/
-base-16-224_config.json, models/xlm-roberta/base_config.json) and ignores
-keys it has no field for. `TowerModel.encode` is the feature-extraction
-path; built `with_target`, the model's forward is the pretraining loss
-through the targets (targets.py). The decoder and dual encoders raise
-(ROADMAP A: the rest of the towers).
+base-16-224_config.json, models/xlm-roberta/base_config.json,
+models/t5/base_config.json) and ignores keys it has no field for.
+`TowerModel.encode` is the feature-extraction path; built `with_target`, the
+model's forward is the pretraining loss through the targets (targets.py).
+A config with a `decoder` adds the target-side embedding and the
+TransformerDecoder (decoders/transformer_decoder.py), and its targets read
+the decoder's output. Dual encoders raise (ROADMAP A4: the other encoders).
 """
 
 from __future__ import annotations
@@ -21,9 +23,15 @@ import torch
 from torch import nn
 
 from lr2ppo_torch.models.layers import Linear
+from lr2ppo_torch.ops.hash_dropout import module_dropout
 from lr2ppo_torch.towers.embeddings import CompositeEmbedding, PatchEmbedding
 from lr2ppo_torch.towers.encoders import build_encoder
-from lr2ppo_torch.towers.layers import NOT_PORTED, RefLayerNorm, T5LayerNorm
+from lr2ppo_torch.towers.layers import (NOT_PORTED, GatedFeedForward,
+                                        MultiHeadedAttention,
+                                        PositionwiseFeedForward, RefLayerNorm,
+                                        RelativePositionEmbedding,
+                                        T5LayerNorm, additive_mask_from_seg,
+                                        make_layer_norm)
 from lr2ppo_torch.towers.targets import CompositeTarget
 
 
@@ -106,24 +114,139 @@ class TowerConfig:
         return cfg
 
 
+class TransformerDecoderLayer(nn.Module):
+    """One decoder layer (transformer_decoder.py): causal self-attention,
+    attention over the encoder's memory, the FFN, and three norms
+    (`layer_norm_{1,2,3}`), pre- or post-LN. In training mode it has five
+    dropout sites, in the order their seeds are drawn: the self-attention
+    probabilities, its branch, the context-attention probabilities, its
+    branch and the FFN branch. Pre-LN context attention reads the un-normed
+    memory as key and value (lr2ppo_tpu/towers/model.py:207)."""
+
+    def __init__(self, cfg, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__()
+        dh = cfg.attention_head_size or cfg.hidden_size // cfg.heads_num
+        has_bias = not cfg.remove_transformer_bias
+        self.pre = cfg.layernorm_positioning == "pre"
+        self.dropout, self.hash_dropout = cfg.dropout, cfg.hash_dropout
+
+        def attention():
+            return MultiHeadedAttention(
+                cfg.hidden_size, cfg.heads_num, dh, has_bias,
+                not cfg.remove_attention_scale, dtype, device, cfg.dropout,
+                cfg.hash_dropout)
+
+        self.self_attn = attention()
+        self.context_attn = attention()
+        ffn_cls = (GatedFeedForward if cfg.feed_forward == "gated"
+                   else PositionwiseFeedForward)
+        self.feed_forward = ffn_cls(cfg.hidden_size, cfg.feedforward_size,
+                                    cfg.hidden_act, has_bias, dtype, device)
+        for i in (1, 2, 3):
+            self.add_module(f"layer_norm_{i}", make_layer_norm(
+                cfg.layernorm, cfg.hidden_size, dtype, device))
+
+    def forward(self, hidden: torch.Tensor, memory: torch.Tensor,
+                mask_dec: torch.Tensor, mask_enc: torch.Tensor,
+                position_bias: Optional[torch.Tensor], deterministic: bool,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        def drop(x):
+            return module_dropout(x, self.dropout, deterministic, generator,
+                                  self.hash_dropout)
+
+        def attend(attn, kv, query, mask, bias=None):
+            return attn(kv, kv, query, mask, bias, None, None, deterministic,
+                        generator)[0]
+
+        if self.pre:
+            normed = self.layer_norm_1(hidden)
+            query = drop(attend(self.self_attn, normed, normed, mask_dec,
+                                position_bias)) + hidden
+            mid = drop(attend(self.context_attn, memory,
+                              self.layer_norm_2(query), mask_enc)) + query
+            return drop(self.feed_forward(self.layer_norm_3(mid))) + mid
+        query = self.layer_norm_1(drop(attend(
+            self.self_attn, hidden, hidden, mask_dec, position_bias)) + hidden)
+        mid = self.layer_norm_2(drop(attend(
+            self.context_attn, memory, query, mask_enc)) + query)
+        return self.layer_norm_3(drop(self.feed_forward(mid)) + mid)
+
+
+class TransformerDecoder(nn.Module):
+    """The autoregressive decoder stack (decoders/transformer_decoder.py),
+    under `decoder.transformer_decoder.<i>`, with T5's one-way relative
+    bias `decoder.self_pos_emb` and the final norm `decoder.layer_norm` of
+    pre-LN stacks. The causal mask ignores the target's padding; the
+    context mask hides the source's."""
+
+    def __init__(self, cfg, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.transformer_decoder = nn.ModuleList(
+            TransformerDecoderLayer(cfg, dtype, device)
+            for _ in range(cfg.decoder_layers_num or cfg.layers_num))
+        if cfg.relative_position_embedding:
+            self.self_pos_emb = RelativePositionEmbedding(
+                cfg.heads_num, bidirectional=False,
+                num_buckets=cfg.relative_attention_buckets_num,
+                device=device)
+        if cfg.layernorm_positioning == "pre":
+            self.layer_norm = make_layer_norm(cfg.layernorm, cfg.hidden_size,
+                                              dtype, device)
+
+    def forward(self, memory: torch.Tensor, emb: torch.Tensor,
+                src_seg: torch.Tensor, tgt_seg: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, t = tgt_seg.shape
+        mask_dec = additive_mask_from_seg(tgt_seg, "causal")
+        vis = (src_seg > 0)[:, None, None, :].expand(b, 1, t,
+                                                     src_seg.shape[1])
+        zero = torch.zeros((), device=src_seg.device)
+        mask_enc = torch.where(vis, zero, zero - 10000.0)
+        position_bias = None
+        if self.cfg.relative_position_embedding:
+            position_bias = self.self_pos_emb(
+                t, t, self.transformer_decoder[0].self_attn.heads_mesh)
+        hidden = emb
+        for layer in self.transformer_decoder:
+            hidden = layer(hidden, memory, mask_dec, mask_enc, position_bias,
+                           deterministic, generator)
+        if self.cfg.layernorm_positioning == "pre":
+            hidden = self.layer_norm(hidden)
+        return hidden
+
+
 class TowerModel(nn.Module):
-    """Embedding -> encoder [-> target] (models/model.py), under the
-    reference keys `embedding.*`, `encoder.*` and, built `with_target`,
+    """Embedding -> encoder [-> decoder] [-> target] (models/model.py), under
+    the reference keys `embedding.*`, `encoder.*`, with a decoder
+    `tgt_embedding.*` and `decoder.*`, and, built `with_target`,
     `target.<kind>.*`. `encode` gives the encoder's last hidden states, the
     features clean_feat.h5 stores; a tower for extraction is built without
     the target, as a reference checkpoint's heads are dropped by
-    `encoder_state`. In training mode (`deterministic=False`) every dropout
-    site draws its seed from `generator`, a CPU torch.Generator."""
+    `encoder_state`. The target-side embedding is its own module (no tied
+    weights, as in JAX), built from the config with `tgt_embedding` as its
+    kinds and the encoder side's list as its gates. In training mode
+    (`deterministic=False`) every dropout site draws its seed from
+    `generator`, a CPU torch.Generator, in forward order: the encoder side,
+    then the target embedding and the decoder."""
 
     def __init__(self, cfg: TowerConfig, dtype: Optional[torch.dtype] = None,
                  device=None, with_target: bool = False):
         super().__init__()
-        if cfg.encoder == "dual" or cfg.decoder:
-            raise NotImplementedError(
-                f"dual encoders and decoders are {NOT_PORTED}")
+        if cfg.encoder == "dual":
+            raise NotImplementedError(f"dual encoders are {NOT_PORTED}")
         self.cfg = cfg
         self.embedding = CompositeEmbedding(cfg, device)
         self.encoder = build_encoder(cfg, dtype, device)
+        if cfg.decoder:
+            tgt_cfg = (dataclasses.replace(cfg, embedding=cfg.tgt_embedding,
+                                           gate_embedding=cfg.embedding)
+                       if cfg.tgt_embedding else cfg)
+            self.tgt_embedding = CompositeEmbedding(tgt_cfg, device)
+            self.decoder = TransformerDecoder(cfg, dtype, device)
         if with_target:
             self.target = CompositeTarget(cfg, dtype, device)
 
@@ -143,15 +266,25 @@ class TowerModel(nn.Module):
         """The target over a precomputed encoder output."""
         return self.target(memory, tgt, seg)
 
-    def forward(self, src, tgt, seg: torch.Tensor, deterministic: bool = True,
+    def forward(self, src, tgt, seg: torch.Tensor, tgt_in=None,
+                tgt_seg: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
         """The target's loss tuple: (loss, correct, denom) for mlm, lm and
-        bilm, (loss, correct) for cls and sp, {kind: tuple} for several."""
+        bilm, (loss, correct) for cls and sp, {kind: tuple} for several.
+        With a decoder, `tgt_in` and `tgt_seg` are the decoder's input
+        stream, and the target reads the decoder's output under tgt_seg."""
         if not hasattr(self, "target"):
             raise ValueError("this TowerModel was built without its target "
                              "(with_target=False); call encode()")
-        return self.target(self.encode(src, seg, deterministic, generator),
-                           tgt, seg)
+        memory = self.encode(src, seg, deterministic, generator)
+        if self.cfg.decoder:
+            emb = self.tgt_embedding(tgt_in, tgt_seg, deterministic,
+                                     generator)
+            memory = self.decoder(memory, emb, seg, tgt_seg, deterministic,
+                                  generator)
+            seg = tgt_seg
+        return self.target(memory, tgt, seg)
 
 
 def build_model(cfg: TowerConfig, dtype=None, device=None) -> TowerModel:
@@ -161,8 +294,9 @@ def build_model(cfg: TowerConfig, dtype=None, device=None) -> TowerModel:
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded weights with the JAX package's init styles: linears as torch
-    (U(+-1/sqrt(fan_in))), lookup tables N(0, 1), the patch projection and
-    [CLS] N(0, 0.02), layer norms at one and zero."""
+    (U(+-1/sqrt(fan_in))), lookup tables (T5's relative bias tables among
+    them) N(0, 1), the patch projection and [CLS] N(0, 0.02), layer norms
+    at one and zero."""
     for m in model.modules():
         if isinstance(m, (Linear, RefLayerNorm, T5LayerNorm)):
             m.reset_parameters(generator)

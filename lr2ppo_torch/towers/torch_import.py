@@ -6,16 +6,22 @@ reference tower `.bin` needs no conversion: `load_tower_checkpoint` reads it
 `encoder_state` keeps what `encode` reads. `tower_params_from_flax` is the
 weight bridge from the JAX package: a flax tower tree of numpy arrays into
 that layout, the inverse of the JAX package's `torch_tower_to_flax` for the
-embedding, transformer-encoder and target keys:
+embedding, transformer-encoder, decoder and target keys:
 
   flax                                      torch
   embedding/<kind>/embedding                embedding.<kind>.embedding.weight
+  tgt_embedding/<kind>/embedding            tgt_embedding.<kind>.embedding.weight
   embedding/patch/projection (C*P*P, E)     embedding.patch.projection.weight
                                             (E, C, P, P)
   encoder/transformer_<i>/.../kernel (in, out)
                                             encoder.transformer.<i>...weight
                                             (out, in)
   .../linear_layers_<j>/...                 ...linear_layers.<j>...
+  .../relative_attention_bias (buckets, H)  ...relative_attention_bias.weight
+  decoder_mod/transformer_decoder_<i>_<sub>/...
+                                            decoder.transformer_decoder.<i>.
+                                            <sub>...
+  decoder_mod/{self_pos_emb,layer_norm}/... decoder.{self_pos_emb,layer_norm}...
   target/<kind>/<linear>/kernel             target.<kind>.<linear>.weight
   gamma, beta, bias, cls_emb, 1-d weight    as they are
 """
@@ -32,6 +38,11 @@ import torch
 from lr2ppo_torch.towers.targets import TARGET_KINDS
 
 _INDEXED = re.compile(r"^(transformer|linear_layers)_(\d+)$")
+# the JAX decoder's flat layer names: transformer_decoder_<i>_<sub>
+_DECODER_LAYER = re.compile(r"^(transformer_decoder)_(\d+)_(.+)$")
+_ROOTS = {"embedding": "embedding", "encoder": "encoder",
+          "target": "target", "tgt_embedding": "tgt_embedding",
+          "decoder_mod": "decoder"}
 
 # the module prefixes encode reads; a reference .bin also holds the target
 # heads (`target.*`), which only pretraining reads
@@ -54,20 +65,20 @@ def tower_params_from_flax(tree: dict,
     tree = tree.get("params", tree)
     out = {}
     for path, arr in _flatten(tree):
-        if path[0] not in ("embedding", "encoder", "target") or (
+        if path[0] not in _ROOTS or (
                 path[0] == "target" and path[1] not in TARGET_KINDS):
-            raise KeyError(f"flax path {path} is outside the embedding, "
-                           "encoder and targets the port has")
+            raise KeyError(f"flax path {path} is outside the embeddings, "
+                           "encoder, decoder and targets the port has")
         arr = np.asarray(arr)
-        parts = []
-        for p in path[:-1]:
-            m = _INDEXED.match(p)
-            parts += [m.group(1), m.group(2)] if m else [p]
+        parts = [_ROOTS[path[0]]]
+        for p in path[1:-1]:
+            m = _INDEXED.match(p) or _DECODER_LAYER.match(p)
+            parts += list(m.groups()) if m else [p]
         leaf = path[-1]
         if leaf == "kernel":
             arr, leaf = arr.T, "weight"
-        elif leaf == "embedding":                  # a lookup table
-            parts, leaf = parts + ["embedding"], "weight"
+        elif leaf in ("embedding", "relative_attention_bias"):   # a table
+            parts, leaf = parts + [leaf], "weight"
         elif leaf == "projection":                 # the patch kernel
             rows, e = arr.shape
             p = math.isqrt(rows // channels_num)

@@ -19,10 +19,12 @@ accuracy saves the model to `<output_model_path>-best`; every
 (embedding, encoder and target keys).
 
 The batch forms map a processor's batch keys onto TowerModel's (src, tgt,
-seg) (form_args): simple (mlm, lm, cls, prefixlm), pair_sp (bert, albert:
-the mlm and sp targets), pair_cls (cls_mlm) and bilm; the JAX package's
-seq2seq, vilt, clip and beit forms wait with their processors
-(cli/pretrain.py:NOT_PORTED_PROCESSORS). Under --dp/--tp
+seg[, tgt_in, tgt_seg]) (form_args): simple (mlm, lm, cls, prefixlm),
+pair_sp (bert, albert: the mlm and sp targets), pair_cls (cls_mlm), bilm,
+and seq2seq (mt, t5, gsg, bart: the decoder's input and its targets); the
+JAX package's vilt, clip and beit forms wait with their processors
+(cli/pretrain.py:NOT_PORTED_PROCESSORS). A step's tokens are the source's,
+as in JAX. Under --dp/--tp
 (train/common.py:device_ctx) each rank takes its slice of every micro-batch
 (the loader shards per accumulation chunk), the masked means divide by the
 global counts (towers/targets.py) and the vocabulary heads are split over
@@ -75,9 +77,10 @@ def norm_target_out(out, rows: int):
 
 
 def form_args(form: str, mb: dict):
-    """(src, tgt, seg) of TowerModel.forward from a batch of `form`
-    (lr2ppo_tpu/train/pretrain.py:form_args): tgt is {kind: targets} for
-    the composite targets and (forward, backward) for bilm."""
+    """TowerModel.forward's positional arguments from a batch of `form`
+    (lr2ppo_tpu/train/pretrain.py:form_args): (src, tgt, seg), tgt
+    {kind: targets} for the composite targets and (forward, backward) for
+    bilm; seq2seq adds the decoder's (tgt_in, tgt_seg)."""
     if form == "simple":
         return mb["src"], mb["tgt"], mb["seg"]
     if form == "pair_sp":
@@ -87,6 +90,9 @@ def form_args(form: str, mb: dict):
                 mb["seg"])
     if form == "bilm":
         return mb["src"], (mb["tgt_fwd"], mb["tgt_bwd"]), mb["seg"]
+    if form == "seq2seq":
+        return (mb["src"], mb["tgt_out"], mb["seg"], mb["tgt_in"],
+                mb["tgt_seg"])
     raise KeyError(f"unknown batch form: {form}")
 
 

@@ -179,9 +179,9 @@ def test_adafactor_and_remat_pretrain(tmp_path):
     # what stays refused is outside their envelope, as in JAX
     (["--pp", "2", "--fsdp"], "zero1/fsdp"), (["--sp"], "--tp > 1"),
     (["--data_processor", "vit"], "ROADMAP"),
-    (["--data_processor", "t5"], "ROADMAP"),
+    (["--data_processor", "s2t"], "ROADMAP"),
     (["--jax_platform", "cpu"], "--device"),
-], ids=["pp", "sp", "vit", "t5", "jax_platform"])
+], ids=["pp", "sp", "vit", "s2t", "jax_platform"])
 def test_what_is_not_ported_raises(tmp_path, extra, match):
     files = _files(tmp_path)
     with pytest.raises((NotImplementedError, SystemExit, ValueError),
