@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port once on one CUDA card: the ranking service, the
 three-stage LR2PPO recipe of both families, feature extraction, tower
-pretraining and multi-GPU training at full width.
+pretraining (the transformer, seq2seq, recurrent, gated-CNN and dual towers)
+and multi-GPU training at full width.
 
     python3 chip_smoke.py [--seed N] [--parallel_only | --pipeline_only |
-                           --processors_only | --seq2seq_only]
+                           --processors_only | --seq2seq_only |
+                           --encoders_only]
 
 Phases, each of which raises on failure (exit code other than 0):
   1. device: torch and CUDA versions, the card's name and power limit;
@@ -165,7 +167,27 @@ Phases, each of which raises on failure (exit code other than 0):
      input and seed; then Transformer base (6 + 6 layers of 512,
      sinusoidal positions, post-LN) at --data_processor mt on a synthetic
      tsv for 2 steps.
-     `--seq2seq_only` runs the build and phase 18 alone.
+     `--seq2seq_only` runs the build and phase 18 alone;
+ 19. the other encoders: the large LSTM LM of Zaremba et al. (2014; 2
+     layers of 1,500, dropout 0.65, a 10,000-entry space vocabulary, a
+     synthetic Zipf corpus) through cli.pretrain's build and fit at
+     --data_processor lm --hash_dropout, batch 20 x 35, float32, 4 steps:
+     66,024,000 parameters, losses that fall, moved leaves, 3 hash-dropout
+     sites a pass forward and backward, one more step's CUDA-event time and
+     tokens/s, the peak memory; its three sites (20, 35, 1500) held against
+     the plain hash dropout at rate 0.65 on each site's own input and seed,
+     timed; one deterministic forward on the card against the same weights'
+     forward on the CPU (LSTM_CPU_ATOL, LSTM_CPU_RTOL); then the ELMo-style
+     bilm on bilstm at the same widths (2 steps, 5 sites a pass), and rnn,
+     gru, the bidirectional lstm, birnn, bigru and the gated CNN (kernel 4,
+     8 layers, blocks of 2) for one step each; then CLIP ViT-B/16
+     contrastive pretraining at OpenAI's widths through PretrainTrainer's
+     clip form on 2 x 64 seeded pairs held in memory (no PIL on the card's
+     machine), 4 steps: the parameter count beside OpenAI's, a first loss
+     near ln 64 that falls, moved leaves in both towers, the projections and
+     logit_scale, no hash-dropout or K4 launch, one more step's time, pairs/s
+     and tokens/s, a trace by kernel class and the peak memory.
+     `--encoders_only` runs the build and phase 19 alone.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -612,13 +634,14 @@ DROP_RATE = 0.1                        # ModelConfig.drop_p / forward_drop_p
 
 
 def check_dropout(name: str, shape, dtype, seed: int, dev, time_it: bool,
-                  card_line: str, extra=(), x=None) -> dict:
-    """One dropout kernel against its plain version: the forward and the
-    backward (the cotangent) bit for bit, the same mask in both, and the
-    keep share within 5 sigma of 1 - rate. `extra` are the arguments after
-    the rate: a shard's place (hash) or its offset (Philox). `x`, where
-    given, is the input (a site's tensor from a real pass), else a random
-    one without zeros."""
+                  card_line: str, extra=(), x=None,
+                  rate: float = DROP_RATE) -> dict:
+    """One dropout kernel against its plain version at `rate`: the forward
+    and the backward (the cotangent) bit for bit, the same mask in both,
+    and the keep share within 5 sigma of 1 - rate. `extra` are the
+    arguments after the rate: a shard's place (hash) or its offset
+    (Philox). `x`, where given, is the input (a site's tensor from a real
+    pass), else a random one without zeros."""
     fn0, ref0, _ = DROPOUT_KERNELS[name]
 
     def fn(x, seed, rate):
@@ -636,17 +659,17 @@ def check_dropout(name: str, shape, dtype, seed: int, dev, time_it: bool,
     g = torch.randn(shape, device=dev, generator=gen).to(dtype)
     g[g == 0] = 1.0
     xr = x.clone().requires_grad_(True)
-    y = fn(xr, seed, DROP_RATE)
+    y = fn(xr, seed, rate)
     y.backward(g)
     y = y.detach()
     torch.cuda.synchronize()
-    want_y, want_g = ref(x, seed, DROP_RATE), ref(g, seed, DROP_RATE)
+    want_y, want_g = ref(x, seed, rate), ref(g, seed, rate)
     n = x.numel()
     share = float((xr.grad != 0).float().mean())
-    sigma = (DROP_RATE * (1 - DROP_RATE) / n) ** 0.5
+    sigma = (rate * (1 - rate) / n) ** 0.5
     nonzero = x != 0
     res = {"kernel": name, "shape": list(shape), "shard": list(extra),
-           "dtype": str(dtype).replace("torch.", ""),
+           "dtype": str(dtype).replace("torch.", ""), "rate": rate,
            "forward_bit_equal": bool(torch.equal(y, want_y)),
            "backward_bit_equal": bool(torch.equal(xr.grad, want_g)),
            "same_mask": bool(torch.equal((y == 0) & nonzero,
@@ -654,7 +677,7 @@ def check_dropout(name: str, shape, dtype, seed: int, dev, time_it: bool,
            "max_abs_err": max(float((y.float() - want_y.float()).abs().max()),
                               float((xr.grad.float()
                                      - want_g.float()).abs().max())),
-           "keep_share": share, "keep_sigmas": abs(share - (1 - DROP_RATE))
+           "keep_share": share, "keep_sigmas": abs(share - (1 - rate))
            / sigma}
     if not (res["forward_bit_equal"] and res["backward_bit_equal"]
             and res["same_mask"] and res["keep_sigmas"] < 5):
@@ -663,12 +686,12 @@ def check_dropout(name: str, shape, dtype, seed: int, dev, time_it: bool,
                              f"{res}")
     del xr, y, want_y, want_g, g, nonzero
     if time_it:
-        res["ms"] = cuda_ms(lambda: fn(x, seed, DROP_RATE))
-        res["plain_ms"] = cuda_ms(lambda: ref(x, seed, DROP_RATE), iters=3,
+        res["ms"] = cuda_ms(lambda: fn(x, seed, rate))
+        res["plain_ms"] = cuda_ms(lambda: ref(x, seed, rate), iters=3,
                                   warmup=1)
         # the same work with another random stream; the port never calls it
         res["library_ms"] = cuda_ms(lambda: torch.nn.functional.dropout(
-            x, DROP_RATE, training=True))
+            x, rate, training=True))
         # one read and one write of every element; ~12 (hash) or ~30
         # (Philox: 10 rounds of 4 multiplies, 4 xors, 2 adds per 4
         # elements) integer operations per element
@@ -3690,9 +3713,10 @@ def mt_tsv(path: str, seed: int) -> None:
         f.write("".join(f"{side()}\t{side()}\n" for _ in range(MT_ROWS)))
 
 
-def site_input(model, mb: dict, index: int, seed: int):
+def site_input(model, mb: dict, index: int, seed: int,
+               form: str = "seq2seq"):
     """The input and seed of the index-th hash-dropout site of one training
-    forward of `model` on micro-batch `mb` (seq2seq form)."""
+    forward of `model` on micro-batch `mb` (of batch form `form`)."""
     from lr2ppo_torch.ops import hash_dropout as hd
 
     real, calls, kept = hd.hash_dropout, [0], {}
@@ -3708,7 +3732,7 @@ def site_input(model, mb: dict, index: int, seed: int):
     hd.hash_dropout = rec
     try:
         with torch.no_grad():
-            model(*pretrain_form_args("seq2seq", mb), deterministic=False,
+            model(*pretrain_form_args(form, mb), deterministic=False,
                   generator=torch.Generator().manual_seed(seed))
     finally:
         hd.hash_dropout = real
@@ -3875,6 +3899,383 @@ def seq2seq_path(args, dev, card_line: str) -> dict:
     return {"sites": t5["sites"], "launches": t5["launches"]
             + mt["launches"]}
 
+# -- phase 19: the other encoders ---------------------------------------------
+# The large LSTM LM of Zaremba, Sutskever & Vinyals (2014, arXiv:1409.2329,
+# section 4.1, "large"): 2 layers of 1,500 units, embedding 1,500, dropout
+# 0.65 on the embedding, between the layers and at the output, 35 steps
+# unrolled, batch 20, a 10,000-word vocabulary, no bias on the softmax layer
+LSTM_LARGE = {
+    "emb_size": 1500, "hidden_size": 1500, "layers_num": 2, "dropout": 0.65,
+    "embedding": ["word"], "remove_embedding_layernorm": True,
+    "encoder": "lstm", "target": ["lm"],
+}
+LSTM_VOCAB, LSTM_BS, LSTM_SEQ = 10000, 20, 35
+LSTM_STEPS, BILM_STEPS, ZOO_STEPS = 4, 2, 1
+LSTM_LR = 1e-3
+# 15.0 M embedding + 2 x 18.012 M LSTM (4 gates x 1,500 x (1,500 + 1,500)
+# weights, 2 x 6,000 biases) + 15.0 M softmax: the paper's 66 M
+LSTM_PARAMS = 66_024_000
+LSTM_WATCHED = ("embedding.word.embedding.weight",
+                "encoder.rnn.weight_hh_l1", "target.lm.output_layer.weight")
+# the card's float32 forward against the CPU's on the same weights and
+# batch: the hidden states (|h| < 1) to LSTM_CPU_ATOL, the loss to
+# LSTM_CPU_RTOL; float32 sums in other orders stay ~1e-6 off
+LSTM_CPU_ATOL, LSTM_CPU_RTOL = 1e-4, 1e-5
+# the rest of the zoo at the LSTM leg's widths, one step each: the encoder
+# overlay and the processor (lm, or bilm where the tower has two halves)
+ZOO = {
+    "rnn": ({"encoder": "rnn"}, "lm"),
+    "gru": ({"encoder": "gru"}, "lm"),
+    "lstm_bidirectional": ({"encoder": "lstm", "bidirectional": True},
+                           "bilm"),
+    "birnn": ({"encoder": "birnn", "target": ["bilm"]}, "bilm"),
+    "bigru": ({"encoder": "bigru", "target": ["bilm"]}, "bilm"),
+    "gatedcnn": ({"encoder": "gatedcnn", "kernel_size": 4, "layers_num": 8,
+                  "block_size": 2}, "lm"),
+}
+# CLIP ViT-B/16 at OpenAI's published widths (Radford et al. 2021;
+# openai/clip-vit-base-patch16): a 12 x 512 causal text transformer (8
+# heads, FFN 2,048, 77 tokens, vocabulary 49,408, pre-LN, no embedding norm,
+# pooled at the last token) and a 12 x 768 ViT-B/16 (12 heads, FFN 3,072,
+# 224 x 224 at patch 16 = 197 tokens, pre-LN with the embedding norm,
+# pooled at [CLS]), both projected to 512 without bias, dropout 0. The JAX
+# package has no quick-GELU, so the tanh GELU stands in.
+CLIP_VIT_B16 = {
+    "encoder": "dual", "target": ["clr"], "projection": True,
+    "feature_size": 512, "dropout": 0.0, "hidden_act": "gelu_fast",
+    "vocab_size": 49408, "image_height": 224, "image_width": 224,
+    "patch_size": 16, "channels_num": 3,
+    "stream_0": {"embedding": ["word", "pos"], "encoder": "transformer",
+                 "emb_size": 512, "hidden_size": 512, "heads_num": 8,
+                 "feedforward_size": 2048, "layers_num": 12,
+                 "max_seq_length": 77, "mask": "causal",
+                 "layernorm_positioning": "pre",
+                 "remove_embedding_layernorm": True, "pooling": "last"},
+    "stream_1": {"embedding": ["patch", "pos"], "encoder": "transformer",
+                 "emb_size": 768, "hidden_size": 768, "heads_num": 12,
+                 "feedforward_size": 3072, "layers_num": 12,
+                 "max_seq_length": 197, "mask": "fully_visible",
+                 "layernorm_positioning": "pre",
+                 "remove_embedding_layernorm": False, "pooling": "first"},
+}
+# OpenAI's module shapes: text 49,408 x 512 tokens, 77 x 512 positions, 12
+# blocks of 3,152,384, ln_final 1,024; vision conv1 768 x 3 x 16 x 16, class
+# 768, 197 x 768 positions, ln_pre 1,536, 12 blocks of 7,087,872, ln_post
+# 1,536; projections 512 x 512 and 768 x 512; logit_scale 1
+OPENAI_CLIP_B16_PARAMS = 149_620_737
+CLIP_MICRO, CLIP_ACCUM, CLIP_STEPS = 64, 2, 4
+CLIP_TEXT, CLIP_IMAGE = 77, 197
+# CLIP's learning rate for ViT-B/16 (Radford et al. 2021, Table 20)
+CLIP_LR = 5e-4
+# the first step's loss within this many nats of ln 64, the loss of a
+# micro-batch whose pairs the towers cannot yet tell apart
+CLIP_START_BAND = 1.0
+CLIP_WATCHED = ("encoder.encoder_0.transformer.11.feed_forward.linear_2."
+                "weight",
+                "encoder.encoder_1.transformer.0.self_attn.linear_layers.0."
+                "weight",
+                "embedding_1.patch.projection.weight",
+                "target.clr.encoder_0_projection",
+                "target.clr.encoder_1_projection", "target.clr.logit_scale")
+
+
+def rnn_sites_a_pass(cfg) -> int:
+    """Hash-dropout sites of one training pass of a recurrent or gated-CNN
+    tower: the embedding, then per stack one between each two layers and
+    one at the output (two stacks for the bi-stacks, none in the CNN)."""
+    if cfg.encoder == "gatedcnn":
+        return 1
+    stacks = 2 if cfg.encoder.startswith("bi") else 1
+    return 1 + stacks * cfg.layers_num
+
+
+def lstm_argv(paths: dict, out: str, processor: str, steps: int) -> list:
+    return ["--corpus_path", paths["corpus"], "--tower_config",
+            paths["tower"], "--data_processor", processor, "--tokenizer",
+            "space", "--vocab_path", paths["vocab"], "--hash_dropout",
+            "--batch_size", str(LSTM_BS), "--seq_length", str(LSTM_SEQ),
+            "--total_steps", str(steps), "--learning_rate", str(LSTM_LR),
+            "--report_steps", "1", "--output_model_path", out,
+            "--log_path", out + ".log"]
+
+
+def lstm_run(paths: dict, tmp: str, name: str, tower: dict,
+             processor: str, steps: int, dev, watched=()) -> dict:
+    """cli.pretrain's build and fit of `tower` at `processor` for `steps`
+    steps: the trainer, its state, the records, the hash-dropout launches
+    (and the expected count), the first batch on the card, the peak memory
+    and the watched leaves' moves."""
+    with open(paths["tower"], "w") as f:
+        json.dump(tower, f)
+    out = os.path.join(tmp, name)
+    trainer, loader = pretrain.build(pretrain.parser().parse_args(
+        lstm_argv(paths, out, processor, steps)), dev)
+    want = (rnn_sites_a_pass(trainer.tower_cfg) * 2 * steps)
+    torch.cuda.reset_peak_memory_stats()
+    hash_dropout.launches = 0
+    t0 = time.perf_counter()
+    with watched_init(watched) as seen:
+        state, _ = trainer.fit(loader, steps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = hash_dropout.launches
+    with open(out + ".log.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    params = dict(state.model.named_parameters())
+    losses = [r["loss"] for r in recs]
+    batch = trainer.ctx.put({k: v for k, v in next(iter(loader)).items()
+                             if not k.startswith("_")})
+    if not (len(recs) == steps and np.isfinite(losses).all()
+            and launches == want
+            and batch["src"].shape == (LSTM_BS, LSTM_SEQ)):
+        raise AssertionError(
+            f"{name}: losses {losses}, {launches} hash dropout launches "
+            f"(want {want}), batch {tuple(batch['src'].shape)}")
+    return {"trainer": trainer, "state": state, "losses": losses,
+            "launches": launches, "want": want, "batch": batch,
+            "fit_seconds": fit_s, "params": sum(p.numel()
+                                                for p in params.values()),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "moved": {k: float((params[k].detach().cpu() - v).abs().max())
+                      for k, v in (seen[0].items() if seen else ())}}
+
+
+def lstm_vs_cpu(run: dict) -> dict:
+    """One deterministic forward of the trained tower on the card and of a
+    CPU copy of its weights on the same batch: the hidden states' and the
+    loss's gaps, held to LSTM_CPU_ATOL and LSTM_CPU_RTOL."""
+    model, batch = run["state"].model, run["batch"]
+    cpu = TowerModel(run["trainer"].tower_cfg, with_target=True)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
+                        strict=True)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    with torch.no_grad():
+        hid = model.encode(batch["src"], batch["seg"]).cpu()
+        loss = float(model(*pretrain_form_args("simple", batch))[0])
+        want_hid = cpu.encode(cpu_batch["src"], cpu_batch["seg"])
+        want_loss = float(cpu(*pretrain_form_args("simple", cpu_batch))[0])
+    res = {"hidden_max_abs_err": float((hid - want_hid).abs().max()),
+           "loss_card": loss, "loss_cpu": want_loss,
+           "loss_rel_err": abs(loss - want_loss) / abs(want_loss),
+           "atol": LSTM_CPU_ATOL, "rtol": LSTM_CPU_RTOL,
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    if not (res["hidden_max_abs_err"] <= LSTM_CPU_ATOL
+            and res["loss_rel_err"] <= LSTM_CPU_RTOL):
+        raise AssertionError(f"lstm: the card's forward against the CPU's: "
+                             f"{res}")
+    return res
+
+
+def lstm_path(seed: int, dev, card_line: str) -> dict:
+    """Phase 19, legs (a)-(c): the large LSTM LM (LSTM_STEPS steps at
+    --data_processor lm --hash_dropout), its three dropout sites held
+    against the plain hash dropout on their own inputs and seeds, one more
+    step timed, the card's forward against the CPU's; the ELMo-style bilm
+    on bilstm (BILM_STEPS steps); the rest of the zoo (ZOO_STEPS each)."""
+    out, launches = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = pretrain_corpus(tmp, seed, LSTM_VOCAB, LSTM_LARGE)
+        run = lstm_run(paths, tmp, "lstm", LSTM_LARGE, "lm", LSTM_STEPS,
+                       dev, LSTM_WATCHED)
+        launches += run["launches"]
+        losses, move = run["losses"], run["moved"]
+        if not (run["params"] == LSTM_PARAMS and losses[-1] < losses[0]
+                and all(v > 0 for v in move.values())):
+            raise AssertionError(f"lstm: {run['params']} parameters (want "
+                                 f"{LSTM_PARAMS}), losses {losses}, moved "
+                                 f"{move}")
+        trainer, state, batch = run["trainer"], run["state"], run["batch"]
+        gen = torch.Generator().manual_seed(seed)
+        step_ms = cuda_ms(lambda: trainer.step_fn(state, gen, batch),
+                          iters=5, warmup=1)
+        sites = {}
+        for index, name in enumerate(("embedding", "between_layers",
+                                      "output")):
+            x, site_seed = site_input(state.model, batch, index, seed,
+                                      form="simple")
+            sites[name] = check_dropout(
+                "hash_dropout", tuple(x.shape), torch.float32, site_seed,
+                dev, True, card_line, x=x, rate=LSTM_LARGE["dropout"])
+            sites[name]["site_seed"] = site_seed
+            del x
+        if [s["shape"] for s in sites.values()] != \
+                [[LSTM_BS, LSTM_SEQ, LSTM_LARGE["hidden_size"]]] * 3:
+            raise AssertionError(f"lstm: sites {sites}")
+        cpu = lstm_vs_cpu(run)
+        tokens = LSTM_BS * LSTM_SEQ
+        emit(phase="lstm", processor="lm", encoder="lstm",
+             params=run["params"], vocab=run["trainer"].tower_cfg.vocab_size,
+             batch=[LSTM_BS, LSTM_SEQ], steps=LSTM_STEPS, losses=losses,
+             moved=move, hash_dropout_launches=run["launches"],
+             hash_dropout_launches_expected=run["want"],
+             hash_dropout_sites_a_pass=rnn_sites_a_pass(
+                 run["trainer"].tower_cfg),
+             fit_seconds=run["fit_seconds"], peak_mem_gb=run["peak_mem_gb"],
+             step_ms=step_ms, tokens_a_step=tokens,
+             tokens_s=tokens / (step_ms / 1e3), vs_cpu=cpu,
+             sites={k: {"shape": v["shape"], "rate": v["rate"],
+                        "bit_equal": v["forward_bit_equal"]
+                        and v["backward_bit_equal"], "ms": v["ms"],
+                        "plain_ms": v["plain_ms"],
+                        "library_ms": v["library_ms"],
+                        "bound_ms": v["bound_ms"]}
+                    for k, v in sites.items()},
+             card=card_line)
+        out["sites"] = sites
+        del run, trainer, state, batch
+        torch.cuda.empty_cache()
+        bilm = lstm_run(paths, tmp, "bilm", {**LSTM_LARGE,
+                                             "encoder": "bilstm",
+                                             "target": ["bilm"]},
+                        "bilm", BILM_STEPS, dev)
+        launches += bilm["launches"]
+        emit(phase="bilm", processor="bilm", encoder="bilstm",
+             params=bilm["params"], steps=BILM_STEPS,
+             losses=bilm["losses"], hash_dropout_launches=bilm["launches"],
+             hash_dropout_launches_expected=bilm["want"],
+             fit_seconds=bilm["fit_seconds"],
+             peak_mem_gb=bilm["peak_mem_gb"], card=card_line)
+        del bilm
+        torch.cuda.empty_cache()
+        zoo = {}
+        for name, (overlay, processor) in ZOO.items():
+            tower = {**LSTM_LARGE, "target": [processor], **overlay}
+            r = lstm_run(paths, tmp, name, tower, processor, ZOO_STEPS, dev)
+            launches += r["launches"]
+            zoo[name] = {"params": r["params"], "losses": r["losses"],
+                         "hash_dropout_launches": r["launches"],
+                         "fit_seconds": r["fit_seconds"],
+                         "peak_mem_gb": r["peak_mem_gb"]}
+            del r
+            torch.cuda.empty_cache()
+        emit(phase="encoder_zoo", processor_by_encoder={
+            k: v[1] for k, v in ZOO.items()}, legs=zoo, card=card_line)
+    out["launches"] = launches
+    return out
+
+
+class ClipPairs:
+    """ClipPairDataset.get's keys, shapes and dtypes, made from a seed in
+    memory (the card's machine has no PIL): n captions of Zipf-distributed
+    words of the text vocabulary, framed [cls] ... [sep] (ids 0 and 2, pad
+    1, as the dataset frames them) at 5 to 77 tokens, and n images of
+    uniform pixels in [0, 1)."""
+
+    def __init__(self, n: int, seed: int, vocab: int):
+        rng = np.random.default_rng(seed)
+        self.src = np.ones((n, CLIP_TEXT), np.int32)
+        self.seg = np.zeros((n, CLIP_TEXT), np.int32)
+        for i in range(n):
+            words = np.minimum(rng.zipf(1.1, int(rng.integers(3, 76))),
+                               vocab - 5) + 4
+            ids = np.concatenate([[0], words, [2]])
+            self.src[i, :len(ids)], self.seg[i, :len(ids)] = ids, 1
+        self.pixels = rng.random((n, 3, 224, 224), dtype=np.float32)
+
+    def set_epoch(self, epoch: int) -> None:
+        pass
+
+    def __len__(self) -> int:
+        return len(self.src)
+
+    def get(self, i: int) -> dict:
+        return {"src_text": self.src[i], "seg_text": self.seg[i],
+                "src_image": self.pixels[i],
+                "seg_image": np.ones(CLIP_IMAGE, np.int32),
+                "tgt": np.int32(i)}
+
+
+def clip_path(seed: int, dev, card_line: str) -> dict:
+    """Phase 19, leg (d): CLIP ViT-B/16 contrastive pretraining through the
+    PretrainTrainer and make_pretrain_step(form="clip") that cli.pretrain
+    builds, on one global batch of 2 x 64 seeded pairs (ClipPairs), CLIP_STEPS
+    steps at CLIP's learning rate: the parameter count beside OpenAI's, a
+    loss that starts near ln 64 and falls, moved leaves in both towers, the
+    projections and logit_scale; one more step timed and one traced, the
+    peak memory."""
+    from lr2ppo_torch.config import Config
+    from lr2ppo_torch.data.pipeline import Loader
+
+    tower_cfg = TowerConfig.from_dict(CLIP_VIT_B16)
+    cfg = Config().replace(seed=seed, report_steps=1, output_model_path="",
+                           log_path=None)
+    cfg.optim.learning_rate = CLIP_LR
+    trainer = PretrainTrainer(cfg, tower_cfg, CLIP_ACCUM, device=dev,
+                              form="clip")
+    rows = CLIP_MICRO * CLIP_ACCUM
+    loader = Loader(ClipPairs(rows, seed, tower_cfg.vocab_size), rows,
+                    shuffle=True, seed=seed, reuse_buffers=True,
+                    shard_chunks=CLIP_ACCUM)
+    losses = []
+    log = trainer.metrics.log
+
+    def keep(step, **kw):
+        losses.append(kw["loss"])
+        log(step, **kw)
+
+    trainer.metrics.log = keep
+    torch.cuda.reset_peak_memory_stats()
+    hash_dropout.launches = 0
+    reset_launches()
+    t0 = time.perf_counter()
+    with watched_init(CLIP_WATCHED) as seen:
+        state, _ = trainer.fit(loader, CLIP_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    params = dict(state.model.named_parameters())
+    counts = {part: sum(p.numel() for k, p in params.items()
+                        if k.startswith(part))
+              for part in ("embedding_0.", "encoder.encoder_0.",
+                           "embedding_1.", "encoder.encoder_1.",
+                           "target.clr.")}
+    n_params = sum(p.numel() for p in params.values())
+    move = {k: float((params[k].detach().cpu() - v).abs().max())
+            for k, v in seen[0].items()}
+    if not (len(losses) == CLIP_STEPS and np.isfinite(losses).all()
+            and abs(losses[0] - math.log(CLIP_MICRO)) < CLIP_START_BAND
+            and losses[-1] < losses[0]
+            and all(v > 0 for v in move.values())
+            and hash_dropout.launches == 0
+            and fused_attention.launches == 0):
+        raise AssertionError(
+            f"clip: losses {losses}, moved {move}, "
+            f"{hash_dropout.launches} hash dropout and "
+            f"{fused_attention.launches} K4 launches")
+    batch = trainer.ctx.put({k: v for k, v in next(iter(loader)).items()
+                             if not k.startswith("_")})
+    gen = torch.Generator().manual_seed(seed)
+    step_ms = cuda_ms(lambda: trainer.step_fn(state, gen, batch), iters=3,
+                      warmup=1)
+    trace = trace_summary(steady_trace(
+        lambda: trainer.step_fn(state, gen, batch)))
+    emit(phase="clip", form="clip", params=n_params,
+         params_by_part=counts, openai_params=OPENAI_CLIP_B16_PARAMS,
+         params_minus_openai=n_params - OPENAI_CLIP_B16_PARAMS,
+         micro_batch=CLIP_MICRO, accumulation=CLIP_ACCUM, steps=CLIP_STEPS,
+         losses=losses, ln_micro_batch=math.log(CLIP_MICRO), moved=move,
+         fit_seconds=fit_s, peak_mem_gb=peak_gb, step_ms=step_ms,
+         pairs_s=rows / (step_ms / 1e3),
+         tokens_s=rows * (CLIP_TEXT + CLIP_IMAGE) / (step_ms / 1e3),
+         card=card_line)
+    emit(phase="clip_breakdown", traced="one optimizer step (2 micro-batches "
+         "of 64 pairs, CLIP ViT-B/16, float32), the second of two under the "
+         "profiler", card=card_line, **trace)
+    del trainer, state, batch, params
+    torch.cuda.empty_cache()
+
+
+def encoders_path(args, dev, card_line: str) -> dict:
+    """Phase 19: the large LSTM LM, bilm on bilstm, the rest of the zoo,
+    and CLIP ViT-B/16. Returns the LSTM sites' runs and hash dropout's
+    launches."""
+    t0 = time.perf_counter()
+    out = lstm_path(args.seed + 90, dev, card_line)
+    clip_path(args.seed + 91, dev, card_line)
+    emit(phase="p19_seconds", seconds=time.perf_counter() - t0,
+         card=card_line)
+    return out
+
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3885,6 +4286,8 @@ def main(argv=None) -> None:
                     help="build and run phase 17 alone on one card")
     ap.add_argument("--seq2seq_only", action="store_true",
                     help="build and run phase 18 alone on one card")
+    ap.add_argument("--encoders_only", action="store_true",
+                    help="build and run phase 19 alone on one card")
     ap.add_argument("--parallel_only", action="store_true",
                     help="build and run phase 15's and phase 16's NCCL legs "
                          "alone (dp = the card count; on two or more cards "
@@ -3909,6 +4312,13 @@ def main(argv=None) -> None:
                 for k, v in built.items()})
     for name in build.ENTRIES:
         build.library(name)
+    if args.encoders_only:
+        encoders_path(args, dev, card_line)
+        print(card_line, flush=True)
+        emit(ok=True, device={"platform": "gpu",
+                              "kind": torch.cuda.get_device_name(0),
+                              "count": torch.cuda.device_count()})
+        return
     if args.seq2seq_only:
         seq2seq_path(args, dev, card_line)
         print(card_line, flush=True)
@@ -3980,6 +4390,8 @@ def main(argv=None) -> None:
     p17 = processors_path(args, dev, card_line)
     torch.cuda.empty_cache()
     p18 = seq2seq_path(args, dev, card_line)
+    torch.cuda.empty_cache()
+    p19 = encoders_path(args, dev, card_line)
 
     main_k1 = serve_shape[torch.bfloat16]       # the serving path's dtype
     kernels = [{
@@ -3993,18 +4405,21 @@ def main(argv=None) -> None:
         "bound_ms": main_k1["bound_ms"], "bound_by": main_k1["bound_by"],
         "library_ms": None}]
     # hash dropout's launches: phase 7's, the tabular path's, the
-    # pretraining run's, the pipeline stages', bert's and the seq2seq legs'
+    # pretraining run's, the pipeline stages', bert's, the seq2seq legs'
+    # and the recurrent towers'
     for name, launches, err in (
             ("hash_dropout",
              train_launches["hash_dropout"] + tab["launches"]
              + pre["launches"] + p16["pp_launches"]
-             + p17["bert"]["launches"] + p18["launches"],
+             + p17["bert"]["launches"] + p18["launches"]
+             + p19["launches"],
              max([drop["hash_dropout"]["max_abs_err"]]
                  + [r["max_abs_err"] for r in tab["sites"]]
                  + [r["max_abs_err"] for r in pre["sites"].values()]
                  + [r["max_abs_err"]
                     for r in p17["bert"]["sites"].values()]
-                 + [r["max_abs_err"] for r in p18["sites"].values()])),
+                 + [r["max_abs_err"] for r in p18["sites"].values()]
+                 + [r["max_abs_err"] for r in p19["sites"].values()])),
             ("philox_dropout", k3_launches,
              drop["philox_dropout"]["max_abs_err"])):
         r = drop[name]

@@ -15,11 +15,13 @@ global batch, --dp -1 takes the world over --pp and --tp, --zero1 and
 encoder as N pipeline stages of --pp_microbatches microbatches (GPipe,
 parallel/pipeline.py), --sp (with --tp > 1) splits the residual stream
 along the sequence over tp. The mlm, lm, cls, bert, albert, cls_mlm, bilm,
-prefixlm, mt, t5, gsg and bart processors run (data/pretrain_processors.py,
-in the batch form of str2form); t5 grows the vocabulary by its 100
-sentinels from --sentinel_start (default: the vocabulary's end), as the JAX
-CLI does. The image and speech processors and the image tokenizers raise,
-naming ROADMAP.md.
+prefixlm, mt, t5, gsg, bart and clip processors run
+(data/pretrain_processors.py, data/pretrain_data.py, in the batch form of
+str2form); t5 grows the vocabulary by its 100 sentinels from
+--sentinel_start (default: the vocabulary's end), as the JAX CLI does. clip
+reads a tsv of 'caption<TAB>image path' rows for a dual tower with the clr
+target, at the image size of the tower config's top level. The other image
+and speech processors and the image tokenizers raise, naming ROADMAP.md.
 It runs on the GPU unless `--device cpu` is given, and raises where there
 is no GPU. The checkpoints are reference-keyed `.bin` files.
 """
@@ -32,7 +34,8 @@ import json
 from lr2ppo_torch.config import Config, _parse_bool
 from lr2ppo_torch.data import pretrain_processors as processors
 from lr2ppo_torch.data.pipeline import Loader
-from lr2ppo_torch.data.pretrain_data import (ClsTsvDataset, LmCorpusDataset,
+from lr2ppo_torch.data.pretrain_data import (ClipPairDataset, ClsTsvDataset,
+                                             LmCorpusDataset,
                                              MlmCorpusDataset)
 from lr2ppo_torch.data.pretrain_processors import (AlbertDocsDataset,
                                                    BartDocsDataset,
@@ -49,7 +52,7 @@ from lr2ppo_torch.train.pretrain import PretrainTrainer
 
 # the JAX CLI's processors that wait (ROADMAP.md, queue A5: image and
 # speech pretraining)
-NOT_PORTED_PROCESSORS = ("vit", "clip", "vilt", "s2t", "beit", "dalle")
+NOT_PORTED_PROCESSORS = ("vit", "vilt", "s2t", "beit", "dalle")
 # the T5 sentinels, past --sentinel_start
 N_SENTINELS = 100
 
@@ -90,7 +93,8 @@ def _mask_id(tok):
 str2form = {"mlm": "simple", "lm": "simple", "cls": "simple",
             "prefixlm": "simple", "bert": "pair_sp", "albert": "pair_sp",
             "cls_mlm": "pair_cls", "bilm": "bilm", "mt": "seq2seq",
-            "t5": "seq2seq", "gsg": "seq2seq", "bart": "seq2seq"}
+            "t5": "seq2seq", "gsg": "seq2seq", "bart": "seq2seq",
+            "clip": "clip"}
 
 # data_processor -> dataset builder, the JAX CLI's
 str2dataset = {
@@ -129,7 +133,23 @@ str2dataset = {
     "bart": lambda path, tok, args, cfg: BartDocsDataset(
         path, tok, args.seq_length, cfg.vocab_size, _mask_id(tok),
         seed=args.seed),
+    # the JAX CLI frames the captions with the datasets' default ids
+    "clip": lambda path, tok, args, cfg: ClipPairDataset(
+        _read_tsv(path), tok, args.seq_length, cfg.image_height,
+        cfg.image_width, cfg.patch_size),
 }
+
+
+def _read_tsv(path: str) -> list:
+    """(caption, image path) of each tsv row with two fields or more whose
+    first is not empty (the JAX CLI's manifest reader)."""
+    rows = []
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            parts = line.rstrip("\n").split("\t")
+            if len(parts) >= 2 and parts[0]:
+                rows.append(tuple(parts[:2]))
+    return rows
 
 
 def _sentinel_start(tok, args) -> int:

@@ -1,11 +1,12 @@
-"""Pretraining data of the text processors (the port's own copy of
-lr2ppo_tpu/data/pretrain_data.py:mask_tokens, MlmCorpusDataset,
-LmCorpusDataset and ClsTsvDataset): corpus -> packed (N, S) int32 token
-instances -> BERT-style dynamic masking with a seeded numpy generator, per
-epoch. numpy only; the same seed and epoch give the JAX package's arrays.
+"""Pretraining data of the text processors and of clip (the port's own copy
+of lr2ppo_tpu/data/pretrain_data.py:mask_tokens, MlmCorpusDataset,
+LmCorpusDataset, ClsTsvDataset and ClipPairDataset): corpus -> packed (N,
+S) int32 token instances -> BERT-style dynamic masking with a seeded numpy
+generator, per epoch; (caption, image file) pairs -> a framed caption and
+the image's pixels. numpy, and PIL imported where an image is read; the
+same seed and epoch give the JAX package's arrays.
 
-The image datasets (vit, clip) read files through PIL and wait with the
-image processors (ROADMAP.md, queue A).
+The vit dataset waits with the image processors (ROADMAP.md, queue A5).
 """
 
 from __future__ import annotations
@@ -165,3 +166,46 @@ class ClsTsvDataset:
     def get(self, i: int) -> Dict[str, np.ndarray]:
         src, tgt, seg = self.rows[i]
         return {"src": src, "tgt": tgt, "seg": seg}
+
+
+class ClipPairDataset:
+    """CLIP contrastive processor (utils/dataset.py clip variant): (text,
+    image path) pairs for the dual encoder and the clr target. An item is
+    the caption framed [cls] ... [sep] and padded to seq_length, its seg,
+    the image resized to (image_height, image_width) as float32 pixels in
+    [0, 1], channels first, an all-ones seg over [CLS] + patches, and tgt =
+    the row index (clr's labels are positional)."""
+
+    def __init__(self, pairs, tokenizer, seq_length: int,
+                 image_height: int = 224, image_width: int = 224,
+                 patch_size: int = 16, cls_id: int = 0, sep_id: int = 2,
+                 pad_id: int = 1):
+        self.pairs = list(pairs)          # [(text, image_path), ...]
+        self.tok = tokenizer
+        self.seq_length = seq_length
+        self.h, self.w = image_height, image_width
+        self.img_seq = (image_height // patch_size) * (
+            image_width // patch_size) + 1
+        self.cls_id, self.sep_id, self.pad_id = cls_id, sep_id, pad_id
+
+    def set_epoch(self, epoch: int) -> None:
+        pass
+
+    def __len__(self) -> int:
+        return len(self.pairs)
+
+    def get(self, i: int) -> Dict[str, np.ndarray]:
+        from PIL import Image
+
+        text, img_path = self.pairs[i]
+        ids = [self.cls_id] + self.tok.encode(text)[: self.seq_length - 2] \
+            + [self.sep_id]
+        src = np.full(self.seq_length, self.pad_id, np.int32)
+        seg = np.zeros(self.seq_length, np.int32)
+        src[: len(ids)] = ids
+        seg[: len(ids)] = 1
+        img = Image.open(img_path).convert("RGB").resize((self.w, self.h))
+        pixels = (np.asarray(img, np.float32) / 255.0).transpose(2, 0, 1)
+        return {"src_text": src, "seg_text": seg, "src_image": pixels,
+                "seg_image": np.ones(self.img_seq, np.int32),
+                "tgt": np.int32(i)}

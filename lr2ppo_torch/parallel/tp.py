@@ -312,6 +312,35 @@ def dp_sum(x: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:
     return _SumBothWays.apply(x, mesh.dp_group)
 
 
+class _GatherRowsOverDP(torch.autograd.Function):
+    """All-gather along dim 0 over dp; the backward sums the gradient over
+    dp and keeps this rank's rows (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_gather_dim(x.contiguous(), 0, mesh.dp_group, mesh.dp)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        n = g.shape[0] // mesh.dp
+        whole = _all_reduce(g, mesh.dp_group)
+        return whole.narrow(0, mesh.dp_rank * n, n).contiguous(), None
+
+
+def gather_dp_rows(x: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:
+    """The global batch's rows of x, in dp rank order, with gradients (the
+    contrastive target's features: JAX's similarity matrix is global under
+    pjit). Every rank then computes the whole global loss, so the summed
+    gradient is dp times one rank's, and the trainer's dp average of the
+    parameter gradients is world 1's gradient."""
+    mesh = mesh or active()
+    if mesh.dp == 1 or not mesh.distributed:
+        return x
+    return _GatherRowsOverDP.apply(x, mesh)
+
+
 def dp_mean(x: torch.Tensor, mesh: Mesh = None) -> torch.Tensor:
     """Mean over the dp ranks, without a gradient (for metrics)."""
     mesh = mesh or active()

@@ -1,9 +1,10 @@
 """The towers (counterpart of lr2ppo_tpu/towers/): the XLM-R text and ViT
 image encoders that make clean_feat.h5, and the pretraining towers with
 their targets, encoder-only and encoder-decoder (T5's relative bias,
-residual attention, sinusoidal positions), with the reference JSON config
-schema and the TencentPretrain key layout. The RNN, gated-CNN and dual
-encoders and the image and speech embeddings come later (ROADMAP A4-A5)."""
+residual attention, sinusoidal positions), the RNN family, the gated CNN
+and the dual (CLIP-style) encoder with the contrastive target, with the
+reference JSON config schema and the TencentPretrain key layout. The image
+and speech embeddings come later (ROADMAP A5)."""
 
 from lr2ppo_torch.towers.model import TowerConfig, TowerModel, build_model
 from lr2ppo_torch.towers.torch_import import (

@@ -50,8 +50,7 @@ ACTS: dict = {
     "tanh": torch.tanh,
 }
 
-NOT_PORTED = ("not ported yet (ROADMAP A: the rest of the towers, with "
-              "pretraining)")
+NOT_PORTED = "not ported yet (ROADMAP A5: image and speech pretraining)"
 
 
 class RefLayerNorm(nn.Module):

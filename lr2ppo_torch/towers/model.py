@@ -9,7 +9,10 @@ models/t5/base_config.json) and ignores keys it has no field for.
 model's forward is the pretraining loss through the targets (targets.py).
 A config with a `decoder` adds the target-side embedding and the
 TransformerDecoder (decoders/transformer_decoder.py), and its targets read
-the decoder's output. Dual encoders raise (ROADMAP A4: the other encoders).
+the decoder's output. A `dual` config (CLIP-style) has one embedding a
+stream, `embedding_0` and `embedding_1`, each built from the config
+overlaid with its stream dict, and the DualEncoder; `encode` then takes and
+returns pairs.
 """
 
 from __future__ import annotations
@@ -25,14 +28,15 @@ from torch import nn
 from lr2ppo_torch.models.layers import Linear
 from lr2ppo_torch.ops.hash_dropout import module_dropout
 from lr2ppo_torch.towers.embeddings import CompositeEmbedding, PatchEmbedding
-from lr2ppo_torch.towers.encoders import build_encoder
-from lr2ppo_torch.towers.layers import (NOT_PORTED, GatedFeedForward,
+from lr2ppo_torch.towers.encoders import (GatedcnnEncoder, RnnWeights,
+                                          build_encoder, stream_config)
+from lr2ppo_torch.towers.layers import (GatedFeedForward,
                                         MultiHeadedAttention,
                                         PositionwiseFeedForward, RefLayerNorm,
                                         RelativePositionEmbedding,
                                         T5LayerNorm, additive_mask_from_seg,
                                         make_layer_norm)
-from lr2ppo_torch.towers.targets import CompositeTarget
+from lr2ppo_torch.towers.targets import ClrTarget, CompositeTarget
 
 
 @dataclass
@@ -228,18 +232,24 @@ class TowerModel(nn.Module):
     the target, as a reference checkpoint's heads are dropped by
     `encoder_state`. The target-side embedding is its own module (no tied
     weights, as in JAX), built from the config with `tgt_embedding` as its
-    kinds and the encoder side's list as its gates. In training mode
-    (`deterministic=False`) every dropout site draws its seed from
-    `generator`, a CPU torch.Generator, in forward order: the encoder side,
-    then the target embedding and the decoder."""
+    kinds and the encoder side's list as its gates. A dual tower has
+    `embedding_0.*` and `embedding_1.*` instead of `embedding.*`. In
+    training mode (`deterministic=False`) every dropout site draws its seed
+    from `generator`, a CPU torch.Generator, in forward order: the encoder
+    side (a dual tower's two embeddings, then its two encoders, JAX's
+    order), then the target embedding and the decoder."""
 
     def __init__(self, cfg: TowerConfig, dtype: Optional[torch.dtype] = None,
                  device=None, with_target: bool = False):
         super().__init__()
-        if cfg.encoder == "dual":
-            raise NotImplementedError(f"dual encoders are {NOT_PORTED}")
         self.cfg = cfg
-        self.embedding = CompositeEmbedding(cfg, device)
+        if cfg.encoder == "dual":
+            self.embedding_0 = CompositeEmbedding(
+                stream_config(cfg, cfg.stream_0), device)
+            self.embedding_1 = CompositeEmbedding(
+                stream_config(cfg, cfg.stream_1), device)
+        else:
+            self.embedding = CompositeEmbedding(cfg, device)
         self.encoder = build_encoder(cfg, dtype, device)
         if cfg.decoder:
             tgt_cfg = (dataclasses.replace(cfg, embedding=cfg.tgt_embedding,
@@ -250,9 +260,15 @@ class TowerModel(nn.Module):
         if with_target:
             self.target = CompositeTarget(cfg, dtype, device)
 
-    def encode(self, src, seg: torch.Tensor, deterministic: bool = True,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        emb = self.embedding(src, seg, deterministic, generator)
+    def encode(self, src, seg, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None):
+        """The encoder's last hidden states; a dual tower takes and returns
+        (stream 0, stream 1) pairs."""
+        if self.cfg.encoder == "dual":
+            emb = (self.embedding_0(src[0], seg[0], deterministic, generator),
+                   self.embedding_1(src[1], seg[1], deterministic, generator))
+        else:
+            emb = self.embedding(src, seg, deterministic, generator)
         return self.encoder(emb, seg, deterministic, generator)
 
     def embed_only(self, src, seg: torch.Tensor, deterministic: bool = True,
@@ -270,8 +286,9 @@ class TowerModel(nn.Module):
                 tgt_seg: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-        """The target's loss tuple: (loss, correct, denom) for mlm, lm and
-        bilm, (loss, correct) for cls and sp, {kind: tuple} for several.
+        """The target's loss tuple: (loss, correct, denom) for mlm, lm,
+        bilm and clr, (loss, correct) for cls and sp, {kind: tuple} for
+        several.
         With a decoder, `tgt_in` and `tgt_seg` are the decoder's input
         stream, and the target reads the decoder's output under tgt_seg."""
         if not hasattr(self, "target"):
@@ -296,9 +313,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded weights with the JAX package's init styles: linears as torch
     (U(+-1/sqrt(fan_in))), lookup tables (T5's relative bias tables among
     them) N(0, 1), the patch projection and [CLS] N(0, 0.02), layer norms
-    at one and zero."""
+    at one and zero, recurrent weights and biases U(+-1/sqrt(hs)), gated-CNN
+    kernels N(0, 0.02) and their biases N(0, 1), the contrastive
+    projections N(0, 1) and its logit scale ln(1 / 0.07)."""
     for m in model.modules():
-        if isinstance(m, (Linear, RefLayerNorm, T5LayerNorm)):
+        if isinstance(m, (Linear, RefLayerNorm, T5LayerNorm, RnnWeights,
+                          GatedcnnEncoder, ClrTarget)):
             m.reset_parameters(generator)
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=generator)

@@ -1,6 +1,7 @@
 """Pretraining targets of the towers (counterpart of
 lr2ppo_tpu/towers/targets.py; reference tencentpretrain/targets/): mlm, lm
-(with label smoothing), bilm, cls, sp and the composite target.
+(with label smoothing), bilm, cls, sp, clr (CLIP-style contrastive) and the
+composite target.
 
 As in the JAX package, a masked mean weights every position by its mask and
 divides by the mask count plus 1e-6, instead of gathering the masked
@@ -15,12 +16,15 @@ package's module names under `target.<kind>` (`target.mlm.linear_1`,
 `target.mlm.layer_norm`, `target.mlm.linear_2`, `target.lm.output_layer`,
 ...), so the tower bridge (torch_import.py) carries a JAX tree across.
 
-The contrastive `clr` target of dual encoders raises (ROADMAP A: the rest
-of the towers).
+The contrastive `clr` target reads a dual tower's pair of streams. Under dp
+it gathers both feature sets over the dp ranks, with their gradients
+(parallel/tp.py:gather_dp_rows), so its similarity matrix is the global
+batch's, as JAX's is under pjit.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -28,11 +32,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from lr2ppo_torch.models.layers import Linear
-from lr2ppo_torch.parallel.tp import (dp_sum, gather_from_tp, reduce_from_tp,
+from lr2ppo_torch.parallel.tp import (dp_sum, gather_dp_rows,
+                                      gather_from_tp, reduce_from_tp,
                                       vocab_parallel_argmax,
                                       vocab_parallel_log_softmax_parts,
                                       vocab_parallel_pick)
-from lr2ppo_torch.towers.layers import ACTS, NOT_PORTED, RefLayerNorm, pooling
+from lr2ppo_torch.towers.layers import ACTS, RefLayerNorm, pooling
 
 
 class _VocabTerms:
@@ -205,8 +210,60 @@ class SpTarget(nn.Module):
         return loss, correct
 
 
+class ClrTarget(nn.Module):
+    """CLIP-style symmetric contrastive target (clr_target.py:8-84): each
+    stream pooled with its own `pooling`, projected by
+    `encoder_{0,1}_projection` (hidden, feature_size) where `projection`,
+    L2-normalized, and scored against the other stream's features at
+    exp(`logit_scale`). Returns (the symmetric cross-entropy, the symmetric
+    retrieval accuracy's correct count, n), n the rows of the matrix: the
+    global batch's under dp. A stream dict that omits a field inherits the
+    base config's."""
+
+    def __init__(self, cfg, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__()
+        streams = (cfg.stream_0, cfg.stream_1)
+        self.pooling = [s.get("pooling", cfg.pooling) for s in streams]
+        self.projection = cfg.projection
+        if cfg.projection:
+            for i, s in enumerate(streams):
+                self.register_parameter(
+                    f"encoder_{i}_projection", nn.Parameter(torch.empty(
+                        s.get("hidden_size", cfg.hidden_size),
+                        cfg.feature_size, device=device)))
+        self.logit_scale = nn.Parameter(torch.empty((), device=device))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        if self.projection:
+            self.encoder_0_projection.normal_(0.0, 1.0, generator=generator)
+            self.encoder_1_projection.normal_(0.0, 1.0, generator=generator)
+        self.logit_scale.fill_(math.log(1 / 0.07))
+
+    def forward(self, memory_bank, tgt, seg):
+        feats = []
+        for i in range(2):
+            f = pooling(memory_bank[i], seg[i], self.pooling[i]).float()
+            if self.projection:
+                f = f @ getattr(self, f"encoder_{i}_projection")
+            f = f / torch.linalg.vector_norm(f, dim=-1, keepdim=True)
+            feats.append(gather_dp_rows(f))
+        f0, f1 = feats
+        scale = torch.exp(self.logit_scale)
+        n = f0.shape[0]
+        labels = torch.arange(n, device=f0.device)
+        lp0 = F.log_softmax(scale * f0 @ f1.t(), dim=-1)
+        lp1 = F.log_softmax(scale * f1 @ f0.t(), dim=-1)
+        loss = -(lp0[labels, labels].mean() + lp1[labels, labels].mean()) / 2
+        correct = ((lp0.argmax(-1) == labels).sum()
+                   + (lp1.argmax(-1) == labels).sum()).float() / 2
+        return loss, correct, torch.tensor(float(n), device=f0.device)
+
+
 TARGET_KINDS = {"mlm": MlmTarget, "lm": LmTarget, "bilm": BilmTarget,
-                "cls": ClsTarget, "sp": SpTarget}
+                "cls": ClsTarget, "sp": SpTarget, "clr": ClrTarget}
 
 
 class CompositeTarget(nn.Module):
@@ -219,9 +276,6 @@ class CompositeTarget(nn.Module):
         super().__init__()
         self.kinds = list(cfg.target)
         for kind in self.kinds:
-            if kind not in TARGET_KINDS:
-                raise NotImplementedError(f"the {kind!r} target is "
-                                          f"{NOT_PORTED}")
             self.add_module(kind, TARGET_KINDS[kind](cfg, dtype, device))
 
     def forward(self, memory_bank, tgt, seg):

@@ -1,6 +1,6 @@
 """Tower pretraining on one GPU or one rank per GPU (counterpart of
 lr2ppo_tpu/train/pretrain.py: make_pretrain_step_form in its simple,
-pair_sp, pair_cls and bilm forms, and PretrainTrainer).
+pair_sp, pair_cls, bilm, seq2seq and clip forms, and PretrainTrainer).
 
 One optimizer step takes `accum` micro-batches of the loader's batch, which
 holds accum x micro rows: each micro-batch runs the tower's forward in
@@ -21,15 +21,17 @@ accuracy saves the model to `<output_model_path>-best`; every
 The batch forms map a processor's batch keys onto TowerModel's (src, tgt,
 seg[, tgt_in, tgt_seg]) (form_args): simple (mlm, lm, cls, prefixlm),
 pair_sp (bert, albert: the mlm and sp targets), pair_cls (cls_mlm), bilm,
-and seq2seq (mt, t5, gsg, bart: the decoder's input and its targets); the
-JAX package's vilt, clip and beit forms wait with their processors
-(cli/pretrain.py:NOT_PORTED_PROCESSORS). A step's tokens are the source's,
-as in JAX. Under --dp/--tp
+seq2seq (mt, t5, gsg, bart: the decoder's input and its targets) and clip
+(a dual tower's (text, image) pairs for the clr target, whose loss carries
+its own count n); the JAX package's vilt and beit forms wait with their
+processors (cli/pretrain.py:NOT_PORTED_PROCESSORS). A step's tokens are the
+source's (clip: the text's), as in JAX. Under --dp/--tp
 (train/common.py:device_ctx) each rank takes its slice of every micro-batch
 (the loader shards per accumulation chunk), the masked means divide by the
-global counts (towers/targets.py) and the vocabulary heads are split over
-tp; --zero1 and --fsdp shard the optimizer and the parameters over dp; --sp
-(with --tp) splits the residual stream along the sequence over tp
+global counts and the clr target gathers its features over dp
+(towers/targets.py), and the vocabulary heads are split over tp; --zero1
+and --fsdp shard the optimizer and the parameters over dp; --sp (with
+--tp) splits the residual stream along the sequence over tp
 (towers/encoders.py). Under --pp each rank holds one stage of the tower
 (parallel/pipeline.py) and a micro-batch runs the GPipe schedule over
 --pp_microbatches microbatches (0: pp); the checks are the JAX trainer's
@@ -80,7 +82,8 @@ def form_args(form: str, mb: dict):
     """TowerModel.forward's positional arguments from a batch of `form`
     (lr2ppo_tpu/train/pretrain.py:form_args): (src, tgt, seg), tgt
     {kind: targets} for the composite targets and (forward, backward) for
-    bilm; seq2seq adds the decoder's (tgt_in, tgt_seg)."""
+    bilm; seq2seq adds the decoder's (tgt_in, tgt_seg); clip passes (text,
+    image) pairs as src and seg."""
     if form == "simple":
         return mb["src"], mb["tgt"], mb["seg"]
     if form == "pair_sp":
@@ -93,6 +96,9 @@ def form_args(form: str, mb: dict):
     if form == "seq2seq":
         return (mb["src"], mb["tgt_out"], mb["seg"], mb["tgt_in"],
                 mb["tgt_seg"])
+    if form == "clip":
+        return ((mb["src_text"], mb["src_image"]), mb["tgt"],
+                (mb["seg_text"], mb["seg_image"]))
     raise KeyError(f"unknown batch form: {form}")
 
 
@@ -113,7 +119,7 @@ def make_pretrain_step(accum: int = 1, pipe: Optional[GPipe] = None,
         out = model(*form_args(form, mb), deterministic=False,
                     generator=generator)
         loss, correct, denom = norm_target_out(
-            out, mb["src"].shape[0] * active().dp)
+            out, next(iter(mb.values())).shape[0] * active().dp)
         loss.backward()
         return loss.detach(), correct.detach(), denom.detach()
 
@@ -183,7 +189,8 @@ class PretrainTrainer:
         path = self.cfg.pretrained_model_path
         if path:
             model.load_state_dict(load_tower_checkpoint(
-                path, self.tower_cfg.channels_num), strict=True)
+                path, self.tower_cfg.channels_num,
+                self.tower_cfg.kernel_size), strict=True)
             self.logger.info(f"loaded pretrained {path}")
         else:
             init_weights(model, torch.Generator(
@@ -248,8 +255,10 @@ class PretrainTrainer:
                                           if not k.startswith("_")})
                 m = step_fn(state, generator, dev_batch)
                 step += 1
-                # the global batch's tokens
-                tokens_since += (int(np.prod(batch["src"].shape[:2]))
+                # the global batch's tokens (clip: the text stream's)
+                tok_key = next(k for k in ("src", "src_text", "src_image")
+                               if k in batch)
+                tokens_since += (int(np.prod(batch[tok_key].shape[:2]))
                                  * self.ctx.mesh.dp)
                 if step % cfg.report_steps == 0:
                     # a masked mean is global already; a cls or sp mean

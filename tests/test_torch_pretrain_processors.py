@@ -9,7 +9,8 @@
 * the pair_sp, pair_cls and bilm forms: the loss and every gradient of a
   tiny tower (hidden 32, one layer, dropout 0) against the loss function of
   JAX's make_pretrain_step_form (its form_args and _norm_target_out), at
-  rtol 5e-4 / atol 1e-5 of each tensor's scale; a bilstm bilm tower raises;
+  rtol 5e-4 / atol 1e-5 of each tensor's scale, and the bilm form on its
+  own bilstm tower;
 * the pretraining CLI at bert (mlm + sp) for 2 steps against the JAX CLI.
 """
 
@@ -186,11 +187,40 @@ def test_forms_loss_and_every_gradient_match_jax(files, form):
                                    atol=ATOL * scale, err_msg=k)
 
 
-def test_a_bilstm_bilm_tower_raises_at_the_encoder():
-    cfg = TowerConfig.from_dict({**RAW, "encoder": "bilstm",
-                                 "target": ["bilm"]})
-    with pytest.raises(NotImplementedError, match="A4"):
-        TowerModel(cfg, with_target=True)
+def test_a_bilstm_bilm_tower_raises_at_the_encoder(files):
+    """The bilm processor's own tower (ELMo-style: two bilstm stacks, the
+    forward and backward heads) now trains: its loss and every gradient in
+    the bilm form against JAX's step loss, as the transformer forms above
+    (tests/test_torch_encoders.py holds its encoder and one step)."""
+    raw = {**RAW, "encoder": "bilstm", "target": ["bilm"],
+           "max_seq_length": 4, "embedding": ["word"]}
+    mb = _batch(_build(tpp, SpaceTokenizer(files["vocab"]), "bilm", files))
+    jmodel = JTowerModel(JTowerConfig.from_dict(raw))
+    params = jax.tree.map(np.asarray, jmodel.init(
+        jax.random.PRNGKey(0), *jtrain.form_args("bilm", mb)))
+
+    def loss_fn(p):
+        out = jmodel.apply({"params": p}, *jtrain.form_args("bilm", mb))
+        return jtrain._norm_target_out(out, mb["src"].shape[0])[0]
+
+    jloss, jgrads = jax.value_and_grad(loss_fn)(
+        jax.tree.map(jnp.asarray, params["params"]))
+    model = TowerModel(TowerConfig.from_dict(raw), with_target=True)
+    model.load_state_dict(tower_params_from_flax(params), strict=True)
+    out = model(*ttrain.form_args("bilm", {k: torch.from_numpy(v)
+                                           for k, v in mb.items()}),
+                deterministic=False, generator=torch.Generator())
+    loss = ttrain.norm_target_out(out, mb["src"].shape[0])[0]
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               rtol=RTOL)
+    want = tower_params_from_flax(jax.tree.map(np.asarray, jgrads))
+    assert {k for k, _ in model.named_parameters()} == want.keys()
+    for k, p in model.named_parameters():
+        w = want[k].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=RTOL,
+                                   atol=ATOL * float(np.abs(w).max()),
+                                   err_msg=k)
 
 
 def test_unknown_form_raises():

@@ -261,9 +261,11 @@ def test_config_copy_has_every_field_and_parses_like_jax(tmp_path):
 
 
 def test_what_waits_for_pretraining_raises():
-    """The other encoders and the contrastive target still raise; the
-    decoder, T5's relative bias and sinusoidal positions build and run
-    (tests/test_torch_seq2seq.py holds them against JAX)."""
+    """The decoder, T5's relative bias, sinusoidal positions, the lstm
+    encoder and the contrastive target of a dual tower build, initialize and
+    give a finite loss (tests/test_torch_seq2seq.py and
+    tests/test_torch_encoders.py hold them against JAX); the image and
+    speech embeddings still raise, naming ROADMAP A5."""
     src, seg = (torch.from_numpy(a) for a in _text_inputs())
     for kw in (dict(decoder="transformer"),
                dict(relative_position_embedding=True),
@@ -275,11 +277,23 @@ def test_what_waits_for_pretraining_raises():
         extra = (src, seg) if "decoder" in kw else ()
         loss = model(src, tgt, seg, *extra)[0]
         assert torch.isfinite(loss), kw
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TowerModel(TowerConfig.from_dict(text_cfg(encoder="lstm")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TowerModel(TowerConfig.from_dict(text_cfg(target=["clr"])),
-                   with_target=True)
+    tgt = torch.where(seg > 0, src, 0)
+    lstm = TowerModel(TowerConfig.from_dict(text_cfg(encoder="lstm",
+                                                     target=["lm"])),
+                      with_target=True)
+    init_weights(lstm, torch.Generator().manual_seed(1))
+    assert torch.isfinite(lstm(src, tgt, seg)[0])
+    stream = dict(embedding=["word", "pos"], encoder="transformer")
+    dual = TowerModel(TowerConfig.from_dict(text_cfg(
+        encoder="dual", target=["clr"], projection=True, feature_size=8,
+        stream_0=stream, stream_1={**stream, "pooling": "mean"})),
+        with_target=True)
+    init_weights(dual, torch.Generator().manual_seed(2))
+    loss, correct, n = dual((src, src.flip(1)), torch.arange(3),
+                            (seg, seg.flip(1)))
+    assert torch.isfinite(loss) and float(n) == 3 and 0 <= float(correct) <= 3
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        TowerModel(TowerConfig.from_dict(text_cfg(embedding=["word_patch"])))
     # training mode is ported (tests/test_torch_pretrain_model.py); a tower
     # built for extraction has no target to give a loss
     model = TowerModel(TowerConfig.from_dict(text_cfg()))
