@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port once on one CUDA card: the ranking service, the
 three-stage LR2PPO recipe of both families, feature extraction, tower
-pretraining (the transformer, seq2seq, recurrent, gated-CNN and dual towers)
-and multi-GPU training at full width.
+pretraining (the transformer, seq2seq, recurrent, gated-CNN and dual towers,
+and the image and speech towers) and multi-GPU training at full width.
 
     python3 chip_smoke.py [--seed N] [--parallel_only | --pipeline_only |
                            --processors_only | --seq2seq_only |
-                           --encoders_only]
+                           --encoders_only | --vision_speech_only]
 
 Phases, each of which raises on failure (exit code other than 0):
   1. device: torch and CUDA versions, the card's name and power limit;
@@ -120,7 +120,8 @@ Phases, each of which raises on failure (exit code other than 0):
      on a mesh: hash dropout at the sp place ((32, 64, 768) of (32, 128,
      768), float32, the second tp rank's tokens) against its plain version
      forward and backward; XLM-R base MLM through cli.pretrain (phase 14's
-     width, corpus and batch, P16_STEPS steps) in this process at dropout
+     width, corpus and batch, cut to P16_LAYERS of its 12 layers, P16_STEPS
+     steps) in this process at dropout
      0 and, under Adafactor, at dropout 0.1 with hash dropout, as the
      references; then legs of two gloo ranks sharing card 0, each in
      processes of its own: pp 2 (M = 4) at dropout 0 against the reference
@@ -187,7 +188,36 @@ Phases, each of which raises on failure (exit code other than 0):
      near ln 64 that falls, moved leaves in both towers, the projections and
      logit_scale, no hash-dropout or K4 launch, one more step's time, pairs/s
      and tokens/s, a trace by kernel class and the peak memory.
-     `--encoders_only` runs the build and phase 19 alone.
+     `--encoders_only` runs the build and phase 19 alone;
+ 20. image and speech pretraining, float32 with TF32 off for products and
+     convolutions: the VQGAN at the published imagenet f16-1024 widths
+     (seeded weights) encoding 8 images at 224 x 224 on the card and on the
+     CPU, quant_conv's output within VQ_Z_RTOL and the tokens equal wherever
+     the CPU's margin between its two nearest codes exceeds twice the gap
+     in the distances (the share printed), one 224 and one 256 encode
+     timed; BEiT-base (ViT-B/16, masked_patch + pos, an mlm head over the
+     VQGAN's 1,024 codes, the CLI's mask rate) through cli.pretrain at
+     --data_processor beit --hash_dropout, 2 micro-batches of 32 seeded
+     images, 4 steps: the parameter count beside the published 86 M,
+     falling losses, moved leaves (mask_emb among them), the launches
+     against the sites counted from the config, one more step's time,
+     images/s and tokens/s, a trace by kernel class, the peak memory, its
+     embedding and attention-probability sites ((32, 197, 768), (32, 12,
+     197, 197)) against the plain hash dropout; the -best checkpoint loaded
+     strict and one encode of 32 images through the extraction path (12 K4
+     launches); ViLT-B/32 (word_patch + pos + seg, 384 x 384 in patches of
+     32, text of 40, a 30,522-entry vocabulary, the mlm and match targets)
+     at --data_processor vilt, 2 x 32 pairs, 4 steps, the same quantities
+     and the match targets' share; S2T-small (12 + 6 layers of 256, 2
+     convolutions over 80 mel bins, a 10,000-entry vocabulary) at
+     --data_processor s2t on 32 seeded wavs of 12-16 s read through
+     S2tDataset, --max_audio_frames 1600, targets of up to 128 tokens, 2 x
+     16 utterances, 4 steps, the same quantities, frames/s and its encoder
+     site (16, 400, 256); then vit (ViT-B/16, 1,000 classes) and dalle (a
+     reduced 12 x 768 causal tower over 32 text and 256 VQGAN tokens), 2
+     steps each. The images are seeded arrays behind the port's own
+     datasets (only `_pixels` overridden; the card's machine has no PIL).
+     `--vision_speech_only` runs the build and phase 20 alone.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -2810,6 +2840,11 @@ def parallel_path(args, dev, card_line: str, shared: bool = True) -> dict:
 # -- phase 16: pipeline stages, sequence parallelism, Adafactor under tp,
 # serving on a mesh ---------------------------------------------------------
 P16_STEPS = 2                          # optimizer steps of every leg
+# XLM-R base cut to 8 of its 12 layers in this phase's runs (pp 2 and pp 4
+# still split it evenly): with phase 20 the whole script took 1,069 s of
+# its 1,200 on a slow host at 12
+P16_LAYERS = 8
+P16_TOWER = {**XLMR_BASE, "layers_num": P16_LAYERS}
 P16_MICRO = 4                          # --pp_microbatches
 P16_SERVE_BATCHES = 2
 # the hash dropout site at the sp place: (B, S/2, 768) of XLM-R base's
@@ -2831,12 +2866,12 @@ P16_SHIFT_LEAVES = ("self_attn.linear_layers.1.bias",)
 
 
 def p16_files(tmp: str, seed: int) -> dict:
-    """Phase 14's vocabulary and corpus, and XLM-R base's config at dropout
+    """Phase 14's vocabulary and corpus, and P16_TOWER's config at dropout
     0.1 and at dropout 0."""
-    paths = pretrain_corpus(tmp, seed)
+    paths = pretrain_corpus(tmp, seed, tower=P16_TOWER)
     paths["tower0"] = os.path.join(tmp, "xlmr_base_dropout0.json")
     with open(paths["tower0"], "w") as f:
-        json.dump({**XLMR_BASE, "dropout": 0.0}, f)
+        json.dump({**P16_TOWER, "dropout": 0.0}, f)
     return paths
 
 
@@ -3175,7 +3210,7 @@ def pipeline_path(args, dev, card_line: str, shared: bool = True) -> dict:
          bound_share_trace=site["bound_share_trace"], card=card_line)
     del x
     torch.cuda.empty_cache()
-    cfg = TowerConfig.from_dict(XLMR_BASE)
+    cfg = TowerConfig.from_dict(P16_TOWER)
     world = torch.cuda.device_count()
     legs = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -4277,6 +4312,597 @@ def encoders_path(args, dev, card_line: str) -> dict:
     return out
 
 
+# -- phase 20: image and speech pretraining ------------------------------------
+# BEiT-base (Bao et al. 2022, microsoft/beit-base-patch16-224-pt22k): ViT-B/16,
+# 12 layers of 768, 12 heads, FFN 3,072, 224 x 224 in patches of 16 (197
+# tokens), pre-LN, no embedding norm; the masked-patch embedding and the
+# learned positions; an mlm head over the VQGAN's 1,024 codes, which stand in
+# for BEiT's 8,192-entry dVAE
+BEIT_BASE = {
+    "emb_size": 768, "hidden_size": 768, "feedforward_size": 3072,
+    "heads_num": 12, "layers_num": 12, "max_seq_length": 197,
+    "embedding": ["masked_patch", "pos"], "remove_embedding_layernorm": True,
+    "encoder": "transformer", "mask": "fully_visible",
+    "layernorm_positioning": "pre", "target": ["mlm"], "hidden_act": "gelu",
+    "dropout": 0.1, "image_height": 224, "image_width": 224,
+    "patch_size": 16, "channels_num": 3,
+}
+# BEiT-B's published size (Bao et al. 2022, Table 1: 86 M), the encoder's
+BEIT_PUBLISHED_PARAMS = 86e6
+# ViLT-B/32 (Kim et al. 2021, dandelin/vilt-b32-mlm): ViT-B/32 at 384 x 384
+# (144 patches + [CLS] = 145 image tokens), text of at most 40 tokens, a
+# BERT-sized 30,522-entry vocabulary, pre-LN; word_patch + pos + seg (seg 1
+# on the text, 2 on the image), the mlm and match (sp) targets
+VILT_B32 = {
+    "emb_size": 768, "hidden_size": 768, "feedforward_size": 3072,
+    "heads_num": 12, "layers_num": 12, "max_seq_length": 185,
+    "embedding": ["word_patch", "pos", "seg"], "encoder": "transformer",
+    "mask": "fully_visible", "layernorm_positioning": "pre",
+    "target": ["mlm", "sp"], "hidden_act": "gelu", "dropout": 0.1,
+    "image_height": 384, "image_width": 384, "patch_size": 32,
+    "channels_num": 3,
+}
+VILT_VOCAB, VILT_TEXT = 30522, 40
+# S2T-small (fairseq s2t_transformer_s, Wang et al. 2020,
+# facebook/s2t-small-librispeech-asr): 12 encoder and 6 decoder layers of
+# 256, 4 heads, FFN 2,048, ReLU, dropout 0.1, pre-LN, no embedding norm, 2
+# stride-2 convolutions of width 5 over 80 mel bins, sinusoidal positions
+# on both sides, a 10,000-entry vocabulary
+S2T_SMALL = {
+    "emb_size": 256, "hidden_size": 256, "feedforward_size": 2048,
+    "heads_num": 4, "layers_num": 12, "decoder_layers_num": 6,
+    "max_seq_length": 1024, "hidden_act": "relu", "dropout": 0.1,
+    "embedding": ["speech", "sinusoidalpos"],
+    "tgt_embedding": ["word", "sinusoidalpos"],
+    "remove_embedding_layernorm": True, "encoder": "transformer",
+    "mask": "fully_visible", "decoder": "transformer", "target": ["lm"],
+    "layernorm_positioning": "pre",
+}
+S2T_VOCAB, S2T_TGT = 10000, 128
+# fairseq's 6,000 cut to the longest utterance here (16 s at a 10 ms shift),
+# a multiple of 4 (the two stride-2 convolutions)
+S2T_FRAMES = 1600
+S2T_SECONDS, S2T_UTTERANCES = (12.0, 16.0), 32
+S2T_BS = 16
+# every leg: micro-batches of P20_BS (S2T: S2T_BS), P20_ACCUM of them a step
+P20_BS, P20_ACCUM, P20_STEPS, P20_SHORT_STEPS = 32, 2, 4, 2
+# the learning rates: BEiT's, vit's and dalle's below BEiT's published
+# 1.5e-3; ViLT's published 1e-4 (at 5e-4 its loss rose at the fourth
+# step); S2T's below fairseq's LibriSpeech recipe's 2e-3
+P20_LR, VILT_LR, S2T_LR = 5e-4, 1e-4, 1e-3
+# the vit leg's classes (ImageNet-1k's) and the dalle leg's text
+VIT_CLASSES, DALLE_TEXT = 1000, 32
+# a 12 x 768 causal tower over 32 text and 256 VQGAN tokens (256 x 256): a
+# reduced width, no published DALL-E has this size
+DALLE_SMALL = {
+    "emb_size": 768, "hidden_size": 768, "feedforward_size": 3072,
+    "heads_num": 12, "layers_num": 12, "max_seq_length": 288,
+    "embedding": ["word", "pos", "seg"], "encoder": "transformer",
+    "mask": "causal", "layernorm_positioning": "pre", "target": ["lm"],
+    "hidden_act": "gelu", "dropout": 0.1,
+}
+BEIT_WATCHED = ("embedding.masked_patch.mask_emb",
+                "embedding.masked_patch.patch.projection.weight",
+                "encoder.transformer.11.feed_forward.linear_2.weight",
+                "target.mlm.linear_2.weight")
+VILT_WATCHED = ("embedding.word_patch.word.embedding.weight",
+                "embedding.word_patch.patch.projection.weight",
+                "encoder.transformer.0.self_attn.linear_layers.0.weight",
+                "target.sp.linear_2.weight")
+S2T_WATCHED = ("embedding.speech.conv_0.weight",
+               "embedding.speech.conv_1.weight",
+               "decoder.transformer_decoder.5.context_attn.linear_layers.1."
+               "weight", "target.lm.output_layer.weight")
+# the VQGAN's quant_conv output on the card against the CPU's from the same
+# weights, float32 with TF32 off: within VQ_Z_RTOL of the largest |z| (~30
+# convolutions and group norms summed in other orders)
+VQ_Z_RTOL = 1e-3
+VQ_IMAGES, VQ_SIZE = 8, 224
+VQ_CONFIG: dict = {}                   # VQGANConfig()'s: imagenet f16-1024
+
+
+def seeded_pixels(path: str, h: int, w: int, seed: int) -> np.ndarray:
+    """The synthetic image 'img<k>' of a phase-20 manifest: uniform pixels
+    in [0, 1), channels first, from (seed, k)."""
+    rng = np.random.default_rng((seed, int(path[3:])))
+    return rng.random((3, h, w), dtype=np.float32)
+
+
+def seeded_dataset(cls, seed: int):
+    """`cls` (one of the port's image datasets) with only `_pixels`
+    overridden: the manifest's paths name seeded arrays (the card's machine
+    has no PIL). Dalle reads at its tokenizer's resolution."""
+
+    class Seeded(cls):
+        def _pixels(self, path):
+            if hasattr(self, "h"):
+                return seeded_pixels(path, self.h, self.w, seed)
+            r = self.image_tok.cfg.resolution
+            return seeded_pixels(path, r, r, seed)
+
+    Seeded.__name__ = Seeded.__qualname__ = f"Seeded{cls.__name__}"
+    return Seeded
+
+
+@contextmanager
+def seeded_images(seed: int):
+    """cli.pretrain builds its image datasets as seeded_dataset's inside the
+    block."""
+    names = ("VitImageDataset", "ViltPairsDataset", "BeitImageDataset",
+             "DalleDataset")
+    real = {n: getattr(pretrain, n) for n in names}
+    for n, cls in real.items():
+        setattr(pretrain, n, seeded_dataset(cls, seed))
+    try:
+        yield
+    finally:
+        for n, cls in real.items():
+            setattr(pretrain, n, cls)
+
+
+def zipf_text(rng, vocab: int, lo: int, hi: int) -> str:
+    """lo to hi Zipf-distributed words of a pretrain_corpus vocabulary."""
+    n_words = vocab - len(PRE_SPECIALS)
+    ranks = rng.zipf(1.1, size=int(rng.integers(lo, hi + 1)))
+    return " ".join(f"w{min(r, n_words) - 1}" for r in ranks)
+
+
+def p20_argv(paths: dict, out: str, processor: str, steps: int, bs: int,
+             *extra) -> list:
+    return ["--corpus_path", paths["corpus"], "--tower_config",
+            paths["tower"], "--data_processor", processor, "--tokenizer",
+            "space", "--vocab_path", paths["vocab"], "--hash_dropout",
+            "--batch_size", str(bs), "--accumulation_steps", str(P20_ACCUM),
+            "--total_steps", str(steps), "--learning_rate", str(P20_LR),
+            "--report_steps", "1", "--output_model_path", out, "--log_path",
+            out + ".log", *extra]
+
+
+def p20_sites_a_pass(cfg) -> int:
+    """Hash-dropout sites of one training pass: the embedding and 3 a layer
+    in the encoder; with a decoder, its embedding and 5 a layer."""
+    if cfg.decoder:
+        return s2s_sites_a_pass(cfg)
+    return 1 + 3 * cfg.layers_num
+
+
+def p20_fit(name: str, argv: list, dev, seed: int, watched=()) -> dict:
+    """cli.pretrain's build and fit (image datasets seeded): the records,
+    the launches against the sites counted from the config, the parameter
+    count by part, the moved leaves, the peak memory and the fit's
+    wall time; finite losses and moved leaves held."""
+    t0 = time.perf_counter()
+    with seeded_images(seed):
+        trainer, loader = pretrain.build(pretrain.parser().parse_args(argv),
+                                         dev)
+    build_s = time.perf_counter() - t0
+    steps = int(argv[argv.index("--total_steps") + 1])
+    cfg = trainer.tower_cfg
+    want = p20_sites_a_pass(cfg) * 2 * P20_ACCUM * steps
+    torch.cuda.reset_peak_memory_stats()
+    hash_dropout.launches = 0
+    reset_launches()
+    t0 = time.perf_counter()
+    with watched_init(watched) as seen:
+        state, best = trainer.fit(loader, steps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches, k4 = hash_dropout.launches, fused_attention.launches
+    out = argv[argv.index("--output_model_path") + 1]
+    with open(out + ".log.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    params = dict(state.model.named_parameters())
+    move = {k: float((params[k].detach().cpu() - v).abs().max())
+            for k, v in (seen[0].items() if seen else ())}
+    losses = [r["loss"] for r in recs]
+    if not (len(recs) == steps and np.isfinite(losses).all()
+            and launches == want and k4 == 0
+            and all(v > 0 for v in move.values())):
+        raise AssertionError(
+            f"{name}: losses {losses}, moved {move}, {launches} hash "
+            f"dropout launches (want {want}), {k4} K4 launches")
+    parts = ("embedding.", "encoder.", "tgt_embedding.", "decoder.",
+             "target.")
+    return {"trainer": trainer, "loader": loader, "state": state,
+            "best": best, "losses": losses, "accs": [r["acc"] for r in recs],
+            "logged_tokens_s": [r["tokens_s"] for r in recs],
+            "launches": launches, "want": want, "moved": move,
+            "params": sum(p.numel() for p in params.values()),
+            "params_by_part": {p: sum(v.numel() for k, v in params.items()
+                                      if k.startswith(p)) for p in parts},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "build_seconds": build_s, "fit_seconds": fit_s}
+
+
+def p20_timed(run: dict, seed: int, what: str, card_line: str) -> dict:
+    """One more optimizer step's CUDA-event time on the loader's first batch,
+    and a trace of one by kernel class (emitted as <name>_breakdown)."""
+    trainer, state = run["trainer"], run["state"]
+    batch = trainer.ctx.put({k: v for k, v in next(iter(run["loader"]))
+                             .items() if not k.startswith("_")})
+    gen = torch.Generator().manual_seed(seed)
+    step_ms = cuda_ms(lambda: trainer.step_fn(state, gen, batch), iters=3,
+                      warmup=1)
+    trace = trace_summary(steady_trace(
+        lambda: trainer.step_fn(state, gen, batch)))
+    emit(phase=f"{what}_breakdown", traced="one optimizer step, the second "
+         "of two under the profiler", card=card_line, **trace)
+    return {"step_ms": step_ms, "batch": batch,
+            "ms_by_class": trace["ms_by_class"],
+            "idle_share": trace["idle_share"]}
+
+
+def p20_sites(run: dict, form: str, indices: dict, seed: int, dev,
+              card_line: str, want_shapes: dict) -> dict:
+    """The hash-dropout sites `indices` ({name: site index in a pass's
+    order}) of one training forward on the first micro-batch, each held
+    against the plain version on its own input and seed, timed."""
+    batch = run["timed"]["batch"]
+    micro = {k: v[:v.shape[0] // P20_ACCUM] for k, v in batch.items()}
+    sites = {}
+    for name, index in indices.items():
+        x, site_seed = site_input(run["state"].model, micro, index, seed,
+                                  form=form)
+        sites[name] = check_dropout("hash_dropout", tuple(x.shape),
+                                    torch.float32, site_seed, dev, True,
+                                    card_line, x=x)
+        sites[name]["site_seed"] = site_seed
+        del x
+    got = {k: v["shape"] for k, v in sites.items()}
+    if got != {k: list(v) for k, v in want_shapes.items()}:
+        raise AssertionError(f"{form}: sites {got}, want {want_shapes}")
+    return sites
+
+
+def p20_emit(phase: str, run: dict, tokens: int, card_line: str,
+             **extra) -> None:
+    t = run["timed"]
+    emit(phase=phase, params=run["params"],
+         params_by_part=run["params_by_part"],
+         vocab=run["trainer"].tower_cfg.vocab_size,
+         form=run["trainer"].form, losses=run["losses"], accs=run["accs"],
+         logged_tokens_s=run["logged_tokens_s"], moved=run["moved"],
+         hash_dropout_launches=run["launches"],
+         hash_dropout_launches_expected=run["want"],
+         hash_dropout_sites_a_pass=p20_sites_a_pass(run["trainer"]
+                                                    .tower_cfg),
+         build_seconds=run["build_seconds"], fit_seconds=run["fit_seconds"],
+         peak_mem_gb=run["peak_mem_gb"], step_ms=t["step_ms"],
+         tokens_a_step=tokens, tokens_s=tokens / (t["step_ms"] / 1e3),
+         ms_by_class=t["ms_by_class"], idle_share=t["idle_share"],
+         tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
+               "cudnn": torch.backends.cudnn.allow_tf32},
+         card=card_line, **extra)
+
+
+def vqgan_leg(seed: int, dev, card_line: str) -> None:
+    """The VQGAN at the published imagenet f16-1024 widths, seeded: 8
+    images at 224 x 224 encoded on the card and on the CPU from the same
+    weights; quant_conv's output within VQ_Z_RTOL, the tokens equal wherever
+    the CPU's margin between its two nearest codes exceeds twice the
+    largest gap between the two sides' distances; one 224 x 224 and one
+    256 x 256 encode timed."""
+    from lr2ppo_torch.towers.vqgan import (VQGANConfig, VQGANEncoder,
+                                           init_vqgan)
+
+    cfg = VQGANConfig(**VQ_CONFIG)
+    cpu = VQGANEncoder(cfg)
+    init_vqgan(cpu, torch.Generator().manual_seed(seed))
+    card_model = VQGANEncoder(cfg, device=dev)
+    card_model.load_state_dict(cpu.state_dict(), strict=True)
+    px = torch.from_numpy(np.random.default_rng(seed).random(
+        (VQ_IMAGES, 3, VQ_SIZE, VQ_SIZE), dtype=np.float32))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        z_cpu = cpu.features(px)
+        cpu_s = time.perf_counter() - t0
+        idx_cpu, _ = cpu.quantize_features(z_cpu)
+        z_card = card_model.features(px.to(dev))
+        idx_card = card_model.quantize_features(z_card)[0].cpu()
+        z_card = z_card.cpu()
+    z_gap = float((z_card - z_cpu).abs().max())
+    z_max = float(z_cpu.abs().max())
+    e = cpu.quantize.embedding.weight.detach().double()
+
+    def dist(z):
+        z = z.double()
+        return (z.pow(2).sum(-1, keepdim=True) - 2 * z @ e.t()
+                + e.pow(2).sum(-1))
+
+    d_cpu, d_card = dist(z_cpu), dist(z_card)
+    d_gap = float((d_cpu - d_card).abs().max())
+    two = d_cpu.topk(2, dim=-1, largest=False).values
+    decided = (two[..., 1] - two[..., 0]) > 2 * d_gap
+    equal = idx_card == idx_cpu
+    grid = (VQ_SIZE // 2 ** (len(cfg.ch_mult) - 1)) ** 2
+    res = {"images": VQ_IMAGES, "size": VQ_SIZE,
+           "tokens_per_image": int(idx_cpu.shape[1]),
+           "z_max_abs_err": z_gap, "z_max_abs": z_max,
+           "z_rtol": VQ_Z_RTOL, "distance_max_abs_err": d_gap,
+           "decided_share": float(decided.float().mean()),
+           "equal_share": float(equal.float().mean()),
+           "equal_where_decided": bool(equal[decided].all()),
+           "cpu_encode_seconds": cpu_s,
+           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32}}
+    if not (z_gap <= VQ_Z_RTOL * z_max and res["equal_where_decided"]
+            and idx_cpu.shape == (VQ_IMAGES, grid)):
+        emit(phase="vqgan", failed=True, **res)
+        raise AssertionError(f"vqgan: the card against the CPU: {res}")
+    with torch.inference_mode():
+        for size in (VQ_SIZE, cfg.resolution):
+            x = torch.rand(1, 3, size, size, device=dev)
+            res[f"encode_ms_{size}"] = cuda_ms(lambda: card_model(x),
+                                               iters=5, warmup=1)
+    res["card"] = card_line
+    emit(phase="vqgan", config="imagenet f16-1024 (VQGANConfig()), seeded "
+         "weights", **res)
+    del cpu, card_model, z_cpu, z_card, px
+    torch.cuda.empty_cache()
+
+
+def beit_leg(seed: int, dev, card_line: str) -> dict:
+    """BEiT-base through cli.pretrain at --data_processor beit
+    --hash_dropout: 2 micro-batches of 32 seeded images a step, P20_STEPS
+    steps; then the -best checkpoint loaded strict and one encode of 32
+    images through the extraction path (K4, 12 launches)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = pretrain_corpus(tmp, seed, VILT_VOCAB, BEIT_BASE)
+        paths["corpus"] = os.path.join(tmp, "beit.tsv")
+        with open(paths["corpus"], "w") as f:
+            f.write("".join(f"img{k}\n" for k in range(P20_BS * P20_ACCUM)))
+        out = os.path.join(tmp, "beit")
+        run = p20_fit("beit", p20_argv(paths, out, "beit", P20_STEPS,
+                                       P20_BS), dev, seed, BEIT_WATCHED)
+        if not (run["trainer"].tower_cfg.vocab_size == 1024
+                and run["losses"][-1] < run["losses"][0]
+                and "embedding.masked_patch.mask_emb" in run["moved"]):
+            raise AssertionError(f"beit: vocabulary "
+                                 f"{run['trainer'].tower_cfg.vocab_size}, "
+                                 f"losses {run['losses']}")
+        run["timed"] = p20_timed(run, seed, "beit", card_line)
+        ds = run["loader"].ds
+        cfg = dataclasses.replace(run["trainer"].tower_cfg,
+                                  pallas_attention=True)
+        seq, hid = ds.seq, cfg.hidden_size
+        sites = p20_sites(run, "beit", {"embedding": 0, "probs": 1}, seed,
+                          dev, card_line,
+                          {"embedding": (P20_BS, seq, hid),
+                           "probs": (P20_BS, cfg.heads_num, seq, seq)})
+        state = encoder_state(load_tower_checkpoint(out + "-best"))
+        extractor = ImageFeatureExtractor(cfg, state, device=dev)
+        pixels = np.stack([ds._pixels(f"img{k}") for k in range(P20_BS)])
+        extractor(pixels[:1], P20_BS)               # warm-up
+        reset_launches()
+        feats = extractor(pixels, P20_BS)
+        torch.cuda.synchronize()
+        k4 = fused_attention.launches
+        if not (k4 == cfg.layers_num and feats.shape == (P20_BS, hid)
+                and np.isfinite(feats).all()):
+            raise AssertionError(f"beit: the -best encode launched K4 {k4} "
+                                 f"times, features {feats.shape}")
+        encode_ms = cuda_ms(lambda: extractor.encode(pixels), iters=3,
+                            warmup=1)
+        del extractor, state
+    tokens = P20_BS * P20_ACCUM * seq
+    p20_emit("beit", run, tokens, card_line, processor="beit",
+             published_params=BEIT_PUBLISHED_PARAMS,
+             encoder_params=run["params_by_part"]["embedding."]
+             + run["params_by_part"]["encoder."],
+             micro_batch=[P20_BS, seq], accumulation=P20_ACCUM,
+             steps=P20_STEPS, masked_patches=ds.n_mask,
+             images_s=P20_BS * P20_ACCUM / (run["timed"]["step_ms"] / 1e3),
+             best_k4_launches=k4, best_encode_ms=encode_ms,
+             sites={k: {"shape": v["shape"], "bit_equal":
+                        v["forward_bit_equal"] and v["backward_bit_equal"],
+                        "ms": v["ms"], "plain_ms": v["plain_ms"],
+                        "library_ms": v["library_ms"],
+                        "bound_ms": v["bound_ms"]}
+                    for k, v in sites.items()})
+    launches = run["launches"]
+    del run, ds
+    torch.cuda.empty_cache()
+    return {"launches": launches, "sites": sites, "k4": k4}
+
+
+def vilt_leg(seed: int, dev, card_line: str) -> dict:
+    """ViLT-B/32 through cli.pretrain at --data_processor vilt
+    --hash_dropout: 2 micro-batches of 32 seeded (caption, image) pairs a
+    step, P20_STEPS steps; the match targets' share."""
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = pretrain_corpus(tmp, seed, VILT_VOCAB, VILT_B32)
+        rng = np.random.default_rng(seed)
+        paths["corpus"] = os.path.join(tmp, "vilt.tsv")
+        with open(paths["corpus"], "w") as f:
+            f.write("".join(f"{zipf_text(rng, VILT_VOCAB, 5, 38)}\timg{k}\n"
+                            for k in range(P20_BS * P20_ACCUM)))
+        out = os.path.join(tmp, "vilt")
+        run = p20_fit("vilt", p20_argv(paths, out, "vilt", P20_STEPS,
+                                       P20_BS, "--seq_length",
+                                       str(VILT_TEXT), "--learning_rate",
+                                       str(VILT_LR)),
+                      dev, seed, VILT_WATCHED)
+        if run["losses"][-1] >= run["losses"][0]:
+            raise AssertionError(f"vilt: losses {run['losses']}")
+        run["timed"] = p20_timed(run, seed, "vilt", card_line)
+        batch = run["timed"]["batch"]
+        ds = run["loader"].ds
+        if not (batch["src_text"].shape == (P20_BS * P20_ACCUM, VILT_TEXT)
+                and batch["seg"].shape[1] == VILT_TEXT + ds.img_seq):
+            raise AssertionError(f"vilt: batch {batch['src_text'].shape}, "
+                                 f"seg {batch['seg'].shape}")
+        img_seq = ds.img_seq
+        ds.set_epoch(1)
+        match_share = float(np.mean([ds.get(i)["tgt_match"]
+                                     for i in range(len(ds))]))
+        del batch, ds
+    tokens = P20_BS * P20_ACCUM * (VILT_TEXT + img_seq)
+    p20_emit("vilt", run, tokens, card_line, processor="vilt",
+             micro_batch=[P20_BS, VILT_TEXT, img_seq],
+             accumulation=P20_ACCUM, steps=P20_STEPS,
+             match_share_epoch_1=match_share,
+             pairs_s=P20_BS * P20_ACCUM / (run["timed"]["step_ms"] / 1e3))
+    launches = run["launches"]
+    del run
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def speech_files(tmp: str, seed: int, paths: dict) -> None:
+    """S2T_UTTERANCES seeded 16-bit wavs of 12-16 s at 16 kHz (a tone with
+    harmonics and noise) and their transcripts (20-126 Zipf words), as
+    paths['corpus'], a tsv of 'transcript<TAB>wav path'."""
+    import wave
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(S2T_UTTERANCES):
+        n = int(16000 * rng.uniform(*S2T_SECONDS))
+        t = np.arange(n) / 16000
+        f0 = rng.uniform(90, 250)
+        x = sum(0.3 / h * np.sin(2 * np.pi * f0 * h * t) for h in (1, 2, 3))
+        x = x * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t)) \
+            + 0.02 * rng.standard_normal(n)
+        path = os.path.join(tmp, f"u{i}.wav")
+        with wave.open(path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((np.clip(x, -1, 1) * 32767).astype(np.int16)
+                          .tobytes())
+        rows.append(f"{zipf_text(rng, S2T_VOCAB, 20, 126)}\t{path}\n")
+    paths["corpus"] = os.path.join(tmp, "s2t.tsv")
+    with open(paths["corpus"], "w") as f:
+        f.write("".join(rows))
+
+
+def s2t_leg(seed: int, dev, card_line: str) -> dict:
+    """S2T-small through cli.pretrain at --data_processor s2t --hash_dropout
+    on S2T_UTTERANCES seeded wavs read by S2tDataset (read_wav, the log-mel
+    filterbank, CMVN): 2 micro-batches of 16 a step, --max_audio_frames
+    1600, targets of up to 128 tokens, P20_STEPS steps; its encoder's
+    embedding site (16, 400, 256) against the plain hash dropout."""
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = pretrain_corpus(tmp, seed, S2T_VOCAB, S2T_SMALL)
+        speech_files(tmp, seed, paths)
+        out = os.path.join(tmp, "s2t")
+        run = p20_fit("s2t", p20_argv(
+            paths, out, "s2t", P20_STEPS, S2T_BS, "--max_audio_frames",
+            str(S2T_FRAMES), "--tgt_seq_length", str(S2T_TGT),
+            "--learning_rate", str(S2T_LR)), dev, seed,
+            S2T_WATCHED)
+        ds = run["loader"].ds
+        frames = [int(ds.get(i)["seg"].sum()) for i in range(len(ds))]
+        if not (len(ds) == S2T_UTTERANCES
+                and run["losses"][-1] < run["losses"][0]):
+            raise AssertionError(f"s2t: {len(ds)} utterances, losses "
+                                 f"{run['losses']}")
+        run["timed"] = p20_timed(run, seed, "s2t", card_line)
+        sites = p20_sites(run, "seq2seq", {"encoder_embedding": 0}, seed,
+                          dev, card_line,
+                          {"encoder_embedding": (
+                              S2T_BS, S2T_FRAMES // 4,
+                              run["trainer"].tower_cfg.hidden_size)})
+        tgt_tokens = int(run["timed"]["batch"]["tgt_seg"].sum())
+        del ds
+    step_s = run["timed"]["step_ms"] / 1e3
+    rows = S2T_BS * P20_ACCUM
+    p20_emit("s2t", run, rows * S2T_FRAMES // 4, card_line,
+             processor="s2t", micro_batch=[S2T_BS, S2T_FRAMES, S2T_TGT],
+             accumulation=P20_ACCUM, steps=P20_STEPS,
+             subsampled_frames_by_utterance=frames,
+             frames_s=rows * S2T_FRAMES / step_s,
+             target_tokens_a_step=tgt_tokens,
+             sites={k: {"shape": v["shape"], "bit_equal":
+                        v["forward_bit_equal"] and v["backward_bit_equal"],
+                        "ms": v["ms"], "plain_ms": v["plain_ms"],
+                        "library_ms": v["library_ms"],
+                        "bound_ms": v["bound_ms"]}
+                    for k, v in sites.items()})
+    launches = run["launches"]
+    del run
+    torch.cuda.empty_cache()
+    return {"launches": launches, "sites": sites}
+
+
+def vit_dalle_legs(seed: int, dev, card_line: str) -> dict:
+    """vit (ViT-B/16, a 1,000-class cls target) and dalle (DALLE_SMALL over
+    32 text and 256 VQGAN tokens at 256 x 256) through cli.pretrain,
+    P20_SHORT_STEPS steps each: finite losses and moved leaves."""
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(seed)
+        vit = {**VIT_B16, "labels_num": VIT_CLASSES}
+        paths = pretrain_corpus(tmp, seed, VILT_VOCAB, vit)
+        paths["corpus"] = os.path.join(tmp, "vit.tsv")
+        with open(paths["corpus"], "w") as f:
+            f.write("".join(f"{int(rng.integers(VIT_CLASSES))}\timg{k}\n"
+                            for k in range(P20_BS * P20_ACCUM)))
+        run = p20_fit("vit", p20_argv(paths, os.path.join(tmp, "vit"),
+                                      "vit", P20_SHORT_STEPS, P20_BS), dev,
+                      seed, ("embedding.patch.projection.weight",
+                             "target.cls.linear_2.weight"))
+        launches += run["launches"]
+        emit(phase="vit", processor="vit", params=run["params"],
+             classes=VIT_CLASSES, steps=P20_SHORT_STEPS,
+             losses=run["losses"], moved=run["moved"],
+             hash_dropout_launches=run["launches"],
+             hash_dropout_launches_expected=run["want"],
+             fit_seconds=run["fit_seconds"], peak_mem_gb=run["peak_mem_gb"],
+             card=card_line)
+        del run
+        torch.cuda.empty_cache()
+        with open(paths["tower"], "w") as f:
+            json.dump(DALLE_SMALL, f)
+        paths["corpus"] = os.path.join(tmp, "dalle.tsv")
+        with open(paths["corpus"], "w") as f:
+            f.write("".join(f"{zipf_text(rng, VILT_VOCAB, 5, 29)}\timg{k}\n"
+                            for k in range(P20_BS * P20_ACCUM)))
+        run = p20_fit("dalle", p20_argv(
+            paths, os.path.join(tmp, "dalle"), "dalle", P20_SHORT_STEPS,
+            P20_BS, "--seq_length", str(DALLE_TEXT)), dev, seed,
+            ("embedding.word.embedding.weight",
+             "target.lm.output_layer.weight"))
+        launches += run["launches"]
+        batch = next(iter(run["loader"]))
+        n_img = run["loader"].ds.n_img
+        if not (run["trainer"].tower_cfg.vocab_size == VILT_VOCAB + 1024
+                and batch["src"].shape[1] == DALLE_TEXT + n_img
+                and int(batch["src"].max()) >= VILT_VOCAB):
+            raise AssertionError(f"dalle: vocabulary "
+                                 f"{run['trainer'].tower_cfg.vocab_size}, "
+                                 f"batch {batch['src'].shape}")
+        emit(phase="dalle", processor="dalle", params=run["params"],
+             width="reduced: a 12 x 768 causal tower; no published DALL-E "
+             "has this size", vocab=run["trainer"].tower_cfg.vocab_size,
+             sequence=[DALLE_TEXT, n_img], steps=P20_SHORT_STEPS,
+             losses=run["losses"], moved=run["moved"],
+             hash_dropout_launches=run["launches"],
+             hash_dropout_launches_expected=run["want"],
+             fit_seconds=run["fit_seconds"], peak_mem_gb=run["peak_mem_gb"],
+             card=card_line)
+        del run, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def vision_speech_path(args, dev, card_line: str) -> dict:
+    """Phase 20: the VQGAN card against CPU; BEiT-base, ViLT-B/32 and
+    S2T-small at full width; vit and dalle. Returns hash dropout's
+    launches, the sites' runs and K4's launches in the BEiT encode."""
+    t0 = time.perf_counter()
+    vqgan_leg(args.seed + 100, dev, card_line)
+    beit = beit_leg(args.seed + 101, dev, card_line)
+    vilt = vilt_leg(args.seed + 102, dev, card_line)
+    s2t = s2t_leg(args.seed + 103, dev, card_line)
+    rest = vit_dalle_legs(args.seed + 104, dev, card_line)
+    emit(phase="p20_seconds", seconds=time.perf_counter() - t0,
+         card=card_line)
+    return {"launches": beit["launches"] + vilt["launches"]
+            + s2t["launches"] + rest["launches"],
+            "sites": {**beit["sites"], **s2t["sites"]}, "k4": beit["k4"]}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4288,6 +4914,8 @@ def main(argv=None) -> None:
                     help="build and run phase 18 alone on one card")
     ap.add_argument("--encoders_only", action="store_true",
                     help="build and run phase 19 alone on one card")
+    ap.add_argument("--vision_speech_only", action="store_true",
+                    help="build and run phase 20 alone on one card")
     ap.add_argument("--parallel_only", action="store_true",
                     help="build and run phase 15's and phase 16's NCCL legs "
                          "alone (dp = the card count; on two or more cards "
@@ -4312,6 +4940,13 @@ def main(argv=None) -> None:
                 for k, v in built.items()})
     for name in build.ENTRIES:
         build.library(name)
+    if args.vision_speech_only:
+        vision_speech_path(args, dev, card_line)
+        print(card_line, flush=True)
+        emit(ok=True, device={"platform": "gpu",
+                              "kind": torch.cuda.get_device_name(0),
+                              "count": torch.cuda.device_count()})
+        return
     if args.encoders_only:
         encoders_path(args, dev, card_line)
         print(card_line, flush=True)
@@ -4392,6 +5027,8 @@ def main(argv=None) -> None:
     p18 = seq2seq_path(args, dev, card_line)
     torch.cuda.empty_cache()
     p19 = encoders_path(args, dev, card_line)
+    torch.cuda.empty_cache()
+    p20 = vision_speech_path(args, dev, card_line)
 
     main_k1 = serve_shape[torch.bfloat16]       # the serving path's dtype
     kernels = [{
@@ -4405,21 +5042,22 @@ def main(argv=None) -> None:
         "bound_ms": main_k1["bound_ms"], "bound_by": main_k1["bound_by"],
         "library_ms": None}]
     # hash dropout's launches: phase 7's, the tabular path's, the
-    # pretraining run's, the pipeline stages', bert's, the seq2seq legs'
-    # and the recurrent towers'
+    # pretraining run's, the pipeline stages', bert's, the seq2seq legs',
+    # the recurrent towers' and the image and speech towers'
     for name, launches, err in (
             ("hash_dropout",
              train_launches["hash_dropout"] + tab["launches"]
              + pre["launches"] + p16["pp_launches"]
              + p17["bert"]["launches"] + p18["launches"]
-             + p19["launches"],
+             + p19["launches"] + p20["launches"],
              max([drop["hash_dropout"]["max_abs_err"]]
                  + [r["max_abs_err"] for r in tab["sites"]]
                  + [r["max_abs_err"] for r in pre["sites"].values()]
                  + [r["max_abs_err"]
                     for r in p17["bert"]["sites"].values()]
                  + [r["max_abs_err"] for r in p18["sites"].values()]
-                 + [r["max_abs_err"] for r in p19["sites"].values()])),
+                 + [r["max_abs_err"] for r in p19["sites"].values()]
+                 + [r["max_abs_err"] for r in p20["sites"].values()])),
             ("philox_dropout", k3_launches,
              drop["philox_dropout"]["max_abs_err"])):
         r = drop[name]
@@ -4458,7 +5096,8 @@ def main(argv=None) -> None:
         "name": "fused_attention", "route": "cuda",
         "source": "lr2ppo_torch/kernels/csrc/fused_attention.cu",
         "replaces": "lr2ppo_tpu/ops/pallas_attention.py:50",
-        "launches": extract_launches,
+        # phase 10's extraction and phase 20's encode of the BEiT -best
+        "launches": extract_launches + p20["k4"],
         "max_abs_err": max(r["max_abs_err"] for r in attn.values()),
         "ms": main_k4["ms"], "plain_ms": main_k4["plain_ms"],
         "bound_ms": main_k4["bound_ms"], "bound_by": main_k4["bound_by"],

@@ -14,16 +14,22 @@ global batch, --dp -1 takes the world over --pp and --tp, --zero1 and
 --fsdp shard the optimizer and the parameters over dp, --pp N runs the
 encoder as N pipeline stages of --pp_microbatches microbatches (GPipe,
 parallel/pipeline.py), --sp (with --tp > 1) splits the residual stream
-along the sequence over tp. The mlm, lm, cls, bert, albert, cls_mlm, bilm,
-prefixlm, mt, t5, gsg, bart and clip processors run
-(data/pretrain_processors.py, data/pretrain_data.py, in the batch form of
-str2form); t5 grows the vocabulary by its 100 sentinels from
---sentinel_start (default: the vocabulary's end), as the JAX CLI does. clip
-reads a tsv of 'caption<TAB>image path' rows for a dual tower with the clr
-target, at the image size of the tower config's top level. The other image
-and speech processors and the image tokenizers raise, naming ROADMAP.md.
-It runs on the GPU unless `--device cpu` is given, and raises where there
-is no GPU. The checkpoints are reference-keyed `.bin` files.
+along the sequence over tp. Every processor of the JAX CLI runs (mlm, lm,
+cls, bert, albert, cls_mlm, bilm, prefixlm, mt, t5, gsg, bart, vit, clip,
+vilt, s2t, beit, dalle; data/pretrain_processors.py,
+data/pretrain_data.py, in the batch form of str2form), as the JAX CLI
+builds them: t5 grows the vocabulary by its 100 sentinels from
+--sentinel_start (default: the vocabulary's end); the image and speech
+corpora are tsv manifests, vit 'label<TAB>image path', clip, vilt and dalle
+'caption<TAB>image path', beit one image path a row, s2t
+'transcript<TAB>wav path', at the image size of the tower config's top
+level; beit and dalle tokenize the images with the VQGAN of
+--vqgan_model_path (seeded weights without it) on the run's device, beit's
+head spans its 1,024 codes and dalle grows the vocabulary by them; s2t
+reads --max_audio_frames frames (default: the tower JSON's, else 256), and
+its position tables count them. It runs on the GPU unless `--device cpu`
+is given, and raises where there is no GPU. The checkpoints are
+reference-keyed `.bin` files.
 """
 
 from __future__ import annotations
@@ -36,23 +42,26 @@ from lr2ppo_torch.data import pretrain_processors as processors
 from lr2ppo_torch.data.pipeline import Loader
 from lr2ppo_torch.data.pretrain_data import (ClipPairDataset, ClsTsvDataset,
                                              LmCorpusDataset,
-                                             MlmCorpusDataset)
+                                             MlmCorpusDataset,
+                                             VitImageDataset)
 from lr2ppo_torch.data.pretrain_processors import (AlbertDocsDataset,
                                                    BartDocsDataset,
+                                                   BeitImageDataset,
                                                    BertDocsDataset,
                                                    BilmCorpusDataset,
                                                    ClsMlmTsvDataset,
+                                                   DalleDataset,
                                                    GsgDocsDataset,
                                                    MtTsvDataset,
                                                    PrefixlmTsvDataset,
-                                                   T5CorpusDataset)
-from lr2ppo_torch.data.tokenizers import str2tokenizer
+                                                   S2tDataset,
+                                                   T5CorpusDataset,
+                                                   ViltPairsDataset)
+from lr2ppo_torch.data.tokenizers import ImageTokenizer, str2tokenizer
 from lr2ppo_torch.towers.model import TowerConfig
+from lr2ppo_torch.towers.vqgan import VQGANConfig
 from lr2ppo_torch.train.pretrain import PretrainTrainer
 
-# the JAX CLI's processors that wait (ROADMAP.md, queue A5: image and
-# speech pretraining)
-NOT_PORTED_PROCESSORS = ("vit", "vilt", "s2t", "beit", "dalle")
 # the T5 sentinels, past --sentinel_start
 N_SENTINELS = 100
 
@@ -94,7 +103,8 @@ str2form = {"mlm": "simple", "lm": "simple", "cls": "simple",
             "prefixlm": "simple", "bert": "pair_sp", "albert": "pair_sp",
             "cls_mlm": "pair_cls", "bilm": "bilm", "mt": "seq2seq",
             "t5": "seq2seq", "gsg": "seq2seq", "bart": "seq2seq",
-            "clip": "clip"}
+            "vit": "simple", "clip": "clip", "vilt": "vilt", "s2t": "seq2seq",
+            "beit": "beit", "dalle": "simple"}
 
 # data_processor -> dataset builder, the JAX CLI's
 str2dataset = {
@@ -133,23 +143,46 @@ str2dataset = {
     "bart": lambda path, tok, args, cfg: BartDocsDataset(
         path, tok, args.seq_length, cfg.vocab_size, _mask_id(tok),
         seed=args.seed),
+    "vit": lambda path, tok, args, cfg: VitImageDataset(
+        [(p, int(lbl)) for lbl, p in _read_tsv(path)],
+        cfg.image_height, cfg.image_width, cfg.patch_size),
     # the JAX CLI frames the captions with the datasets' default ids
     "clip": lambda path, tok, args, cfg: ClipPairDataset(
         _read_tsv(path), tok, args.seq_length, cfg.image_height,
         cfg.image_width, cfg.patch_size),
+    "vilt": lambda path, tok, args, cfg: ViltPairsDataset(
+        _read_tsv(path), tok, args.seq_length, cfg.vocab_size,
+        _mask_id(tok), cfg.image_height, cfg.image_width,
+        cfg.patch_size, seed=args.seed),
+    "s2t": lambda path, tok, args, cfg: S2tDataset(
+        path, tok, args.tgt_seq_length, args.max_audio_frames),
+    "beit": lambda path, tok, args, cfg: BeitImageDataset(
+        [row[0] for row in _read_tsv(path, n=1)], _image_tok(args),
+        cfg.image_height, cfg.image_width, cfg.patch_size,
+        seed=args.seed),
+    "dalle": lambda path, tok, args, cfg: DalleDataset(
+        _read_tsv(path), tok, _image_tok(args), args.seq_length,
+        vocab_bias=len(tok.vocab)),
 }
 
 
-def _read_tsv(path: str) -> list:
-    """(caption, image path) of each tsv row with two fields or more whose
-    first is not empty (the JAX CLI's manifest reader)."""
+def _read_tsv(path: str, n: int = 2) -> list:
+    """The first n fields of each tsv row with n fields or more whose first
+    is not empty (the JAX CLI's manifest reader)."""
     rows = []
     with open(path, encoding="utf-8") as f:
         for line in f:
             parts = line.rstrip("\n").split("\t")
-            if len(parts) >= 2 and parts[0]:
-                rows.append(tuple(parts[:2]))
+            if len(parts) >= n and parts[0]:
+                rows.append(tuple(parts[:n]))
     return rows
+
+
+def _image_tok(args) -> ImageTokenizer:
+    """The VQGAN of --vqgan_model_path (seeded by --seed without it), on
+    the run's device (build sets args.device)."""
+    return ImageTokenizer(vqgan_model_path=args.vqgan_model_path,
+                          seed=args.seed, device=args.device)
 
 
 def _sentinel_start(tok, args) -> int:
@@ -163,7 +196,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--corpus_path", required=True)
     p.add_argument("--tower_config", required=True)
     p.add_argument("--data_processor", default="mlm",
-                   choices=sorted((*str2dataset, *NOT_PORTED_PROCESSORS)))
+                   choices=sorted(str2dataset))
     p.add_argument("--tokenizer", default="bpe",
                    choices=["char", "space", "bert", "bpe", "xlmroberta"])
     p.add_argument("--vocab_path", default=None)
@@ -219,12 +252,8 @@ def parser() -> argparse.ArgumentParser:
 
 
 def build(args, device=None):
-    """(trainer, loader) from parsed flags; raises on what is not ported."""
-    if args.data_processor in NOT_PORTED_PROCESSORS:
-        raise SystemExit(
-            f"--data_processor {args.data_processor}: not ported yet "
-            "(ROADMAP.md, queue A5: image and speech pretraining; "
-            f"{', '.join(sorted(str2dataset))} run)")
+    """(trainer, loader) from parsed flags; raises on what the JAX CLI
+    refuses."""
     if args.jax_platform:
         raise SystemExit("--jax_platform names a JAX backend; lr2ppo_torch "
                          "takes --device")
@@ -246,6 +275,12 @@ def build(args, device=None):
         # cover them wherever they start
         vocab_size += max(0, _sentinel_start(tok, args) + N_SENTINELS
                           - len(tok.vocab))
+    elif args.data_processor == "dalle":
+        # the image's codes follow the text's vocabulary
+        vocab_size += VQGANConfig().n_embed
+    elif args.data_processor == "beit":
+        # the mlm head spans the image codebook
+        vocab_size = VQGANConfig().n_embed
     # grow-only max_seq_length: keep the JSON's own value (XLM-R's 514)
     with open(args.tower_config) as f:
         raw = json.load(f)
@@ -262,14 +297,18 @@ def build(args, device=None):
         **({"seq_parallel": True} if args.sp else {}))
 
     tgt_kinds = set(tower_cfg.tgt_embedding or tower_cfg.embedding)
+    # the position tables are sized by --seq_length (or the JSON's
+    # max_seq_length), and by the audio frames under speech, as in the JAX
+    # CLI
+    pos_rows = tower_cfg.max_seq_length
+    if "speech" in tower_cfg.embedding:
+        pos_rows = max(pos_rows, tower_cfg.max_audio_frames)
     if (str2form[args.data_processor] == "seq2seq"
-            and args.tgt_seq_length > tower_cfg.max_seq_length
+            and args.tgt_seq_length > pos_rows
             and tgt_kinds & {"pos", "sinusoidalpos"}):
-        # the position tables are sized by --seq_length (or the JSON's
-        # max_seq_length), as in the JAX CLI
         raise SystemExit(f"--tgt_seq_length {args.tgt_seq_length} exceeds "
-                         f"the position tables' {tower_cfg.max_seq_length} "
-                         "rows; raise --seq_length")
+                         f"the position tables' {pos_rows} rows; raise "
+                         "--seq_length")
 
     cfg = Config()
     cfg = cfg.replace(
@@ -291,11 +330,13 @@ def build(args, device=None):
     cfg.mesh.num_processes = args.num_processes or 0
     cfg.mesh.process_id = (args.process_id if args.process_id is not None
                            else -1)
-    # refuses what is not ported before the corpus is read
+    # refuses what the JAX trainer refuses before the corpus is read
     trainer = PretrainTrainer(cfg, tower_cfg, args.accumulation_steps,
                               device=device,
                               form=str2form[args.data_processor])
 
+    # beit and dalle tokenize their images on the run's device
+    args.device = str(trainer.device)
     ds = str2dataset[args.data_processor](args.corpus_path, tok, args,
                                           tower_cfg)
     # each optimizer step takes accumulation_steps micro-batches of

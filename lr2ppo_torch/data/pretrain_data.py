@@ -1,12 +1,11 @@
-"""Pretraining data of the text processors and of clip (the port's own copy
-of lr2ppo_tpu/data/pretrain_data.py:mask_tokens, MlmCorpusDataset,
-LmCorpusDataset, ClsTsvDataset and ClipPairDataset): corpus -> packed (N,
-S) int32 token instances -> BERT-style dynamic masking with a seeded numpy
-generator, per epoch; (caption, image file) pairs -> a framed caption and
-the image's pixels. numpy, and PIL imported where an image is read; the
-same seed and epoch give the JAX package's arrays.
-
-The vit dataset waits with the image processors (ROADMAP.md, queue A5).
+"""Pretraining data of the text processors, vit and clip (the port's own
+copy of lr2ppo_tpu/data/pretrain_data.py: mask_tokens, MlmCorpusDataset,
+LmCorpusDataset, ClsTsvDataset, VitImageDataset and ClipPairDataset): corpus
+-> packed (N, S) int32 token instances -> BERT-style dynamic masking with a
+seeded numpy generator, per epoch; (image file, label) pairs -> pixels and
+the label; (caption, image file) pairs -> a framed caption and the image's
+pixels. numpy, and PIL imported where an image is read; the same seed and
+epoch give the JAX package's arrays.
 """
 
 from __future__ import annotations
@@ -166,6 +165,37 @@ class ClsTsvDataset:
     def get(self, i: int) -> Dict[str, np.ndarray]:
         src, tgt, seg = self.rows[i]
         return {"src": src, "tgt": tgt, "seg": seg}
+
+
+class VitImageDataset:
+    """ViT classification processor (utils/dataset.py vit variant): (image
+    file, label) pairs -> (pixels in [0, 1] CHW, label, an all-ones seg
+    over the [CLS] + patch sequence). `_pixels` reads an image (PIL, at
+    first use)."""
+
+    def __init__(self, items, image_height: int = 224,
+                 image_width: int = 224, patch_size: int = 16):
+        self.items = list(items)          # [(path, label), ...]
+        self.h, self.w = image_height, image_width
+        self.seq = (image_height // patch_size) * (
+            image_width // patch_size) + 1
+
+    def set_epoch(self, epoch: int) -> None:
+        pass
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def _pixels(self, path: str) -> np.ndarray:
+        from PIL import Image
+
+        img = Image.open(path).convert("RGB").resize((self.w, self.h))
+        return (np.asarray(img, np.float32) / 255.0).transpose(2, 0, 1)
+
+    def get(self, i: int) -> Dict[str, np.ndarray]:
+        path, label = self.items[i]
+        return {"src": self._pixels(path), "tgt": np.int32(label),
+                "seg": np.ones(self.seq, np.int32)}
 
 
 class ClipPairDataset:

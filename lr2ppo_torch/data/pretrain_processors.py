@@ -1,8 +1,11 @@
-"""The text pretraining processors (counterpart of
-lr2ppo_tpu/data/pretrain_processors.py, the reference's dataset.py:86-861
+"""The pretraining processors (counterpart of
+lr2ppo_tpu/data/pretrain_processors.py, the reference's dataset.py:86-969
 and dataloader.py): bert (mlm + next sentence), albert (mlm + sentence
-order), cls_mlm, bilm, prefixlm, and the seq2seq ones, mt, t5 (span
-corruption), gsg (gap sentences) and bart (denoising). The port keeps its
+order), cls_mlm, bilm, prefixlm, the seq2seq ones, mt, t5 (span
+corruption), gsg (gap sentences) and bart (denoising), and the image and
+speech ones, vilt (text + image, mlm + match), s2t (log-mel filterbanks of
+wav files, the decoder's text), beit (VQGAN codes of masked patches) and
+dalle (text, then VQGAN codes, as one causal stream). The port keeps its
 own copy: the instances are built from the same numpy draws as the JAX
 package's, from the same seeds, so the items are equal array for array
 (tests/test_torch_pretrain_processors.py, tests/test_torch_seq2seq.py).
@@ -14,14 +17,18 @@ conventions (train/pretrain.py:form_args):
   pair_sp  {src, tgt_mlm, tgt_sp, seg}           bert (NSP), albert (SOP)
   pair_cls {src, tgt_mlm, tgt_cls, seg}          cls_mlm
   bilm     {src, tgt_fwd, tgt_bwd, seg}          bilm
-  seq2seq  {src, tgt_out, seg, tgt_in, tgt_seg}  mt, t5, gsg, bart
+  seq2seq  {src, tgt_out, seg, tgt_in, tgt_seg}  mt, t5, gsg, bart, s2t
+  vilt     {src_text, src_image, tgt_mlm, tgt_match, seg}   vilt
+  beit     {src_image, mask, tgt, seg}           beit
+  simple                                         dalle
 Each takes the frame ids (CLS, SEP, PAD) that set_special_ids holds when it
-is built. The image and speech processors wait (ROADMAP.md, queue A5).
+is built. The image datasets read a file through their `_pixels` method
+(PIL, imported at first use); the wav reader is the stdlib's `wave`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -617,3 +624,325 @@ class BartDocsDataset:
                              self.seq_length, self.seq_length,
                              pad_id=self.pad)
         return item
+
+
+class ViltPairsDataset:
+    """ViLT processor (dataset.py:953 + dataloader.py:606-673): (text,
+    image) pairs; per (epoch, item) the text is MLM-masked and with
+    p=0.5 the image is swapped for a random other image (tgt_match=0).
+    tgt_mlm spans the concatenated text+patch sequence (zeros over the
+    image region); seg is 1/0 on text and 2 on the patch tokens."""
+
+    def __init__(self, pairs: Sequence[Tuple[str, str]], tokenizer,
+                 seq_length: int, vocab_size: int, mask_id: int,
+                 image_height: int = 224, image_width: int = 224,
+                 patch_size: int = 16, seed: int = 7,
+                 mlm_prob: float = 0.15, special_limit: int = 5):
+        self.pairs = list(pairs)          # [(text, image_path), ...]
+        self.seq_length = seq_length
+        self.vocab_size = vocab_size
+        self.mask_id = mask_id
+        self.h, self.w = image_height, image_width
+        self.img_seq = (image_height // patch_size) * (
+            image_width // patch_size) + 1
+        self.seed = seed
+        self.epoch = 0
+        self.mlm_prob = mlm_prob
+        self.special_limit = special_limit
+        self.frame_ids = (CLS, SEP, PAD)  # snapshot at framing time
+        self.texts = []
+        for text, _ in self.pairs:
+            ids = [CLS] + tokenizer.encode(text)[: seq_length - 2] + [SEP]
+            src = np.full(seq_length, PAD, np.int32)
+            seg = np.zeros(seq_length, np.int32)
+            src[: len(ids)] = ids
+            seg[: len(ids)] = 1
+            self.texts.append((src, seg))
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return len(self.pairs)
+
+    def _pixels(self, path: str) -> np.ndarray:
+        from PIL import Image
+
+        img = Image.open(path).convert("RGB").resize((self.w, self.h))
+        return (np.asarray(img, np.float32) / 255.0).transpose(2, 0, 1)
+
+    def get(self, i: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + self.epoch) * 1_000_003 + i)
+        src, seg_text = self.texts[i]
+        masked, tgt_text = mask_tokens(
+            src, seg_text, self.vocab_size, self.mask_id, rng,
+            self.mlm_prob, special_limit=self.special_limit,
+            exclude_ids=(*self.frame_ids, self.mask_id))
+        if rng.random() < 0.5 or len(self.pairs) == 1:
+            match, path = 1, self.pairs[i][1]
+        else:
+            j = int(rng.integers(0, len(self.pairs)))
+            match, path = int(j == i), self.pairs[j][1]
+        tgt_mlm = np.concatenate(
+            [tgt_text, np.zeros(self.img_seq, np.int32)])
+        seg = np.concatenate(
+            [seg_text, np.full(self.img_seq, 2, np.int32)])
+        return {"src_text": masked, "src_image": self._pixels(path),
+                "tgt_mlm": tgt_mlm, "tgt_match": np.int32(match),
+                "seg": seg}
+
+
+def logmel_fbank(waveform: np.ndarray, sample_rate: int = 16000,
+                 n_mels: int = 80, frame_ms: float = 25.0,
+                 shift_ms: float = 10.0, preemph: float = 0.97
+                 ) -> np.ndarray:
+    """Kaldi-style log-mel filterbank in pure numpy (replaces the
+    reference's torchaudio.compliance.kaldi.fbank, dataloader.py:794).
+    Returns (frames, n_mels) float32."""
+    win = int(sample_rate * frame_ms / 1000)
+    hop = int(sample_rate * shift_ms / 1000)
+    x = np.asarray(waveform, np.float64)
+    if x.ndim > 1:
+        x = x[0]
+    n_frames = max(1 + (len(x) - win) // hop, 0)
+    if n_frames == 0:
+        return np.zeros((0, n_mels), np.float32)
+    idx = np.arange(win)[None, :] + hop * np.arange(n_frames)[:, None]
+    frames = x[idx]
+    frames = frames - preemph * np.concatenate(
+        [frames[:, :1], frames[:, :-1]], axis=1)
+    frames = frames * np.hamming(win)
+    nfft = 1 << (win - 1).bit_length()
+    spec = np.abs(np.fft.rfft(frames, nfft)) ** 2
+    # mel filter bank
+    def hz2mel(f):
+        return 2595.0 * np.log10(1.0 + f / 700.0)
+
+    def mel2hz(m):
+        return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+
+    mel_pts = np.linspace(hz2mel(20.0), hz2mel(sample_rate / 2),
+                          n_mels + 2)
+    bins = np.floor((nfft + 1) * mel2hz(mel_pts) / sample_rate).astype(int)
+    fb = np.zeros((n_mels, nfft // 2 + 1))
+    for m in range(1, n_mels + 1):
+        l, c, r = bins[m - 1], bins[m], bins[m + 1]
+        for k in range(l, c):
+            fb[m - 1, k] = (k - l) / max(c - l, 1)
+        for k in range(c, r):
+            fb[m - 1, k] = (r - k) / max(r - c, 1)
+    feat = np.log(np.maximum(spec @ fb.T, 1e-10))
+    return feat.astype(np.float32)
+
+
+def utterance_cmvn(feat: np.ndarray, norm_means: bool = True,
+                   norm_vars: bool = True) -> np.ndarray:
+    """Per-utterance cepstral mean/variance normalization
+    (dataloader.py:746-760). float64 internally: the reference's
+    E[x^2]-mean^2 form catastrophically cancels in float32 on
+    near-constant bins."""
+    out = np.asarray(feat, np.float64)
+    mean = out.mean(axis=0)
+    if norm_means:
+        out = out - mean
+    if norm_vars:
+        var = (np.asarray(feat, np.float64) ** 2).sum(axis=0) \
+            / max(len(feat), 1) - mean ** 2
+        out = out / np.sqrt(np.maximum(var, 1e-10))
+    return out.astype(np.float32)
+
+
+def read_wav(path: str) -> Tuple[np.ndarray, int]:
+    """Load a PCM wav via the stdlib (the torchaudio.load equivalent for
+    the 16-bit mono/stereo files the recipe uses)."""
+    import wave
+
+    with wave.open(path, "rb") as w:
+        rate = w.getframerate()
+        n = w.getnframes()
+        width = w.getsampwidth()
+        channels = w.getnchannels()
+        raw = w.readframes(n)
+    if width == 1:
+        # 8-bit PCM WAV is UNSIGNED (0..255 around a 128 midpoint)
+        x = (np.frombuffer(raw, np.uint8).astype(np.float32) - 128.0) / 128.0
+    else:
+        dtype = {2: np.int16, 4: np.int32}[width]
+        x = np.frombuffer(raw, dtype).astype(np.float32)
+        x /= float(np.iinfo(dtype).max)
+    if channels > 1:
+        x = x.reshape(-1, channels).mean(axis=1)
+    return x, rate
+
+
+class S2tDataset:
+    """Speech-to-text processor (dataset.py:961 + dataloader.py:763-822):
+    tsv rows 'transcript<TAB>wav_path' -> log-mel fbank (CMVN'd, padded
+    to max_audio_frames) + the shifted decoder text stream. seg marks
+    the conv-subsampled frame count (the speech embedding downsamples by
+    2 per conv layer)."""
+
+    def __init__(self, tsv_path: str, tokenizer, tgt_seq_length: int,
+                 max_audio_frames: int = 256, n_mels: int = 80,
+                 conv_layers: int = 2, sample_rate: int = 16000):
+        self.items = []
+        sub = 2 ** conv_layers
+        for line in open(tsv_path, encoding="utf-8"):
+            parts = line.strip().split("\t")
+            if len(parts) != 2:
+                continue
+            text, wav = parts
+            x, rate = read_wav(wav)
+            feat = utterance_cmvn(logmel_fbank(
+                x * (2 ** 15), rate, n_mels))
+            if feat.shape[0] > max_audio_frames or feat.shape[0] == 0:
+                continue
+            audio = np.zeros((max_audio_frames, n_mels), np.float32)
+            audio[: feat.shape[0]] = feat
+            seg = np.zeros(max_audio_frames // sub, np.int32)
+            seg[: max(feat.shape[0] // sub, 1)] = 1
+            item = _seq2seq_item([], [CLS] + tokenizer.encode(text)
+                                 + [SEP], 1, tgt_seq_length)
+            item["src"], item["seg"] = audio, seg
+            self.items.append(item)
+
+    def set_epoch(self, epoch: int) -> None:
+        pass
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def get(self, i: int) -> Dict[str, np.ndarray]:
+        return self.items[i]
+
+
+class BeitImageDataset:
+    """BEiT processor (dataset.py:965 + dataloader.py:825-886): VQGAN
+    tokens of each image become MLM targets on a fixed count of masked
+    patch positions; the model sees pixels with those patches replaced by
+    a learned mask embedding (towers/embeddings.py MaskedPatchEmbedding).
+    `image_tok` is a data/tokenizers.ImageTokenizer (weight-loadable
+    VQGAN; seeded weights without a checkpoint)."""
+
+    def __init__(self, paths: Sequence[str], image_tok,
+                 image_height: int = 224, image_width: int = 224,
+                 patch_size: int = 16, mask_rate: float = 0.15,
+                 seed: int = 7):
+        self.paths = list(paths)
+        self.tok = image_tok
+        self.h, self.w = image_height, image_width
+        self.gh, self.gw = image_height // patch_size, image_width // patch_size
+        self.seq = self.gh * self.gw + 1
+        self.n_mask = max(int((self.seq - 1) * mask_rate), 1)
+        self.seed = seed
+        self.epoch = 0
+        self._cache: Dict[int, np.ndarray] = {}
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        return len(self.paths)
+
+    def _pixels(self, path):
+        from PIL import Image
+
+        img = Image.open(path).convert("RGB").resize((self.w, self.h))
+        return (np.asarray(img, np.float32) / 255.0).transpose(2, 0, 1)
+
+    def _grid_align(self, tokens: np.ndarray) -> np.ndarray:
+        """Map the VQGAN token grid onto the (gh, gw) patch grid so
+        masked patch j is paired with the code of the SAME image region.
+        When the VQGAN downsample equals the patch size (the reference
+        configuration, dataloader.py:878: tokenize the model-resolution
+        image) the grids coincide and this is the identity."""
+        n = tokens.size
+        if n == self.gh * self.gw:
+            return tokens
+        # token grid dims follow the image aspect: th/tw == h/w with
+        # th*tw == n (the VQGAN downsamples h and w by the same factor)
+        th = int(round((n * self.h / self.w) ** 0.5))
+        tw = n // max(th, 1)
+        if th * tw != n:
+            raise ValueError(
+                f"cannot infer a (h/w={self.h}/{self.w})-shaped grid "
+                f"for {n} VQGAN tokens")
+        grid = tokens.reshape(th, tw)
+        rows = (np.arange(self.gh) * th) // self.gh
+        cols = (np.arange(self.gw) * tw) // self.gw
+        return grid[rows][:, cols].reshape(-1)
+
+    def get(self, i: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + self.epoch) * 1_000_003 + i)
+        # one decode per get: the VQGAN tokenizes the SAME
+        # model-resolution pixels the model sees (the reference feeds
+        # its transform()ed 224px image to image_tokenize,
+        # dataloader.py:873-878) so token grid == patch grid
+        model_pixels = self._pixels(self.paths[i])
+        if i not in self._cache:
+            raw = self.tok.tokenize_images(model_pixels[None])[0]
+            self._cache[i] = self._grid_align(np.asarray(raw))
+        tokens = np.concatenate([[0], self._cache[i]])[: self.seq]
+        mask = rng.choice(np.arange(1, self.seq), self.n_mask,
+                          replace=False).astype(np.int32)
+        tgt = np.zeros(self.seq, np.int32)
+        tgt[mask] = tokens[mask]
+        return {"src_image": model_pixels, "mask": mask, "tgt": tgt,
+                "seg": np.ones(self.seq, np.int32)}
+
+
+class DalleDataset:
+    """DALL-E processor (dataset.py:969 + dataloader.py:889-933): causal
+    LM over [CLS] text [SEP] ++ (vqgan tokens + vocab_bias); seg 1 on
+    text, 2 on image tokens."""
+
+    def __init__(self, pairs: Sequence[Tuple[str, str]], tokenizer,
+                 image_tok, text_seq_length: int, vocab_bias: int):
+        self.pairs = list(pairs)
+        self.tok = tokenizer
+        self.image_tok = image_tok
+        self.text_len = text_seq_length
+        self.bias = vocab_bias
+        self.n_img = image_tok.cfg.tokens_per_image
+        self._cache: Dict[int, np.ndarray] = {}
+
+    def set_epoch(self, epoch: int) -> None:
+        pass
+
+    def __len__(self) -> int:
+        return len(self.pairs)
+
+    def _pixels(self, path: str) -> np.ndarray:
+        """The image at the tokenizer's resolution, r x r."""
+        from PIL import Image
+
+        r = self.image_tok.cfg.resolution
+        img = Image.open(path).convert("RGB").resize((r, r))
+        return (np.asarray(img, np.float32) / 255.0).transpose(2, 0, 1)
+
+    def get(self, i: int) -> Dict[str, np.ndarray]:
+        text, path = self.pairs[i]
+        if i not in self._cache:
+            px = self._pixels(path)
+            self._cache[i] = self.image_tok.tokenize_images(px[None])[0]
+        ids = [CLS] + self.tok.encode(text)[: self.text_len - 2] + [SEP]
+        S = self.text_len + self.n_img
+        # reference packing (dataloader.py:922-928): text tokens, image
+        # tokens IMMEDIATELY after (no mid-sequence pad gap — the
+        # text->image transition is a learned prediction), pads at the
+        # end; tgt = src[1:] ++ [SEP], so the last image token targets
+        # SEP (the stopping signal) and the pad tail contributes nothing
+        n_real = len(ids) + self.n_img
+        src = np.full(S, PAD, np.int32)
+        seg = np.zeros(S, np.int32)
+        src[: len(ids)] = ids
+        seg[: len(ids)] = 1
+        src[len(ids): n_real] = self._cache[i] + self.bias
+        seg[len(ids): n_real] = 2
+        tgt = np.zeros(S, np.int32)
+        tgt[: S - 1] = src[1:]
+        tgt[n_real - 1] = SEP
+        tgt[n_real:] = 0
+        return {"src": src, "tgt": tgt, "seg": seg}

@@ -1,10 +1,10 @@
-"""The text tokenizers (the port's own copy of lr2ppo_tpu/data/
-tokenizers.py): the special-token map, the vocab-file base tokenizer, char,
-space, bert (wordpiece), bpe (GPT-2 byte-level, which needs the `regex`
-package, imported at first use), the pure-Python sentencepiece Unigram model
-and XLMRobertaTokenizer, with `str2tokenizer` naming them as the JAX
-package's does. The virtual, image and text_image tokenizers raise
-(ROADMAP.md, queue A: the image processors).
+"""The tokenizers (the port's own copy of lr2ppo_tpu/data/tokenizers.py):
+the special-token map, the vocab-file base tokenizer, char, space, bert
+(wordpiece), bpe (GPT-2 byte-level, which needs the `regex` package,
+imported at first use), the pure-Python sentencepiece Unigram model and
+XLMRobertaTokenizer, the virtual (empty) tokenizer of the vision models,
+the VQGAN image tokenizer (towers/vqgan.py) and the text_image tokenizer,
+with `str2tokenizer` naming them as the JAX package's does.
 
 XLMRobertaTokenizer's backends, in preference order: the `sentencepiece`
 package, the HF `tokenizers` runtime (tokenizer.json), and the
@@ -21,6 +21,8 @@ import os
 import unicodedata
 from functools import lru_cache
 from typing import Dict, List, Optional
+
+import numpy as np
 
 DEFAULT_SPECIALS = {
     "pad_token": "<pad>",
@@ -646,12 +648,51 @@ class XLMRobertaTokenizer(BaseTokenizer):
         return [self.vocab.get(t, unk_id) for t in tokens]
 
 
-def _not_ported(name: str):
-    def make(*args, **kwargs):
-        raise NotImplementedError(
-            f"the {name!r} tokenizer is not ported yet (ROADMAP.md, queue A: "
-            "the image pretraining processors)")
-    return make
+class VirtualTokenizer(BaseTokenizer):
+    """Empty-vocab tokenizer for vision models (tokenizers.py:590-596)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(None, None)
+
+    def tokenize(self, text, use_vocab=True):
+        return []
+
+
+class ImageTokenizer(BaseTokenizer):
+    """VQGAN image tokenizer (tokenizers.py:583-589) over the port's VQModel
+    encode path (towers/vqgan.py), with the vocabulary <img_0> ...
+    <img_{n_embed-1}>. `vqgan_model_path` (a taming checkpoint) gives real
+    tokens; without it the encoder's weights come from `seed`. It encodes
+    on `device`, the GPU unless the caller names another."""
+
+    def __init__(self, *a, vqgan_model_path: Optional[str] = None,
+                 vqgan_config: Optional[dict] = None, seed: int = 0,
+                 device=None, **kw):
+        from lr2ppo_torch.towers.vqgan import VQGANConfig, make_image_tokenizer
+
+        super().__init__(None, None)
+        cfg = VQGANConfig(**(vqgan_config or {}))
+        self._tokenize_pixels, self.cfg = make_image_tokenizer(
+            cfg, vqgan_model_path, seed, device)
+        self.vocab = {f"<img_{i}>": i for i in range(cfg.n_embed)}
+        self.inv_vocab = {v: k for k, v in self.vocab.items()}
+
+    def tokenize_images(self, pixels01) -> np.ndarray:
+        """(B, C, H, W) floats in [0, 1] -> (B, N) int32 codebook ids."""
+        return self._tokenize_pixels(pixels01)
+
+    def tokenize(self, text, use_vocab=True):
+        raise TypeError("ImageTokenizer tokenizes images, not text; "
+                        "use tokenize_images(pixels)")
+
+
+class TextImageTokenizer(BertTokenizer):
+    """Text tokenizer + image vocab offset (tokenizers.py:597-604)."""
+
+    def __init__(self, vocab_path=None, special_tokens_path=None,
+                 image_vocab_size: int = 8192, **kw):
+        super().__init__(vocab_path, special_tokens_path, **kw)
+        self.image_vocab_size = image_vocab_size
 
 
 str2tokenizer = {
@@ -660,7 +701,7 @@ str2tokenizer = {
     "bert": BertTokenizer,
     "bpe": BPETokenizer,
     "xlmroberta": XLMRobertaTokenizer,
-    "virtual": _not_ported("virtual"),
-    "image": _not_ported("image"),
-    "text_image": _not_ported("text_image"),
+    "virtual": VirtualTokenizer,
+    "image": ImageTokenizer,
+    "text_image": TextImageTokenizer,
 }

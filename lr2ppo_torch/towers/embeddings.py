@@ -15,8 +15,13 @@ some entries differently (within one ulp of the largest angle). The
 constructors' gates read the global embedding list (`gate_embedding`, which
 TowerModel threads into the decoder side's config), as in JAX.
 
-The other kinds (word_patch, masked_patch, speech) raise (ROADMAP A5: image
-and speech pretraining).
+Three kinds read a tuple or a sequence that is not text: word_patch
+(ViLT: the text's tokens, then [CLS] and the patches of the image, from a
+(tokens, pixels) pair), masked_patch (BEiT: [CLS] and the patches, those at
+the mask's indices replaced by the learned `mask_emb`, from a (pixels, mask)
+pair) and speech (S2T: a stack of stride-2 GLU convolutions over filterbank
+frames, computed as windows taken by `unfold` and one matmul, as the JAX
+package computes them; the weights keep nn.Conv1d's (out, in, k) layout).
 """
 
 from __future__ import annotations
@@ -25,10 +30,11 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lr2ppo_torch.ops.hash_dropout import module_dropout
-from lr2ppo_torch.towers.layers import NOT_PORTED, RefLayerNorm
+from lr2ppo_torch.towers.layers import RefLayerNorm
 
 
 class _Table(nn.Module):
@@ -149,6 +155,101 @@ class PatchEmbedding(nn.Module):
         return torch.cat([cls_tok, tokens], dim=1)
 
 
+# the speech subsampler's convolution width (the JAX module's default, which
+# no config overrides)
+SPEECH_KERNEL = 5
+
+
+class WordPatchEmbedding(nn.Module):
+    """Text tokens, then [CLS] and the image's patches
+    (word_patch_embedding.py): `src` is a (tokens, pixels) pair, and the
+    sub-modules are `word` (never scaled, as in JAX) and `patch`."""
+
+    def __init__(self, vocab_size: int, emb_size: int,
+                 image_height: int = 224, image_width: int = 224,
+                 patch_size: int = 16, channels_num: int = 3, device=None):
+        super().__init__()
+        self.word = WordEmbedding(vocab_size, emb_size, device=device)
+        self.patch = PatchEmbedding(emb_size, image_height, image_width,
+                                    patch_size, channels_num, device)
+
+    def forward(self, src, seg: torch.Tensor) -> torch.Tensor:
+        tokens, pixels = src
+        return torch.cat([self.word(tokens, seg), self.patch(pixels, seg)],
+                         dim=1)
+
+
+class MaskedPatchEmbedding(nn.Module):
+    """BEiT's masked patchify (masked_patch_embedding.py:7-38): [CLS] and
+    the patches, the positions at `mask` (B, M) indices into that sequence
+    replaced by `mask_emb` (1, E). A repeated index counts once (the
+    reference's scatter_ overwrites), and the replacement is the JAX
+    package's arithmetic, emb * (1 - hit) + hit * mask_emb, so values and
+    gradients match."""
+
+    def __init__(self, emb_size: int, image_height: int = 224,
+                 image_width: int = 224, patch_size: int = 16,
+                 channels_num: int = 3, device=None):
+        super().__init__()
+        self.patch = PatchEmbedding(emb_size, image_height, image_width,
+                                    patch_size, channels_num, device)
+        self.mask_emb = nn.Parameter(torch.zeros(1, emb_size, device=device))
+
+    def forward(self, src, seg) -> torch.Tensor:
+        pixels, mask = src
+        emb = self.patch(pixels, seg)
+        b, s, _ = emb.shape
+        hit = torch.zeros(b, s, dtype=emb.dtype, device=emb.device)
+        hit.scatter_(1, mask.long(), 1.0)
+        hit = hit[..., None]
+        return emb * (1 - hit) + hit * self.mask_emb.to(emb.dtype)
+
+
+class SpeechEmbedding(nn.Module):
+    """The convolutional subsampler of speech_embedding.py:6-27: `conv_layers`
+    stride-2 convolutions of width `kernel_size` with GLU gating, padded
+    ((k-1)//2, k-1-(k-1)//2) frames, so T frames give ceil(T/2). The first
+    layer's input width comes from the data (x.shape[-1]); every later one
+    is emb_size wide. `conv_0` is built for `in_dim` features (80, the
+    filterbank's bins, which the S2T processor writes) and another width
+    raises, where JAX sizes its first kernel from the first batch. Each
+    window is flattened offset-major and multiplied by the weight read as
+    the JAX package's (k * in, 2 * emb) kernel. Times sqrt(emb_size) under
+    sinusoidal positions."""
+
+    def __init__(self, emb_size: int, conv_layers: int = 2,
+                 kernel_size: int = SPEECH_KERNEL, in_dim: int = 80,
+                 sinusoidalpos: bool = False, device=None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.n_layers = conv_layers
+        for i in range(conv_layers):
+            self.add_module(f"conv_{i}", nn.Conv1d(
+                in_dim if i == 0 else emb_size, 2 * emb_size, kernel_size,
+                stride=2, device=device))
+        self.scale = math.sqrt(emb_size) if sinusoidalpos else None
+
+    def forward(self, src: torch.Tensor, seg) -> torch.Tensor:
+        x, k = src, self.kernel_size
+        pad = (k - 1) // 2
+        for i in range(self.n_layers):
+            conv = getattr(self, f"conv_{i}")
+            b, s, dim = x.shape
+            if dim != conv.in_channels:
+                raise ValueError(f"speech conv_{i} takes {conv.in_channels} "
+                                 f"features a frame, got {dim}")
+            xp = F.pad(x, (0, 0, pad, k - 1 - pad))
+            # (B, ceil(s/2), dim, k) -> offset-major (B, n, k * dim)
+            windows = xp.unfold(1, k, 2).transpose(-1, -2)
+            windows = windows.reshape(b, windows.shape[1], k * dim)
+            kernel = conv.weight.permute(2, 1, 0).reshape(k * dim, -1)
+            y = torch.matmul(windows, kernel.to(x.dtype)) + conv.bias.to(
+                x.dtype)
+            a, g = y.chunk(2, dim=-1)
+            x = a * torch.sigmoid(g)
+        return x if self.scale is None else x * self.scale
+
+
 def _gates(cfg) -> Sequence[str]:
     """The embedding list the constructors' gates read: the global one
     (`gate_embedding`, set on the decoder side's config), else the side's
@@ -176,23 +277,31 @@ _EMB_KINDS = {
     "patch": lambda cfg, device: PatchEmbedding(
         cfg.emb_size, cfg.image_height, cfg.image_width, cfg.patch_size,
         cfg.channels_num, device),
+    "word_patch": lambda cfg, device: WordPatchEmbedding(
+        cfg.vocab_size, cfg.emb_size, cfg.image_height, cfg.image_width,
+        cfg.patch_size, cfg.channels_num, device),
+    "masked_patch": lambda cfg, device: MaskedPatchEmbedding(
+        cfg.emb_size, cfg.image_height, cfg.image_width, cfg.patch_size,
+        cfg.channels_num, device),
+    "speech": lambda cfg, device: SpeechEmbedding(
+        cfg.emb_size, sinusoidalpos="sinusoidalpos" in _gates(cfg),
+        device=device),
 }
 
 
 class CompositeEmbedding(nn.Module):
     """The sum of the configured kinds, each a submodule named by its kind
-    (`embedding.word...`, `embedding.patch...`), then `layer_norm` unless
-    `remove_embedding_layernorm`, then the dropout site of embedding.py:
-    19-34 in training mode (its seed drawn from the caller's generator)."""
+    (`embedding.word...`, `embedding.patch...`), each as long as seg (a
+    speech input whose subsampled frames are not raises), then `layer_norm`
+    unless `remove_embedding_layernorm`, then the dropout site of
+    embedding.py:19-34 in training mode (its seed drawn from the caller's
+    generator)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
         self.kinds = list(cfg.embedding)
         self.dropout, self.hash_dropout = cfg.dropout, cfg.hash_dropout
         for kind in self.kinds:
-            if kind not in _EMB_KINDS:
-                raise NotImplementedError(f"the {kind!r} embedding is "
-                                          f"{NOT_PORTED}")
             self.add_module(kind, _EMB_KINDS[kind](cfg, device))
         self.layer_norm: Optional[RefLayerNorm] = (
             None if cfg.remove_embedding_layernorm
@@ -203,6 +312,12 @@ class CompositeEmbedding(nn.Module):
         emb = None
         for kind in self.kinds:
             cur = getattr(self, kind)(src, seg)
+            if cur.shape[1] != seg.shape[1]:
+                # JAX fails on the shapes too (the sum, or the mask)
+                raise ValueError(
+                    f"the {kind} embedding gives {cur.shape[1]} positions, "
+                    f"seg has {seg.shape[1]} (speech: the frames must be a "
+                    "multiple of 4 for the two stride-2 convolutions)")
             emb = cur if emb is None else emb + cur
         if self.layer_norm is not None:
             emb = self.layer_norm(emb)

@@ -88,7 +88,8 @@ class TextFeatureExtractor:
 
 class ImageFeatureExtractor:
     """ViT tower -> per-frame feature = the [CLS] row of the last hidden
-    states (hidden,)."""
+    states (hidden,). A BEiT tower (masked_patch) encodes with an empty
+    mask: no patch is replaced."""
 
     def __init__(self, cfg: TowerConfig, state, dtype: torch.dtype =
                  torch.float32, device: Optional[torch.device] = None):
@@ -106,7 +107,11 @@ class ImageFeatureExtractor:
             x = x.to(self.device)
             seg = torch.ones((x.shape[0], self.seq), dtype=torch.int64,
                              device=self.device)
-            return self.model.encode(x, seg)[:, 0].float().cpu().numpy()
+            src = x
+            if "masked_patch" in self.cfg.embedding:
+                src = (x, torch.zeros((x.shape[0], 0), dtype=torch.int64,
+                                      device=self.device))
+            return self.model.encode(src, seg)[:, 0].float().cpu().numpy()
 
     def __call__(self, pixels: np.ndarray, batch: int = 32) -> np.ndarray:
         """pixels: (N, C, H, W) float in [0, 1] (ZeroOneNormalize)."""

@@ -50,8 +50,6 @@ ACTS: dict = {
     "tanh": torch.tanh,
 }
 
-NOT_PORTED = "not ported yet (ROADMAP A5: image and speech pretraining)"
-
 
 class RefLayerNorm(nn.Module):
     """gamma * (x - mean) / (std + eps) + beta with a Bessel-corrected std,

@@ -27,7 +27,9 @@ from torch import nn
 
 from lr2ppo_torch.models.layers import Linear
 from lr2ppo_torch.ops.hash_dropout import module_dropout
-from lr2ppo_torch.towers.embeddings import CompositeEmbedding, PatchEmbedding
+from lr2ppo_torch.towers.embeddings import (CompositeEmbedding,
+                                            MaskedPatchEmbedding,
+                                            PatchEmbedding, SpeechEmbedding)
 from lr2ppo_torch.towers.encoders import (GatedcnnEncoder, RnnWeights,
                                           build_encoder, stream_config)
 from lr2ppo_torch.towers.layers import (GatedFeedForward,
@@ -263,7 +265,10 @@ class TowerModel(nn.Module):
     def encode(self, src, seg, deterministic: bool = True,
                generator: Optional[torch.Generator] = None):
         """The encoder's last hidden states; a dual tower takes and returns
-        (stream 0, stream 1) pairs."""
+        (stream 0, stream 1) pairs. A single stream's `src` is a tensor, or
+        a (tokens, pixels) pair under word_patch and a (pixels, mask) pair
+        under masked_patch; under speech `seg` spans the subsampled
+        frames."""
         if self.cfg.encoder == "dual":
             emb = (self.embedding_0(src[0], seg[0], deterministic, generator),
                    self.embedding_1(src[1], seg[1], deterministic, generator))
@@ -315,7 +320,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     them) N(0, 1), the patch projection and [CLS] N(0, 0.02), layer norms
     at one and zero, recurrent weights and biases U(+-1/sqrt(hs)), gated-CNN
     kernels N(0, 0.02) and their biases N(0, 1), the contrastive
-    projections N(0, 1) and its logit scale ln(1 / 0.07)."""
+    projections N(0, 1) and its logit scale ln(1 / 0.07), BEiT's mask
+    embedding and the speech convolutions N(0, 0.02) with zero biases."""
     for m in model.modules():
         if isinstance(m, (Linear, RefLayerNorm, T5LayerNorm, RnnWeights,
                           GatedcnnEncoder, ClrTarget)):
@@ -325,3 +331,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, PatchEmbedding):
             m.projection.weight.normal_(0.0, 0.02, generator=generator)
             m.cls_emb.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, MaskedPatchEmbedding):
+            m.mask_emb.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, SpeechEmbedding):
+            for i in range(m.n_layers):
+                conv = getattr(m, f"conv_{i}")
+                conv.weight.normal_(0.0, 0.02, generator=generator)
+                conv.bias.zero_()

@@ -14,6 +14,13 @@ embedding, encoder, decoder and target keys:
   tgt_embedding/<kind>/embedding            tgt_embedding.<kind>.embedding.weight
   embedding/patch/projection (C*P*P, E)     embedding.patch.projection.weight
                                             (E, C, P, P)
+  embedding/masked_patch/mask_emb (1, E)    embedding.masked_patch.mask_emb
+  embedding/{word_patch,masked_patch}/{word,patch}/...
+                                            embedding.{word_patch,
+                                            masked_patch}.{word,patch}....
+  embedding/speech/conv_<i> (k*dim, out)    embedding.speech.conv_<i>.weight
+                                            (out, dim, k)
+  embedding/speech/conv_<i>_bias            embedding.speech.conv_<i>.bias
   encoder/transformer_<i>/.../kernel (in, out)
                                             encoder.transformer.<i>...weight
                                             (out, in)
@@ -52,6 +59,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from lr2ppo_torch.towers.embeddings import SPEECH_KERNEL
 from lr2ppo_torch.towers.targets import TARGET_KINDS
 
 _INDEXED = re.compile(r"^(transformer|linear_layers)_(\d+)$")
@@ -66,6 +74,8 @@ _RNN_LEAF = re.compile(r"^(weight|bias)_(ih|hh)_l\d+(_reverse)?$")
 _BI_STACKS = ("rnn_forward", "rnn_backward")
 # the JAX gated CNN's matmul kernels and biases
 _GATEDCNN_LEAF = re.compile(r"^(conv|gate)_(stem|layer_(\d+))_([wb])$")
+# the JAX speech embedding's convolutions: offset-major (k*dim, out) kernels
+_SPEECH_LEAF = re.compile(r"^conv_(\d+)(_bias)?$")
 # a reference gated CNN's second bias of each convolution
 _SPLIT_BIAS = re.compile(r"^((?:.*\.)?)(conv|gate)_b(1|\.(\d+))$")
 
@@ -118,7 +128,9 @@ def tower_params_from_flax(tree: dict, channels_num: int = 3,
     """A JAX TowerModel param tree (optionally under "params") of numpy
     arrays -> the port's reference-keyed state_dict. `channels_num` splits
     the patch kernel's C*P*P rows back into (C, P, P); `kernel_size` splits
-    a gated CNN's stem kernel (read off its first layer where omitted)."""
+    a gated CNN's stem kernel (read off its first layer where omitted). A
+    speech convolution's rows split at SPEECH_KERNEL, the width JAX always
+    builds."""
     tree = tree.get("params", tree)
     out = {}
     for path, arr in _flatten(tree):
@@ -135,6 +147,18 @@ def tower_params_from_flax(tree: dict, channels_num: int = 3,
             raise KeyError(f"flax path {path} is outside the embeddings, "
                            "encoder, decoder and targets the port has")
         arr = np.asarray(arr)
+        speech = _SPEECH_LEAF.match(path[-1])
+        if len(path) > 1 and path[-2] == "speech" and speech:
+            prefix = ".".join([_ROOTS[path[0]]] + list(path[1:-1]))
+            name = f"{prefix}.conv_{speech.group(1)}"
+            if speech.group(2):
+                out[f"{name}.bias"] = _tensor(arr)
+                continue
+            k = SPEECH_KERNEL
+            rows, width = arr.shape
+            out[f"{name}.weight"] = _tensor(
+                arr.reshape(k, rows // k, width).transpose(2, 1, 0))
+            continue
         parts = [_ROOTS[path[0]]]
         for p in path[1:-1]:
             m = _INDEXED.match(p) or _DECODER_LAYER.match(p)

@@ -1,6 +1,7 @@
 """Tower pretraining on one GPU or one rank per GPU (counterpart of
 lr2ppo_tpu/train/pretrain.py: make_pretrain_step_form in its simple,
-pair_sp, pair_cls, bilm, seq2seq and clip forms, and PretrainTrainer).
+pair_sp, pair_cls, bilm, seq2seq, vilt, clip and beit forms, and
+PretrainTrainer).
 
 One optimizer step takes `accum` micro-batches of the loader's batch, which
 holds accum x micro rows: each micro-batch runs the tower's forward in
@@ -19,13 +20,15 @@ accuracy saves the model to `<output_model_path>-best`; every
 (embedding, encoder and target keys).
 
 The batch forms map a processor's batch keys onto TowerModel's (src, tgt,
-seg[, tgt_in, tgt_seg]) (form_args): simple (mlm, lm, cls, prefixlm),
-pair_sp (bert, albert: the mlm and sp targets), pair_cls (cls_mlm), bilm,
-seq2seq (mt, t5, gsg, bart: the decoder's input and its targets) and clip
+seg[, tgt_in, tgt_seg]) (form_args): simple (mlm, lm, cls, prefixlm, vit,
+dalle), pair_sp (bert, albert: the mlm and sp targets), pair_cls (cls_mlm),
+bilm, seq2seq (mt, t5, gsg, bart, s2t: the decoder's input and its
+targets), vilt (a (text, image) source with the mlm and match targets), clip
 (a dual tower's (text, image) pairs for the clr target, whose loss carries
-its own count n); the JAX package's vilt and beit forms wait with their
-processors (cli/pretrain.py:NOT_PORTED_PROCESSORS). A step's tokens are the
-source's (clip: the text's), as in JAX. Under --dp/--tp
+its own count n) and beit (a (pixels, mask) source). A step's tokens are the
+source's as in JAX, the text's where there is one (clip, vilt); where the
+source is pixels (vit, beit), the tokens are seg's, [CLS] and the patches.
+Under --dp/--tp
 (train/common.py:device_ctx) each rank takes its slice of every micro-batch
 (the loader shards per accumulation chunk), the masked means divide by the
 global counts and the clr target gathers its features over dp
@@ -78,12 +81,22 @@ def norm_target_out(out, rows: int):
     return out
 
 
+def step_tokens(batch: dict) -> int:
+    """A batch's tokens: its source's first two dims (the text's under
+    clip and vilt), or seg's where the source is pixels (vit, beit)."""
+    key = next(k for k in ("src_text", "src", "src_image") if k in batch)
+    if batch[key].ndim == 4:
+        key = "seg"
+    return int(np.prod(batch[key].shape[:2]))
+
+
 def form_args(form: str, mb: dict):
     """TowerModel.forward's positional arguments from a batch of `form`
     (lr2ppo_tpu/train/pretrain.py:form_args): (src, tgt, seg), tgt
     {kind: targets} for the composite targets and (forward, backward) for
     bilm; seq2seq adds the decoder's (tgt_in, tgt_seg); clip passes (text,
-    image) pairs as src and seg."""
+    image) pairs as src and seg; vilt a (text, image) src with the mlm and
+    match (sp) targets; beit a (pixels, mask) src."""
     if form == "simple":
         return mb["src"], mb["tgt"], mb["seg"]
     if form == "pair_sp":
@@ -96,9 +109,14 @@ def form_args(form: str, mb: dict):
     if form == "seq2seq":
         return (mb["src"], mb["tgt_out"], mb["seg"], mb["tgt_in"],
                 mb["tgt_seg"])
+    if form == "vilt":
+        return ((mb["src_text"], mb["src_image"]),
+                {"mlm": mb["tgt_mlm"], "sp": mb["tgt_match"]}, mb["seg"])
     if form == "clip":
         return ((mb["src_text"], mb["src_image"]), mb["tgt"],
                 (mb["seg_text"], mb["seg_image"]))
+    if form == "beit":
+        return ((mb["src_image"], mb["mask"]), mb["tgt"], mb["seg"])
     raise KeyError(f"unknown batch form: {form}")
 
 
@@ -255,11 +273,7 @@ class PretrainTrainer:
                                           if not k.startswith("_")})
                 m = step_fn(state, generator, dev_batch)
                 step += 1
-                # the global batch's tokens (clip: the text stream's)
-                tok_key = next(k for k in ("src", "src_text", "src_image")
-                               if k in batch)
-                tokens_since += (int(np.prod(batch[tok_key].shape[:2]))
-                                 * self.ctx.mesh.dp)
+                tokens_since += step_tokens(batch) * self.ctx.mesh.dp
                 if step % cfg.report_steps == 0:
                     # a masked mean is global already; a cls or sp mean
                     # is this rank's, and equal shards average to the

@@ -68,7 +68,9 @@ def test_port_never_imports_jax():
             "lr2ppo_torch.parallel.mesh", "lr2ppo_torch.parallel.tp",
             "lr2ppo_torch.parallel.fsdp",
             "lr2ppo_torch.parallel.dryrun",
-            "lr2ppo_torch.parallel.pipeline"} <= set(res["modules"])
+            "lr2ppo_torch.parallel.pipeline", "lr2ppo_torch.towers.vqgan",
+            "lr2ppo_torch.data.augment", "lr2ppo_torch.models.video",
+            "lr2ppo_torch.ops.adversarial"} <= set(res["modules"])
     assert res["loaded"] == [], f"the port imported {res['loaded']}"
     assert res["lazy"] == [], f"imported at import time: {res['lazy']}"
 

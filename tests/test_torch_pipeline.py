@@ -33,6 +33,19 @@ from test_torch_parallel import spawn
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _restore_special_ids():
+    """The CLI sets the port's processors' module-wide frame ids from the
+    tokenizer (this file's vocabulary puts <pad> first): put them back when
+    the module is done, so a later file in the same worker frames its
+    instances with the defaults."""
+    from lr2ppo_torch.data import pretrain_processors as tpp
+
+    old = (tpp.CLS, tpp.PAD, tpp.SEP)
+    yield
+    tpp.set_special_ids(*old)
+
 L, M = 4, 4
 B, S, V = 8, 12, 32
 RAW = dict(emb_size=16, hidden_size=16, feedforward_size=32, heads_num=2,

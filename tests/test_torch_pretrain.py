@@ -6,7 +6,7 @@ and accuracies and the same final weights, to 1e-4; a resume from the
 step-3 `.state` (hash dropout on) equals the uninterrupted run bit for bit;
 the checkpoints load strict into the port's trainer (the JAX `-best` too)
 and into the extraction path; `python -m lr2ppo_torch.cli pretrain --device
-cpu` runs; what is not ported raises, naming ROADMAP.md."""
+cpu` runs; what stays refused raises as in JAX."""
 
 import json
 import os
@@ -178,17 +178,43 @@ def test_adafactor_and_remat_pretrain(tmp_path):
     # --pp and --sp run (tests/test_torch_pipeline.py, test_torch_sp.py);
     # what stays refused is outside their envelope, as in JAX
     (["--pp", "2", "--fsdp"], "zero1/fsdp"), (["--sp"], "--tp > 1"),
-    (["--data_processor", "vit"], "ROADMAP"),
-    (["--data_processor", "s2t"], "ROADMAP"),
+    # every processor runs (tests/test_torch_vision_speech.py); a vit
+    # manifest's label must be an integer, and S2T's frames a multiple of 4
+    # (its seg spans max_audio_frames // 4), as in JAX
+    (["--data_processor", "vit", "--corpus_path", "{tmp}/labels.tsv"],
+     "invalid literal for int"),
+    (["--data_processor", "s2t", "--corpus_path", "{tmp}/speech.tsv",
+      "--tower_config", "{tmp}/speech.json", "--max_audio_frames", "30",
+      "--tgt_seq_length", "8"],
+     "multiple of 4"),
     (["--jax_platform", "cpu"], "--device"),
 ], ids=["pp", "sp", "vit", "s2t", "jax_platform"])
 def test_what_is_not_ported_raises(tmp_path, extra, match):
+    import wave
+
     files = _files(tmp_path)
+    (tmp_path / "labels.tsv").write_text(f"cat\t{tmp_path}/im.png\n")
+    with wave.open(str(tmp_path / "a.wav"), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((np.sin(np.arange(4000) / 7.0) * 9000).astype(
+            np.int16).tobytes())
+    (tmp_path / "speech.tsv").write_text(f"a b\t{tmp_path}/a.wav\n")
+    (tmp_path / "speech.json").write_text(json.dumps({
+        **TOWER, "embedding": ["speech", "sinusoidalpos"],
+        "tgt_embedding": ["word", "sinusoidalpos"], "decoder": "transformer",
+        "target": ["lm"]}))
+    extra = [a.format(tmp=tmp_path) for a in extra]
     with pytest.raises((NotImplementedError, SystemExit, ValueError),
                        match=match):
         tcli.main(_argv(files, str(tmp_path / "x"), *extra), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        str2tokenizer["image"]()
+    # the image tokenizer is ported; like JAX's, it refuses text
+    with pytest.raises(TypeError, match="tokenizes images"):
+        str2tokenizer["image"](vqgan_config=dict(
+            ch=8, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(),
+            resolution=8, z_channels=8, n_embed=16, embed_dim=8),
+            device="cpu").tokenize("a b")
 
 
 @pytest.mark.parametrize("extra,match", [

@@ -72,10 +72,18 @@ def test_bpe_gives_jax_ids(tmp_path):
 
 
 def test_unported_tokenizers_raise_naming_roadmap():
+    """The image tokenizers that waited are ported (tests/
+    test_torch_vqgan.py holds them against JAX): each package names the
+    same tokenizers, the virtual one gives no tokens, and the image one
+    refuses text as JAX's does."""
     assert set(ttok.str2tokenizer) == set(jtok.str2tokenizer)
-    for name in ("virtual", "image", "text_image"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttok.str2tokenizer[name]()
+    assert ttok.str2tokenizer["virtual"]().encode("a b") == []
+    tiny = dict(ch=8, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(),
+                resolution=8, z_channels=8, n_embed=16, embed_dim=8)
+    for tok in (ttok.str2tokenizer["image"](vqgan_config=tiny, device="cpu"),
+                jtok.str2tokenizer["image"](vqgan_config=tiny)):
+        with pytest.raises(TypeError, match="tokenizes images"):
+            tok.tokenize("a b")
 
 
 @pytest.mark.parametrize("exclude", [(), (7, 9, 30)])

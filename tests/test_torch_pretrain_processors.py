@@ -99,10 +99,10 @@ PROCESSORS = ["bert", "albert", "cls_mlm", "bilm", "prefixlm"]
 def test_datasets_give_jaxs_items(files, name, layout):
     """Same corpus, tokenizer ids and seed: the same number of items and
     every array of every item equal, in epochs 0 and 1 (the mlm masks
-    reseed per epoch and item)."""
-    if layout == "bert":
-        for m in (jpp, tpp):
-            m.set_special_ids(2, 1, 3)
+    reseed per epoch and item); each layout's frame ids are set in both
+    packages, whatever an earlier test left."""
+    for m in (jpp, tpp):
+        m.set_special_ids(*((2, 1, 3) if layout == "bert" else (0, 1, 2)))
     jds = _build(jpp, JSpace(files["vocab"]), name, files)
     tds = _build(tpp, SpaceTokenizer(files["vocab"]), name, files)
     assert len(tds) == len(jds) > 0
@@ -224,10 +224,19 @@ def test_a_bilstm_bilm_tower_raises_at_the_encoder(files):
 
 
 def test_unknown_form_raises():
-    # seq2seq runs since the seq2seq towers were ported; vilt waits with
-    # the image processors
-    with pytest.raises(KeyError, match="vilt"):
-        ttrain.form_args("vilt", {})
+    """Every JAX batch form is ported (the vilt and beit forms map their
+    keys as JAX's form_args does); an unknown one raises naming it."""
+    mb = {k: np.full((2, 3), i) for i, k in enumerate(
+        ("src_text", "src_image", "tgt_mlm", "tgt_match", "seg", "mask",
+         "tgt"))}
+    for form in ("vilt", "beit"):
+        got, want = ttrain.form_args(form, mb), jtrain.form_args(form, mb)
+        assert jax.tree_util.tree_structure(got) == \
+            jax.tree_util.tree_structure(want)
+        assert all(a is b for a, b in zip(jax.tree_util.tree_leaves(got),
+                                          jax.tree_util.tree_leaves(want)))
+    with pytest.raises(KeyError, match="bogus"):
+        ttrain.form_args("bogus", {})
 
 
 # -- the CLI ----------------------------------------------------------------

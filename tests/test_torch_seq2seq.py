@@ -417,7 +417,8 @@ def test_bridge_round_trip_is_bit_for_bit(tmp_path, make):
     assert flat.keys() == flat_back.keys()
     for path, leaf in flat.items():
         np.testing.assert_array_equal(np.asarray(flat_back[path]), leaf)
-    # a dual tower's embedding_0 is ported; a VQGAN tree (ROADMAP A5) is not
+    # a dual tower's embedding_0 is a tower's root; a VQGAN tree is not (its
+    # bridge is towers/vqgan.py:vqgan_params_from_flax)
     with pytest.raises(KeyError, match="decoder"):
         tower_params_from_flax({"params": {"vqgan": {
             "word": {"embedding": np.zeros((2, 2))}}}})

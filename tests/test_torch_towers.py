@@ -264,8 +264,8 @@ def test_what_waits_for_pretraining_raises():
     """The decoder, T5's relative bias, sinusoidal positions, the lstm
     encoder and the contrastive target of a dual tower build, initialize and
     give a finite loss (tests/test_torch_seq2seq.py and
-    tests/test_torch_encoders.py hold them against JAX); the image and
-    speech embeddings still raise, naming ROADMAP A5."""
+    tests/test_torch_encoders.py hold them against JAX), and so does a
+    tower with ViLT's word_patch embedding."""
     src, seg = (torch.from_numpy(a) for a in _text_inputs())
     for kw in (dict(decoder="transformer"),
                dict(relative_position_embedding=True),
@@ -292,8 +292,17 @@ def test_what_waits_for_pretraining_raises():
     loss, correct, n = dual((src, src.flip(1)), torch.arange(3),
                             (seg, seg.flip(1)))
     assert torch.isfinite(loss) and float(n) == 3 and 0 <= float(correct) <= 3
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        TowerModel(TowerConfig.from_dict(text_cfg(embedding=["word_patch"])))
+    # the image and speech embeddings build too (tests/
+    # test_torch_vision_speech.py holds them against JAX): ViLT's word_patch
+    # reads a (tokens, pixels) source, with seg over text + [CLS] + patches
+    vilt = TowerModel(TowerConfig.from_dict(text_cfg(
+        embedding=["word_patch", "pos", "seg"], max_seq_length=16,
+        image_height=8, image_width=8, patch_size=4)), with_target=True)
+    init_weights(vilt, torch.Generator().manual_seed(3))
+    pixels = torch.rand(3, 3, 8, 8, generator=torch.Generator().manual_seed(4))
+    both = torch.cat([seg, torch.full((3, 5), 2)], dim=1)
+    assert torch.isfinite(vilt((src, pixels), torch.cat(
+        [tgt, torch.zeros(3, 5, dtype=tgt.dtype)], dim=1), both)[0])
     # training mode is ported (tests/test_torch_pretrain_model.py); a tower
     # built for extraction has no target to give a loss
     model = TowerModel(TowerConfig.from_dict(text_cfg()))
