@@ -28,7 +28,10 @@ Phases, each of which raises on failure (exit code other than 0):
   6. both dropout kernels (hash, Philox) against their plain versions at a
      ragged size and at the update's FFN-inner site (100,352 x 3072),
      float32 and bfloat16, forward and backward, bit for bit, with times
-     beside torch.nn.functional.dropout's;
+     beside torch.nn.functional.dropout's; hash dropout also at a split
+     place whose ragged rows straddle its ring's chunks, at a size that
+     wraps the ring several times (the ragged size takes its register
+     path, the larger ones its bulk-copy ring);
   7. the training path: PPOTrainer.fit under --profile fast at batch 256
      (4 rollouts, 4 updates, one eval, one best save reloaded strict), its
      kernel launches, losses and moved parameters checked; then the
@@ -661,6 +664,13 @@ DROPOUT_KERNELS = {
                        "lr2ppo_tpu/ops/pallas_dropout.py:70"),
 }
 DROP_RATE = 0.1                        # ModelConfig.drop_p / forward_drop_p
+# hash dropout at a split place (col0 != 0, width != w) of ragged rows that
+# straddle the ring's 16 KB chunks and its stages, 12,288 x 3,077 values:
+# larger than the L2 in both dtypes, so the ring runs them, ~9 (float32)
+# and ~4 (bfloat16) passes of 264 blocks x 4 stages; the ragged (1000,
+# 3077) case beside it takes the register path
+RING_SHAPE = (12288, 3077)
+RING_PLACE = (5, 1234, 7001, 3077)
 
 
 def check_dropout(name: str, shape, dtype, seed: int, dev, time_it: bool,
@@ -734,13 +744,18 @@ def check_dropout(name: str, shape, dtype, seed: int, dev, time_it: bool,
 
 def dropout_kernels(seed: int, dev, card_line: str) -> dict:
     """Phase 6: both dropout kernels at a ragged small size and at the
-    update's FFN-inner site (100,352 x 3072), float32 and bfloat16. The
-    bfloat16 site's numbers go to the kernels line."""
+    update's FFN-inner site (100,352 x 3072), float32 and bfloat16, hash
+    dropout also at RING_PLACE. The bfloat16 site's numbers go to the
+    kernels line."""
     out = {}
     for name in DROPOUT_KERNELS:
         runs = [check_dropout(name, (1000, 3077), dt, seed - 77, dev, False,
                               card_line)
                 for dt in (torch.float32, torch.bfloat16)]
+        if name == "hash_dropout":
+            runs += [check_dropout(name, RING_SHAPE, dt, seed - 78, dev,
+                                   False, card_line, (RING_PLACE,))
+                     for dt in (torch.float32, torch.bfloat16)]
         runs += [check_dropout(name, (ROLLOUT_ROWS, H), dt, seed + 1, dev,
                                dt == torch.bfloat16, card_line)
                  for dt in (torch.float32, torch.bfloat16)]
@@ -2253,14 +2268,17 @@ def traced_ms(prof, name: str) -> list:
 def hash_trace_ms(x, n: int = 20, place=None) -> tuple:
     """The hash dropout kernel's median device time a launch over a trace
     of n launches on x (at `place`, a shard's), and the count of launches
-    the trace holds."""
-    times = traced_ms(steady_trace(
-        lambda: [hash_dropout(x, i, DROP_RATE, place) for i in range(n)]),
-        "hash_dropout")
-    if not times:
-        raise AssertionError(f"the trace of {n} hash dropout launches holds "
-                             "no kernel")
-    return statistics.median(times), len(times)
+    the trace holds. A trace that kept no device record of the launches
+    (the profiler drops them now and then late in a long process) is taken
+    again, up to three traces."""
+    for _ in range(3):
+        times = traced_ms(steady_trace(
+            lambda: [hash_dropout(x, i, DROP_RATE, place)
+                     for i in range(n)]), "hash_dropout")
+        if times:
+            return statistics.median(times), len(times)
+    raise AssertionError(f"three traces of {n} hash dropout launches hold "
+                         "no kernel")
 
 
 def pretrain_sites(seed: int, dev, card_line: str) -> dict:

@@ -50,8 +50,12 @@ ENTRIES = {
                                      _i32)},
     # the elementwise arguments, then the shard's place in the global
     # array: (row0, col0, width, w) for hash, the element offset for Philox
-    "hash_dropout": {"lr2ppo_hash_dropout": (
-        _ELEMENTWISE + [_u32, _u32, _u32, _i64], _i32)},
+    "hash_dropout": {
+        "lr2ppo_hash_dropout": (_ELEMENTWISE, _i32),
+        "lr2ppo_hash_dropout_place": (_ELEMENTWISE + [_u32, _u32, _u32, _i64],
+                                      _i32),
+        "lr2ppo_hash_dropout_geometry": ([_i32], _i32),
+        "lr2ppo_hash_dropout_ring_from": ([_i64], _i64)},
     "philox_dropout": {"lr2ppo_philox_dropout": (_ELEMENTWISE + [_i64],
                                                  _i32)},
     "fused_attention": {
@@ -61,7 +65,11 @@ ENTRIES = {
         "lr2ppo_fused_attention_path": ([_i32, _i32, _i32], _i32)},
 }
 
+# the library of each C entry
+LIBRARY_OF = {fn: name for name, fns in ENTRIES.items() for fn in fns}
+
 _libs: dict = {}
+_fns: dict = {}
 
 
 def _nvcc() -> str:
@@ -131,6 +139,20 @@ def library(name: str) -> ctypes.CDLL:
         lib.lr2ppo_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return _libs[name]
+
+
+def library_of(entry: str) -> ctypes.CDLL:
+    """The loaded library that holds the C entry `entry`."""
+    return library(LIBRARY_OF[entry])
+
+
+def function(entry: str):
+    """The C entry `entry` (its library loaded, and built, at first use),
+    resolved once: a launch path calls this on every launch."""
+    fn = _fns.get(entry)
+    if fn is None:
+        fn = _fns[entry] = getattr(library_of(entry), entry)
+    return fn
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

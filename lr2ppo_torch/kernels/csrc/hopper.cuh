@@ -5,7 +5,8 @@
 // two consumer warpgroups that run wgmma.mma_async m64n128k32 s8 on the
 // stages; the per-row int8 quantization both kernels write into a global
 // scratch that TMA reads back; the host side that encodes the TMA maps and
-// sizes the grid.
+// sizes the grid. Hash dropout (hash_dropout.cu) streams through the 1-D
+// bulk copies and the mbarrier helpers.
 //
 // The ring's geometry: a tile of BM = 128 rows (64 a consumer warpgroup);
 // output columns in chunks of BN = 256 (two m64n128k32 a K step, 128 s32
@@ -100,6 +101,54 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// The 1-D bulk copies (no tensor map): `bytes` a multiple of 16, both
+// addresses 16-byte aligned. A load global -> shared completes on `bar`
+// (armed with mbar_expect_tx for the bytes) and reads under the L2 cache
+// `policy` (l2_policy); a store shared -> global joins this thread's bulk
+// group, closed with bulk_commit and waited on with bulk_wait_read (its
+// shared source read) or bulk_wait (written).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+// Wait until at most N of this thread's bulk groups are still incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+// An L2 cache policy for the lines an access touches: evict them first
+// (bytes read once from an array larger than the L2), or as usual.
+__device__ __forceinline__ uint64_t l2_policy(bool evict_first) {
+  uint64_t policy;
+  if (evict_first)
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+  else
+    asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+// This thread's generic-proxy writes to shared memory made visible to the
+// async proxy (a bulk store that reads them after a barrier).
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // wgmma's shared-memory descriptor of a K-major tile with 128-byte rows,

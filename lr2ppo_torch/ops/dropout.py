@@ -21,12 +21,10 @@ and takes `philox_dropout_reference` on a CPU tensor.
 
 from __future__ import annotations
 
-from functools import partial
-
 import torch
 
-from lr2ppo_torch.ops.hash_dropout import (SeededDropout, launch_elementwise,
-                                           masked_scale)
+from lr2ppo_torch.ops.hash_dropout import (launch_elementwise, masked_scale,
+                                           seeded_dropout)
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
@@ -107,7 +105,7 @@ def _apply(x: torch.Tensor, seed: int, rate: float,
     if x.device.type == "cpu":
         return philox_dropout_reference(x, seed, rate, offset)
     _check_offset(offset)
-    y = launch_elementwise("philox_dropout", x, int(seed) & _MASK32,
+    y = launch_elementwise("lr2ppo_philox_dropout", x, int(seed) & _MASK32,
                            threshold(rate), scale_for(rate, x.dtype), offset)
     philox_dropout.launches += 1
     return y
@@ -122,8 +120,7 @@ def philox_dropout(x: torch.Tensor, seed: int, rate: float,
     backward."""
     if rate <= 0.0:
         return x
-    fn = _apply if not offset else partial(_apply, offset=offset)
-    return SeededDropout.apply(fn, x, seed, rate)
+    return seeded_dropout(_apply, x, seed, rate, offset)
 
 
 philox_dropout.launches = 0

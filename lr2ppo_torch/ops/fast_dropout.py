@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from lr2ppo_torch.ops.hash_dropout import SeededDropout
+from lr2ppo_torch.ops.hash_dropout import seeded_dropout
 
 _MASK32 = 0xFFFFFFFF
 
@@ -40,7 +40,7 @@ def packed_keep(n: int, seed: int, rate: float, device) -> torch.Tensor:
     return (bytes_ < keep_threshold(rate)).reshape(-1)[:n]
 
 
-def _apply(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+def _apply(x: torch.Tensor, seed: int, rate: float, where) -> torch.Tensor:
     keep = packed_keep(x.numel(), seed, rate, x.device).reshape(x.shape)
     eff_keep = keep_threshold(rate) / 256.0
     return torch.where(keep, x / eff_keep, torch.zeros((), dtype=x.dtype,
@@ -52,4 +52,4 @@ def packed_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
     Python int, `rate` in [0, 1)."""
     if rate <= 0.0:
         return x
-    return SeededDropout.apply(_apply, x, seed, rate)
+    return seeded_dropout(_apply, x, seed, rate, None)

@@ -17,13 +17,18 @@ site's trailing dims are tp-split. place None is the whole tensor, i = f. Dropou
 same mask and scale to the cotangent: the autograd Function saves only the
 integer seed, never a mask.
 
-Three parts:
+Four parts:
   * `hash_dropout`, the autograd Function's entry: a CUDA tensor launches
     the hand-written kernel (kernels/csrc/hash_dropout.cu), forward and
     backward, and a CPU tensor takes the plain version;
   * `hash_dropout_reference`, the plain PyTorch version: uint32 arithmetic
     emulated in int64 masked to 32 bits, bit-equal to the JAX `_apply` and
     to the kernel;
+  * `plan_keep_mask`, the kernel's plan walked in plain PyTorch on either
+    of its paths (the bulk-copy ring's chunks and stages or the register
+    path's strides, each pack's first global index, the split hash, the
+    tail), so the CPU tests hold the kernel's index arithmetic against the
+    plain version;
   * `module_dropout`: hash > fast (packed bits, ops/fast_dropout.py) >
     pallas-size-gated (Philox kernel, ops/dropout.py) > canonical, the JAX
     package's precedence.
@@ -35,12 +40,13 @@ Per-site seeds are Python ints drawn on the host from the caller's CPU
 from __future__ import annotations
 
 import math
-from functools import lru_cache, partial
+from functools import lru_cache
 from typing import Optional
 
 import torch
 
 from lr2ppo_torch.kernels import build
+from lr2ppo_torch.parallel.mesh import active
 
 _GOLDEN = 0x9E3779B9
 _M1 = 0x85EBCA6B
@@ -48,6 +54,13 @@ _M2 = 0xC2B2AE35
 _MASK32 = 0xFFFFFFFF
 # elements per chunk of the plain version: bounds its int64 temporaries
 _CHUNK = 1 << 24
+# the kernel's geometry (kernels/csrc/hash_dropout.cu, which reports it
+# through lr2ppo_hash_dropout_geometry): the ring's chunk bytes, stages and
+# blocks an SM; the threads of a block; the register path's blocks an SM
+CHUNK_BYTES, STAGES, BLOCKS_PER_SM = 16384, 4, 2
+THREADS, REG_BLOCKS_PER_SM = 256, 8
+# an input of more bytes than the L2 takes the ring (an H100's 50 MiB)
+L2_BYTES = 50 * 2**20
 
 
 @lru_cache(maxsize=None)
@@ -137,6 +150,116 @@ def hash_dropout_reference(x: torch.Tensor, seed: int, rate: float,
                         _CHUNK)
 
 
+def _rest(h: torch.Tensor) -> torch.Tensor:
+    """fmix32 after its first step, on uint32 values held in int64."""
+    h = _mul32(h, _M1)
+    h = h ^ (h >> 13)
+    h = _mul32(h, _M2)
+    return h ^ (h >> 16)
+
+
+def plan_keep_mask(n: int, elem_bytes: int, seed: int, rate: float,
+                   place=None, sms: int = 132, ring: Optional[bool] = None,
+                   l2_bytes: int = L2_BYTES, chunk_bytes: int = CHUNK_BYTES,
+                   stages: int = STAGES, blocks_per_sm: int = BLOCKS_PER_SM,
+                   threads: int = THREADS,
+                   reg_blocks_per_sm: int = REG_BLOCKS_PER_SM
+                   ) -> torch.Tensor:
+    """The keep mask of n values of `elem_bytes` bytes as the kernel
+    computes it, walking its plan (kernels/csrc/hash_dropout.cu) on the
+    path it takes: the ring where the input has more than `l2_bytes` (or
+    `ring` says so), else the register path.
+
+    The ring: the whole 16-byte packs go in chunks of `chunk_bytes` through
+    `stages` stages in each of min(chunks, blocks_per_sm * sms) blocks,
+    block b taking chunks b, b + grid, ...; the leader loads the first
+    `stages` chunks, then after each chunk's store refills the previous
+    chunk's stage with the chunk stages - 1 ahead. The register path:
+    thread t of min(ceil(packs / threads), reg_blocks_per_sm * sms) blocks
+    takes packs t, t + stride, ....
+
+    A pack hashes from its first global index: base + first value (the
+    fast path), or one division and (r, c) stepped across row ends (the
+    split path); the hash is the kernel's: fmix32(i ^ m) as _rest(i ^ (i >>
+    16) ^ s1), s1 = m ^ (m >> 16), and on the fast path a pack at a
+    multiple of its length shares t = i0 ^ (i0 >> 16) ^ s1, value j hashing
+    _rest(t ^ j). The final fewer than one pack of values go one by one.
+    Raises if a value is covered twice or not at all, or a stage is read
+    before its load."""
+    per_pack = 16 // elem_bytes
+    packs = n // per_pack
+    ring_values = packs * per_pack
+    if ring is None:
+        ring = n * elem_bytes > l2_bytes
+    row0, col0, width, w = place if place is not None else (0, 0, n, n)
+    split = place is not None and (col0 != 0 or width != w)
+    base = (row0 * width) & _MASK32
+    m = seed_mix(seed)
+    s1 = m ^ (m >> 16)
+    hashes = torch.full((n,), -1, dtype=torch.int64)
+
+    def pack_hash(f: torch.Tensor, per: int) -> torch.Tensor:
+        """The hashes (packs, per) of the packs of `per` values at local
+        values f, as the kernel steps them."""
+        if split:
+            r = torch.div(f, w, rounding_mode="floor")
+            c = f - r * w
+            cols = []
+            for _ in range(per):
+                i = ((row0 + r) * width + col0 + c) & _MASK32
+                cols.append(_rest(i ^ (i >> 16) ^ s1))
+                c = c + 1
+                wrap = c == w
+                c = torch.where(wrap, 0, c)
+                r = r + wrap.long()
+            return torch.stack(cols, 1)
+        j = torch.arange(per)
+        i0 = (base + f) & _MASK32
+        t = i0 ^ (i0 >> 16) ^ s1
+        i = (i0[:, None] + j) & _MASK32
+        return torch.where((i0 % per == 0)[:, None], _rest(t[:, None] ^ j),
+                           _rest(i ^ (i >> 16) ^ s1))
+
+    def put(first: int, count: int) -> None:
+        """Hash `count` values from `first` in whole packs."""
+        if bool((hashes[first:first + count] != -1).any()):
+            raise AssertionError(f"values {first}..{first + count} twice")
+        hashes[first:first + count] = pack_hash(
+            first + torch.arange(0, count, per_pack), per_pack).reshape(-1)
+
+    if ring:
+        per_chunk = chunk_bytes // elem_bytes
+        chunks = -(-ring_values // per_chunk)
+        grid = max(1, min(chunks, blocks_per_sm * sms))
+        for b in range(min(chunks, grid)):
+            mine = (chunks - 1 - b) // grid + 1
+            stage = [None] * stages          # the chunk each stage holds
+            for it in range(min(stages, mine)):
+                stage[it % stages] = it
+            for it in range(mine):
+                if stage[it % stages] != it:
+                    raise AssertionError(f"block {b} reads chunk {it} from "
+                                         f"stage {it % stages} before its "
+                                         "load")
+                first = (b + it * grid) * per_chunk
+                put(first, min(per_chunk, ring_values - first))
+                if it >= 1 and it - 1 + stages < mine:
+                    stage[(it - 1) % stages] = it - 1 + stages
+    else:
+        grid = max(1, min(-(-packs // threads), reg_blocks_per_sm * sms))
+        stride = grid * threads
+        for first in range(0, packs, stride):   # one step of every thread
+            put(first * per_pack, (min(first + stride, packs) - first)
+                * per_pack)
+    for f in range(ring_values, n):
+        if hashes[f] != -1:
+            raise AssertionError(f"value {f} twice")
+        hashes[f] = pack_hash(torch.tensor([f]), 1)[0, 0]
+    if bool((hashes == -1).any()):
+        raise AssertionError("values left out of the plan")
+    return hashes < threshold(rate)
+
+
 def check_place(x: torch.Tensor, place) -> None:
     if place is not None and (place[3] <= 0 or x.numel() % place[3]):
         raise ValueError(f"hash_dropout: rows of {place[3]} do not tile "
@@ -145,13 +268,15 @@ def check_place(x: torch.Tensor, place) -> None:
 
 def check_elementwise(x: torch.Tensor, what: str) -> torch.Tensor:
     """The kernels' input contract: float32 or bfloat16 on a CUDA device,
-    contiguous and 16-byte aligned (a contiguous view at an odd offset is
-    copied). Returns the tensor to launch on."""
-    if x.device.type != "cuda":
+    contiguous and 16-byte aligned (a strided tensor is made contiguous, a
+    contiguous view at an odd offset is copied). Returns the tensor to
+    launch on."""
+    if not x.is_cuda:
         raise ValueError(f"{what}: no kernel for device {x.device}")
     if x.dtype not in build.DTYPE_CODES:
         raise ValueError(f"{what}: {x.dtype} is not float32 or bfloat16")
-    x = x.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()
     return x
@@ -159,59 +284,71 @@ def check_elementwise(x: torch.Tensor, what: str) -> torch.Tensor:
 
 def launch_elementwise(entry: str, x: torch.Tensor, key: int, thr: int,
                        scale: float, *extra) -> torch.Tensor:
-    """y = the kernel of csrc/<entry>.cu over x, on x's device's current
-    stream; `extra` are the entry's arguments after the stream (the shard's
-    place). The launch is made on x's device: the device context is entered
-    only where another device is current."""
+    """y = the kernel of the C entry `entry` (lr2ppo_<kernel>) over x, on
+    x's device's current stream; `extra` are the entry's arguments after
+    the stream (the shard's place). The launch is made on x's device: the
+    device context is entered only where another device is current."""
     x = check_elementwise(x, entry)
     y = torch.empty_like(x)
-    fn = getattr(build.library(entry), f"lr2ppo_{entry}")
-    index = x.device.index
+    fn = build.function(entry)
+    index = x.get_device()
     args = (x.data_ptr(), y.data_ptr(), x.numel(), key, thr, scale,
             build.DTYPE_CODES[x.dtype],
             torch._C._cuda_getCurrentRawStream(index), *extra)
-    if index == torch.cuda.current_device():
+    if index == torch._C._cuda_getDevice():
         err = fn(*args)
     else:
         with torch.cuda.device(index):
             err = fn(*args)
     if err:
-        build.check(build.library(entry), err, f"{entry} launch")
+        build.check(build.library_of(entry), err, f"{entry} launch")
     return y
 
 
 class SeededDropout(torch.autograd.Function):
-    """y = apply(x, seed, rate) for a dropout that is linear in x: the
-    backward is `apply` on the cotangent, made contiguous (the mask is a
-    function of the flat row-major position). Only the seed is saved."""
+    """y = apply(x, seed, rate, where) for a dropout that is linear in x:
+    the backward is `apply` on the cotangent (the mask is a function of
+    the flat row-major position, and `apply` reads a strided tensor in
+    that order). `where` is the shard's place or offset (None: the whole
+    array). Only the seed, the rate and `where` are kept, never a tensor."""
 
     @staticmethod
-    def forward(ctx, apply, x, seed: int, rate: float):
+    def forward(ctx, apply, x, seed: int, rate: float, where):
         # not ctx.apply: that is the backward node's own method
-        ctx.fn, ctx.seed, ctx.rate = apply, seed, rate
-        return apply(x, seed, rate)
+        ctx.fn, ctx.seed, ctx.rate, ctx.where = apply, seed, rate, where
+        return apply(x, seed, rate, where)
 
     @staticmethod
     def backward(ctx, g):
-        return None, ctx.fn(g.contiguous(), ctx.seed, ctx.rate), None, None
+        return None, ctx.fn(g, ctx.seed, ctx.rate, ctx.where), None, None, None
+
+
+# SeededDropout.apply without torch.autograd.Function.apply's Python layer,
+# which binds default arguments for a setup_context (there is none) and
+# runs a pytree pass over the arguments for functorch's dead wrappers
+# (neither is used here): 1.5-6 us of the H100 machine's host a call
+# (PERF.md §6).
+seeded_dropout = super(torch.autograd.Function, SeededDropout).apply
 
 
 def _apply(x: torch.Tensor, seed: int, rate: float,
            place=None) -> torch.Tensor:
     """One masked scaling of x: the kernel on a CUDA tensor, the plain
     version on a CPU tensor."""
-    if x.device.type == "cpu":
+    if not x.is_cuda and x.device.type == "cpu":
         return hash_dropout_reference(x, seed, rate, place)
-    check_place(x, place)
-    w = x.shape[-1] if x.dim() else 1
-    row0, col0, width, w = place if place is not None else (0, 0, w, w)
-    y = launch_elementwise("hash_dropout", x, seed_mix(seed),
-                           threshold(rate), scale_for(rate, x.dtype),
-                           row0 & _MASK32, col0 & _MASK32, width & _MASK32,
-                           w)
-    hash_dropout.launches += 1
-    if place is not None:
+    thr, scale = threshold(rate), scale_for(rate, x.dtype)
+    if place is None:
+        y = launch_elementwise("lr2ppo_hash_dropout", x, seed_mix(seed), thr,
+                               scale)
+    else:
+        check_place(x, place)
+        row0, col0, width, w = place
+        y = launch_elementwise("lr2ppo_hash_dropout_place", x, seed_mix(seed),
+                               thr, scale, row0 & _MASK32, col0 & _MASK32,
+                               width & _MASK32, w)
         hash_dropout.place_launches += 1
+    hash_dropout.launches += 1
     return y
 
 
@@ -222,8 +359,7 @@ def hash_dropout(x: torch.Tensor, seed: int, rate: float,
     the global array (None: x is the whole array). `hash_dropout.launches`
     counts kernel launches, forward and backward, and
     `hash_dropout.place_launches` those of them with a place."""
-    fn = _apply if place is None else partial(_apply, place=place)
-    return SeededDropout.apply(fn, x, seed, rate)
+    return seeded_dropout(_apply, x, seed, rate, place)
 
 
 hash_dropout.launches = 0
@@ -250,8 +386,6 @@ def shard_place(x: torch.Tensor, tp_from=None):
     b * S * H + (s0 + s) * H + h, its index in the global array (the zero
     tokens padding an uneven shard hash past its row and are dropped), or
     None where x is whole on every tp rank."""
-    from lr2ppo_torch.parallel.mesh import active
-
     mesh = active()
     if mesh.world == 1 or x.dim() == 0:
         return None

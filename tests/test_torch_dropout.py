@@ -53,6 +53,75 @@ def test_hash_plain_version_is_bit_equal_to_jax(dtype, rate):
                                       np.asarray(ref_g, np.float32))
 
 
+# the kernel's plans at a small geometry (the ring: chunks of 64 bytes, 3
+# stages, 2 SMs of 2 blocks; the register path: 4 threads a block, 2
+# blocks an SM): (values, place) cases by their size in packs and chunks;
+# a place is (row0, col0, width, w)
+PLAN = {"chunk_bytes": 64, "stages": 3, "sms": 2, "blocks_per_sm": 2,
+        "threads": 4, "reg_blocks_per_sm": 2}
+# global indices past 2^16, so the hash's high half counts
+SPLIT_PLACE = (2000, 5, 37, 13)       # w divides no chunk, col0 != 0
+DP_PLACE = (7000, 0, 11, 11)          # a dp shard: the fast path at row0 7000
+
+
+def _plan_cases(elem_bytes):
+    pack, chunk = 16 // elem_bytes, PLAN["chunk_bytes"] // elem_bytes
+    stages = PLAN["stages"]
+    ring = PLAN["sms"] * PLAN["blocks_per_sm"] * stages * chunk
+    return {"under_a_pack": (pack - 1, None), "one_value": (1, None),
+            "one_chunk": (chunk, None),
+            "chunk_less_a_pack": (chunk - pack, None),
+            "chunk_and_a_pack": (chunk + pack, None),
+            "stages_less_one": (stages * chunk - 1, None),
+            "stages_and_one": (stages * chunk + 1, None),
+            "wraps_the_ring": (3 * ring + 5, None),
+            "split_place": (13 * 60, SPLIT_PLACE),
+            "dp_shard": (11 * 50, DP_PLACE)}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(_plan_cases(4)))
+@pytest.mark.parametrize("path", ["ring", "registers"])
+def test_kernel_plan_is_bit_equal_to_plain_and_jax(path, case, dtype):
+    """The kernel's plan on either path (ops/hash_dropout.py:
+    plan_keep_mask: the ring's chunks a block, stage order and refills,
+    or the register path's strides; each pack's first global index on the
+    fast and the split path; the hash as the kernel splits it; the final
+    values) gives the plain version's values bit for bit, and JAX's
+    `_apply` over the global array at the shard's elements."""
+    jdt, tdt = DTYPES[dtype]
+    elem_bytes = torch.empty((), dtype=tdt).element_size()
+    n, place = _plan_cases(elem_bytes)[case]
+    seed, rate = -123457, 0.3
+    x = torch.from_numpy(_x((n,), n)).to(tdt)
+    keep = thd.plan_keep_mask(n, elem_bytes, seed, rate, place,
+                              ring=path == "ring", **PLAN)
+    got = torch.where(keep, x * torch.tensor(thd.scale_for(rate, tdt),
+                                             dtype=tdt),
+                      torch.zeros((), dtype=tdt))
+    assert torch.equal(got, thd.hash_dropout_reference(x, seed, rate, place))
+    row0, col0, width, w = place or (0, 0, n, n)
+    glob = np.zeros((row0 + n // w, width), np.float32)
+    glob[row0:, col0:col0 + w] = _np(x).reshape(-1, w)
+    ref = np.asarray(jhd._apply(jnp.asarray(glob, jdt), jnp.int32(seed),
+                                rate), np.float32)
+    np.testing.assert_array_equal(_np(got),
+                                  ref[row0:, col0:col0 + w].reshape(-1))
+
+
+def test_kernel_plan_at_the_card_geometry():
+    """Both plans at the kernel's own geometry (132 SMs; the ring's 16 KB
+    chunks, 4 stages, 2 blocks an SM; 256 threads, 8 blocks an SM on the
+    register path): a size past three chunks with a ragged tail; the path
+    is chosen by the L2's 50 MiB."""
+    n = thd.CHUNK_BYTES // 4 * 3 + 7
+    want = thd.keep_mask(0, n, 11, 0.1)
+    for ring in (True, False):
+        assert torch.equal(thd.plan_keep_mask(n, 4, 11, 0.1, ring=ring),
+                           want)
+    assert thd.L2_BYTES == 50 * 2**20
+
+
 def test_hash_scale_is_rounded_to_the_dtype():
     assert thd.scale_for(0.1, torch.bfloat16) == 1.109375
     assert thd.scale_for(0.1, torch.float32) == float(np.float32(
