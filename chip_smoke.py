@@ -6,7 +6,8 @@ and the image and speech towers) and multi-GPU training at full width.
 
     python3 chip_smoke.py [--seed N] [--parallel_only | --pipeline_only |
                            --processors_only | --seq2seq_only |
-                           --encoders_only | --vision_speech_only]
+                           --encoders_only | --vision_speech_only |
+                           --checkpoints_only]
 
 Phases, each of which raises on failure (exit code other than 0):
   1. device: torch and CUDA versions, the card's name and power limit;
@@ -221,6 +222,22 @@ Phases, each of which raises on failure (exit code other than 0):
      steps each. The images are seeded arrays behind the port's own
      datasets (only `_pixels` overridden; the card's machine has no PIL).
      `--vision_speech_only` runs the build and phase 20 alone.
+ 21. the checkpoint backends (`--ckpt_backend pickle|orbax|orbax_async`):
+     (a) phase 7's trained actor and critic `.state` written with each,
+     the seconds `save` blocks the caller, the async write's settle, the
+     bytes on disk and the load, the three payloads bit-equal (checksums);
+     phase 7's update timed with CUDA events while the async write is in
+     flight (it must not reach the directory), beside phase 7's update;
+     (b) in a process of its own with deterministic algorithms, phase 7's
+     fit cut after its first sweep with orbax_async and --save_state_steps
+     1 and resumed from the directory: the actor, the critic and their
+     moments bit-equal to phase 7's fit; (c) in phase 15's shared-card
+     legs (dp 2 + zero1, tp 2) every rank writes the trained state once
+     with orbax, its bytes and seconds beside the pickle route's
+     gather-and-write, the tensors read back bit-equal to the gathered
+     ones. Each checkpoint is
+     deleted after its check. `--checkpoints_only` runs the build, phase 7,
+     phase 21 and phase 15.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -269,8 +286,9 @@ from lr2ppo_torch.ops.int8_matmul import (int8_dot_s32, int8_dot_s32_reference,
                                           int8_matmul, int8_matmul_reference,
                                           s32_epilogue, s32_epilogue_reference)
 from lr2ppo_torch.ops.int8_mlp import int8_mlp, int8_mlp_reference
+from lr2ppo_torch.train import checkpoints
 from lr2ppo_torch.train.checkpoints import load_any, trad_dims_from_state_dict
-from lr2ppo_torch.train.common import init_state
+from lr2ppo_torch.train.common import init_state, save_train_state
 from lr2ppo_torch.train.evaluate import evaluate_cases, scores_and_ndcg
 from lr2ppo_torch.train.optim import build_optimizer
 from lr2ppo_torch.train import pointwise, reward
@@ -878,6 +896,7 @@ def train_path(args, dev, card_line: str) -> dict:
                  for k, v in built["before"].items()}
         if not all(v > 0 for v in moved.values()):
             raise AssertionError(f"parameters did not move: {moved}")
+        fit_sums = state_sums(astate, cstate)
         state = torch.load(cfg.output_model_path, weights_only=True)
         ActorCritic(cfg.model, device="meta").load_state_dict(
             state, strict=True, assign=True)
@@ -885,21 +904,10 @@ def train_path(args, dev, card_line: str) -> dict:
         del state
 
         # where a step's time goes, on the trained models
-        b = trainer.ctx.put(loader.batches[0])
-        st = trainer.ctx.put_array(np.broadcast_to(
-            np.arange(PAIR, dtype=np.int32), (TRAIN_BS, PAIR)).copy())
-        twin = frozen_copy(ScoreModel, cfg.model, actor.state_dict(),
-                           trainer.dtype, True)
-        roll = make_rollout_step(cfg.model.mode)
-        upd = make_update_step(cfg)
-        gen = torch.Generator().manual_seed(args.seed)
-        out = roll(twin, critic, reward, b["text"], b["img"], st)
-        rollout_ms = cuda_ms(lambda: roll(twin, critic, reward, b["text"],
-                                          b["img"], st), iters=3, warmup=1)
-
-        def one_update():
-            upd(astate, cstate, gen, b["text"], b["img"], st, out[2],
-                out[0], out[3], out[1])
+        one_rollout, one_update = step_closures(
+            trainer, built["models"], astate, cstate, loader.batches[0],
+            args.seed)
+        rollout_ms = cuda_ms(one_rollout, iters=3, warmup=1)
         update_ms = cuda_ms(one_update, iters=3, warmup=1)
         # the actor's AdamW step alone, on stand-in gradients: the part of
         # an update that is the optimizer's (the critic's is the same size)
@@ -909,7 +917,7 @@ def train_path(args, dev, card_line: str) -> dict:
         astate.opt.zero_grad()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            roll(twin, critic, reward, b["text"], b["img"], st)
+            one_rollout()
             one_update()
             torch.cuda.synchronize()
         emit(phase="train", params_per_model=sum(
@@ -923,7 +931,48 @@ def train_path(args, dev, card_line: str) -> dict:
              card=card_line)
         emit(phase="train_breakdown", traced="one rollout + one update",
              card=card_line, **trace_summary(prof))
-    return launches
+        # phase 21 (a) writes these states; (b) holds its fit to fit_sums
+        return {"launches": launches, "fit_sums": fit_sums,
+                "update_ms": update_ms, "one_update": one_update,
+                "trainer": trainer, "states": (astate, cstate),
+                "best": best}
+
+
+def state_sums(astate, cstate) -> dict:
+    """checksum of every tensor of the actor's and the critic's models and
+    AdamW moments (at world 1, whole)."""
+    out = {}
+    for side, s in (("actor", astate), ("critic", cstate)):
+        for k, v in s.model.state_dict().items():
+            out[f"{side}.{k}"] = checksum(v)
+        for table in ("mu", "nu"):
+            for k, v in getattr(s.opt, table).items():
+                out[f"{side}.{table}.{k}"] = checksum(v)
+    return out
+
+
+def step_closures(trainer, models, astate, cstate, batch, seed: int):
+    """(one rollout, one update) of the stage-3 step on `batch`, on the
+    trained models, as phase 7 times them."""
+    cfg = trainer.cfg
+    actor, critic, reward = models
+    b = trainer.ctx.put(batch)
+    st = trainer.ctx.put_array(np.broadcast_to(
+        np.arange(PAIR, dtype=np.int32), (TRAIN_BS, PAIR)).copy())
+    twin = frozen_copy(ScoreModel, cfg.model, actor.state_dict(),
+                       trainer.dtype, True)
+    roll = make_rollout_step(cfg.model.mode)
+    upd = make_update_step(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    out = roll(twin, critic, reward, b["text"], b["img"], st)
+
+    def one_rollout():
+        return roll(twin, critic, reward, b["text"], b["img"], st)
+
+    def one_update():
+        upd(astate, cstate, gen, b["text"], b["img"], st, out[2], out[0],
+            out[3], out[1])
+    return one_rollout, one_update
 
 
 def k3_path(args, dev, card_line: str) -> int:
@@ -2574,6 +2623,10 @@ def p15_run(cfg, dev, batch: int, seed: int, ref_path: str) -> dict:
     del full
     res["fc1_rows"] = ctx.named_parameters(actor)[
         "out_layer.fc1.weight"].shape[0]
+    if dist_backend() == "gloo":
+        res["checkpoints"] = shards_leg(ctx, astate, cstate, best,
+                                        res["sums"],
+                                        os.path.dirname(ref_path), dev)
     # one rollout and one update on the trained models, on this rank's rows
     b = ctx.put(loader.batches[0])
     st = ctx.put_array(np.broadcast_to(np.arange(PAIR, dtype=np.int32),
@@ -2836,6 +2889,14 @@ def parallel_path(args, dev, card_line: str, shared: bool = True) -> dict:
                          leg(world, "nccl", world // 2, 2), "parallel_nccl",
                          world=world)
     for name, ranks in legs.items():
+        # phase 21 (c): the sharded write against the pickle route's
+        shards = [r.pop("checkpoints") for r in ranks]
+        emit(phase="checkpoints", leg=f"shards_{name}", card=card_line,
+             ranks=shards, sharded_bytes=sum(r["rank_file_bytes"]
+                                             for r in shards))
+        if not shards[0]["held"]:
+            raise AssertionError(f"phase 21 leg {name}: the sharded state "
+                                 f"differs at {shards[0]['differ']}")
         p15_held(name, ref, ranks, "parallel_shared_card",
                  reference=ref["records"])
         # K1 on each dp rank (50,176 rows, above its gate); none under tp
@@ -2858,10 +2919,11 @@ def parallel_path(args, dev, card_line: str, shared: bool = True) -> dict:
 # -- phase 16: pipeline stages, sequence parallelism, Adafactor under tp,
 # serving on a mesh ---------------------------------------------------------
 P16_STEPS = 2                          # optimizer steps of every leg
-# XLM-R base cut to 8 of its 12 layers in this phase's runs (pp 2 and pp 4
-# still split it evenly): with phase 20 the whole script took 1,069 s of
-# its 1,200 on a slow host at 12
-P16_LAYERS = 8
+# XLM-R base cut to 4 of its 12 layers in this phase's runs (pp 2 and pp 4
+# still split it evenly), to keep the whole script in its 1,200 s with
+# phase 21 (on an NVIDIA H100 80GB HBM3, 700.00 W: 1,069 s at 12 layers
+# with phase 20 on a slow host, 953 at 8, 1,010.3 at 4 with phase 21)
+P16_LAYERS = 4
 P16_TOWER = {**XLMR_BASE, "layers_num": P16_LAYERS}
 P16_MICRO = 4                          # --pp_microbatches
 P16_SERVE_BATCHES = 2
@@ -4921,6 +4983,255 @@ def vision_speech_path(args, dev, card_line: str) -> dict:
             "sites": {**beit["sites"], **s2t["sites"]}, "k4": beit["k4"]}
 
 
+# -- phase 21: the checkpoint backends ---------------------------------------
+P21_CUT = 2                  # phase 7's batches before the cut: one sweep
+
+
+class Cut(Exception):
+    pass
+
+
+class CutAfter(BatchList):
+    """The batches of a loader, raising Cut when asked for batch n + 1: a
+    run killed between two rollouts. Its length is the whole loader's, so
+    the run's schedule is the uninterrupted run's."""
+
+    def __init__(self, batches, n: int):
+        super().__init__(batches)
+        self.n = n
+
+    def __iter__(self):
+        for i, batch in enumerate(self.batches):
+            if i == self.n:
+                raise Cut
+            yield batch
+
+
+def disk_bytes(path: str) -> int:
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def remove(path: str) -> None:
+    import shutil
+
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    elif os.path.exists(path):
+        os.remove(path)
+
+
+def payload_sums(payload: dict, dev) -> dict:
+    """checksum of every tensor of a `.state` payload's models and moments,
+    keyed as state_sums keys them."""
+    out = {}
+    for side in ("actor", "critic"):
+        for k, v in payload["models"][side].items():
+            out[f"{side}.{k}"] = checksum(v.to(dev))
+        for table in ("mu", "nu"):
+            for k, v in payload["optims"][side][table].items():
+                out[f"{side}.{table}.{k}"] = checksum(v.to(dev))
+    return out
+
+
+def backends_leg(p7: dict, seed: int, dev, card_line: str) -> dict:
+    """Phase 21 (a): phase 7's trained states written with each backend and
+    read back, the pickle payload held by checksum to the states as they
+    were at its save and the others bit-equal to it. While the async write
+    is in flight, phase 7's update runs on the live states (timed with CUDA
+    events): it must not reach the directory."""
+    astate, cstate = p7["states"]
+    ctx = p7["trainer"].ctx
+    want = state_sums(astate, cstate)
+    gen = torch.Generator().manual_seed(seed)
+    out, first = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in checkpoints.BACKENDS:
+            path = os.path.join(tmp, f"{backend}.state")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_train_state(path, {"actor": astate, "critic": cstate}, gen,
+                             astate.step, p7["best"], ctx, backend,
+                             time_ctr=0)
+            res = {"save_blocks_s": time.perf_counter() - t0}
+            if backend == "orbax_async":
+                res["update_ms_write_in_flight"] = cuda_ms(
+                    p7["one_update"], iters=3, warmup=0)
+                writer = checkpoints._SAVES.thread
+                res["write_in_flight_after_timing"] = bool(
+                    writer is not None and writer.is_alive())
+                res["phase7_update_ms"] = p7["update_ms"]
+            t1 = time.perf_counter()
+            checkpoints.wait_for_async_saves()
+            res["settle_s"] = time.perf_counter() - t1
+            res["disk_bytes"] = disk_bytes(path)
+            t2 = time.perf_counter()
+            payload = checkpoints.load_state(path)
+            res["load_s"] = time.perf_counter() - t2
+            if first is None:
+                first = payload
+                res["held"] = payload_sums(payload, dev) == want
+            else:
+                res["held"] = same_payload(payload, first)
+            del payload
+            remove(path)
+            out[backend] = res
+            emit(phase="checkpoints", leg="backends", backend=backend,
+                 card=card_line, **res)
+            if not res["held"]:
+                raise AssertionError(f"phase 21 {backend}: the payload read "
+                                     "back is not the states it saved")
+    return out
+
+
+def same_payload(a: dict, b: dict) -> bool:
+    """Two `.state` payloads with the same keys, values and tensor bits."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_payload(a[k], b[k]) for k in a))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a, b))
+    return a == b
+
+
+def p21_rank(rank, world, url, backend, job, queue) -> None:
+    """Phase 21 (b), in a process of its own with phase 15's deterministic
+    algorithms: phase 7's fit with orbax_async and --save_state_steps 1,
+    cut after its first sweep and resumed from the directory."""
+    import traceback
+
+    seed = job
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        require_cuda()
+        res = {"card": card()}
+        with tempfile.TemporaryDirectory() as tmp:
+            batches = SyntheticTrainLoader(
+                train_config(tmp, seed).model, seed + 3).batches
+
+            def fit(loader, **kw):
+                cfg = train_config(tmp, seed).replace(**kw)
+                evb, _ = synthetic_batches(2, cfg.model, seed + 4, items=8,
+                                           bucket=8, tags=(2, 8))
+                t0 = time.perf_counter()
+                astate, cstate, best = PPOTrainer(cfg, dev).fit(
+                    lambda epoch: loader, evb)
+                torch.cuda.synchronize()
+                return astate, cstate, time.perf_counter() - t0
+
+            state = os.path.join(tmp, "cut.bin.state")
+            t0 = time.perf_counter()
+            try:
+                fit(CutAfter(batches, P21_CUT), ckpt_backend="orbax_async",
+                    save_state_steps=1,
+                    output_model_path=os.path.join(tmp, "cut.bin"))
+                raise AssertionError("the cut run was not cut")
+            except Cut:
+                pass
+            res["cut_fit_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            checkpoints.wait_for_async_saves()
+            res["cut_settle_s"] = time.perf_counter() - t0
+            res["cut_state_bytes"] = disk_bytes(state)
+            # rank 0's plain values, its tensors left on disk (mmap)
+            values = torch.load(checkpoints.rank_files(state)[0], mmap=True,
+                                weights_only=True)["values"]
+            res["cut_time_ctr"] = int(dict((tuple(k), v)
+                                           for k, v in values)[("time_ctr",)])
+            # the resumed run writes no checkpoint
+            astate, cstate, res["resumed_fit_s"] = fit(
+                BatchList(batches), resume_path=state, output_model_path="")
+            res["resumed_sums"] = state_sums(astate, cstate)
+            remove(state)
+        queue.put((rank, res))
+    except BaseException:
+        queue.put((rank, {"error": traceback.format_exc()}))
+
+
+def resume_leg(p7: dict, seed: int, card_line: str) -> dict:
+    """Phase 21 (b): the cut-and-resumed fit against phase 7's fit of the
+    same seed and batches, bit for bit."""
+    r = spawn_leg("phase 21 resume", 1, "none", seed, p21_rank,
+                  timeout=900)[0]
+    got, want = r.pop("resumed_sums"), p7["fit_sums"]
+    held = got == want
+    emit(phase="checkpoints", leg="resume", held=held, tensors=len(want),
+         **r)
+    if not held or r["cut_time_ctr"] != P21_CUT:
+        bad = sorted(k for k in want if got.get(k) != want[k])[:5]
+        raise AssertionError(f"phase 21 resume: cut after "
+                             f"{r['cut_time_ctr']} rollouts; the resumed "
+                             f"fit differs from phase 7's at {bad}")
+    return r
+
+
+def shards_leg(ctx, astate, cstate, best, sums: dict, where: str,
+               dev) -> dict:
+    """Phase 21 (c), in a rank of phase 15's shared-card legs: the trained
+    state written with orbax (this rank's part, no gather) and with pickle
+    (every rank gathers, rank 0 writes), timed on every rank; rank 0 reads
+    both back and holds the sharded models to `sums` (checksums of
+    full_state_dict) and its moments and counts to the gathered ones."""
+    import torch.distributed as dist
+
+    m = ctx.mesh
+    gen = torch.Generator().manual_seed(0)
+    res = {"rank": m.rank}
+    paths = {b: os.path.join(where, f"dp{m.dp}_tp{m.tp}_{b}.state")
+             for b in ("orbax", "pickle")}
+    for backend, path in paths.items():
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_train_state(path, {"actor": astate, "critic": cstate}, gen,
+                         astate.step, best, ctx, backend, time_ctr=0)
+        res[f"{backend}_save_s"] = time.perf_counter() - t0
+    dist.barrier()
+    res["rank_file_bytes"] = os.path.getsize(
+        checkpoints.rank_files(paths["orbax"])[m.rank])
+    if m.is_main:
+        res["pickle_bytes"] = os.path.getsize(paths["pickle"])
+        sharded = checkpoints.load_state(paths["orbax"])
+        gathered = torch.load(paths["pickle"], map_location="cpu",
+                              mmap=True, weights_only=True)
+        bad, n = [], 0
+        for side in ("actor", "critic"):
+            for k, v in sharded["models"][side].items():
+                n += 1
+                if checksum(v.to(dev)) != sums[f"{side}.{k}"]:
+                    bad.append(f"{side}.{k}")
+            for table in ("mu", "nu"):
+                want = gathered["optims"][side][table]
+                got = sharded["optims"][side][table]
+                n += len(want)
+                bad += [f"{side}.{table}.{k}" for k, v in want.items()
+                        if k not in got or not torch.equal(got[k], v)]
+            if (sharded["optims"][side]["count"]
+                    != gathered["optims"][side]["count"]):
+                bad.append(f"{side}.count")
+        res.update(tensors=n, held=not bad, differ=bad[:5])
+        del sharded, gathered
+    dist.barrier()
+    if m.is_main:
+        for path in paths.values():
+            remove(path)
+    return res
+
+
+def checkpoints_path(args, dev, card_line: str, p7: dict) -> dict:
+    """Phase 21 (a) and (b); (c) runs in phase 15's shared-card legs."""
+    out = {"backends": backends_leg(p7, args.seed, dev, card_line)}
+    torch.cuda.empty_cache()
+    out["resume"] = resume_leg(p7, args.seed, card_line)
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4934,6 +5245,10 @@ def main(argv=None) -> None:
                     help="build and run phase 19 alone on one card")
     ap.add_argument("--vision_speech_only", action="store_true",
                     help="build and run phase 20 alone on one card")
+    ap.add_argument("--checkpoints_only", action="store_true",
+                    help="build and run phase 7, phase 21 and phase 15 "
+                         "(whose shared-card legs hold phase 21 (c)) alone "
+                         "on one card")
     ap.add_argument("--parallel_only", action="store_true",
                     help="build and run phase 15's and phase 16's NCCL legs "
                          "alone (dp = the card count; on two or more cards "
@@ -4958,6 +5273,17 @@ def main(argv=None) -> None:
                 for k, v in built.items()})
     for name in build.ENTRIES:
         build.library(name)
+    if args.checkpoints_only:
+        p7 = train_path(args, dev, card_line)
+        checkpoints_path(args, dev, card_line, p7)
+        del p7
+        torch.cuda.empty_cache()
+        parallel_path(args, dev, card_line)
+        print(card_line, flush=True)
+        emit(ok=True, device={"platform": "gpu",
+                              "kind": torch.cuda.get_device_name(0),
+                              "count": torch.cuda.device_count()})
+        return
     if args.vision_speech_only:
         vision_speech_path(args, dev, card_line)
         print(card_line, flush=True)
@@ -5003,6 +5329,13 @@ def main(argv=None) -> None:
                               "count": torch.cuda.device_count()})
         return
 
+    # (the phases just ended, when), from the start of the build
+    marks = [("", t0)]
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
+    mark("2")
     results = [check_kernel(1000, dt, args.seed, dev, False, card_line)
                for dt in (torch.float32, torch.bfloat16)]
     # D 512, H 4096 in float32: a corner of the shape gate, with the
@@ -5019,34 +5352,58 @@ def main(argv=None) -> None:
                               True, card_line)
     results += [*serve_shape.values(), rollout_k1]
 
+    mark("3")
     serve_launches, served = main_path(args, dev, card_line)
     torch.cuda.empty_cache()
+    mark("4-5")
     drop = dropout_kernels(args.seed, dev, card_line)
-    train_launches = train_path(args, dev, card_line)
+    mark("6")
+    p7 = train_path(args, dev, card_line)
+    train_launches = p7["launches"]
+    mark("7")
+    checkpoints_path(args, dev, card_line, p7)
+    del p7
     torch.cuda.empty_cache()
+    mark("21ab")
     k3_launches = k3_path(args, dev, card_line)
     torch.cuda.empty_cache()
+    mark("8")
     attn = attention_kernels(args.seed, dev, card_line)
+    mark("9")
     extract_launches = extract_path(args, dev, card_line)
     torch.cuda.empty_cache()
+    mark("10")
     k2 = k2_kernel(args.seed, dev, card_line)
+    mark("11")
     k2_launches = recipe_path(args, dev, card_line, served)
     del served
+    mark("12")
     tab = tabular_path(args, dev, card_line)
     torch.cuda.empty_cache()
+    mark("13")
     pre = pretrain_path(args, dev, card_line)
     torch.cuda.empty_cache()
+    mark("14")
     par = parallel_path(args, dev, card_line)
     torch.cuda.empty_cache()
+    mark("15+21c")
     p16 = pipeline_path(args, dev, card_line)
     torch.cuda.empty_cache()
+    mark("16")
     p17 = processors_path(args, dev, card_line)
     torch.cuda.empty_cache()
+    mark("17")
     p18 = seq2seq_path(args, dev, card_line)
     torch.cuda.empty_cache()
+    mark("18")
     p19 = encoders_path(args, dev, card_line)
     torch.cuda.empty_cache()
+    mark("19")
     p20 = vision_speech_path(args, dev, card_line)
+    mark("20")
+    emit(phase="phase_seconds", card=card_line,
+         seconds={name: later - earlier for (_, earlier), (name, later)
+                  in zip(marks, marks[1:])})
 
     main_k1 = serve_shape[torch.bfloat16]       # the serving path's dtype
     kernels = [{

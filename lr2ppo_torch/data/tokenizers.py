@@ -40,6 +40,43 @@ def load_special_tokens(path: Optional[str] = None) -> Dict[str, str]:
     return dict(DEFAULT_SPECIALS)
 
 
+def _count_tokens(corpus_path: str, tokenizer, start: int,
+                  end: Optional[int]) -> Dict[str, int]:
+    """Token counts of the corpus's lines [start, end)."""
+    counts: Dict[str, int] = {}
+    with open(corpus_path, encoding="utf-8") as f:
+        for i, line in enumerate(f):
+            if i < start:
+                continue
+            if end is not None and i >= end:
+                break
+            for t in tokenizer.tokenize(line, use_vocab=False):
+                counts[t] = counts.get(t, 0) + 1
+    return counts
+
+
+def _parallel_token_counts(corpus_path: str, tokenizer,
+                           workers_num: int) -> Dict[str, int]:
+    """Counts of `workers_num` line ranges in a fork pool, merged (the
+    reference's vocab.py worker/union_workers, :40-111)."""
+    from multiprocessing import get_context
+
+    with open(corpus_path, encoding="utf-8") as f:
+        lines_num = sum(1 for _ in f)
+    bounds = [(i * lines_num // workers_num,
+               (i + 1) * lines_num // workers_num)
+              for i in range(workers_num)]
+    with get_context("fork").Pool(workers_num) as pool:
+        parts = pool.starmap(
+            _count_tokens,
+            [(corpus_path, tokenizer, s, e) for s, e in bounds])
+    merged: Dict[str, int] = {}
+    for part in parts:
+        for w, c in part.items():
+            merged[w] = merged.get(w, 0) + c
+    return merged
+
+
 class Vocab:
     """token <-> id maps; one token per line (vocab.py:8-38)."""
 
@@ -55,6 +92,44 @@ class Vocab:
                 self.w2i[w] = index
                 self.i2w.append(w)
         return self
+
+    def save(self, path: str) -> None:
+        with open(path, "w", encoding="utf-8") as f:
+            for w in self.i2w:
+                f.write(w + "\n")
+
+    def add(self, w: str) -> int:
+        if w not in self.w2i:
+            self.w2i[w] = len(self.i2w)
+            self.i2w.append(w)
+        return self.w2i[w]
+
+    @classmethod
+    def build(cls, corpus_path: str, tokenizer, min_count: int = 1,
+              specials: Optional[List[str]] = None,
+              workers_num: int = 1) -> "Vocab":
+        """The vocabulary of a corpus (reference vocab.py:40-111): the
+        specials first, then every token counted at least `min_count`
+        times, by count (descending) and then by token. `workers_num > 1`
+        counts line ranges in a fork pool and merges the counts."""
+        if workers_num > 1:
+            counts = _parallel_token_counts(corpus_path, tokenizer,
+                                            workers_num)
+        else:
+            counts = _count_tokens(corpus_path, tokenizer, 0, None)
+        v = cls()
+        for s in (specials or list(DEFAULT_SPECIALS.values())):
+            v.add(s)
+        for w, c in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0])):
+            if c >= min_count:
+                v.add(w)
+        return v
+
+    def get(self, w: str) -> int:
+        return self.w2i[w]
+
+    def __len__(self) -> int:
+        return len(self.i2w)
 
 
 _SPECIAL_ALTERNATES = {

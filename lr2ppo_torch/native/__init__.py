@@ -9,7 +9,8 @@ is renamed into place, so an interrupted or concurrent build never leaves a
 truncated library behind.
 
 Nothing here falls back to numpy: a build that fails, a file the parser
-cannot read and a line it rejects all raise. The numpy parser is chosen by
+cannot read and a line it rejects all raise (where the JAX package's
+parse_svmlight and parse_tsv return None). The numpy parser is chosen by
 the caller (`parse_svmlight_file(..., use_native=False)`, the CLIs'
 --use_native_loader 0).
 """
@@ -74,6 +75,10 @@ def load() -> ctypes.CDLL:
         lib.parse_svmlight.restype = ctypes.POINTER(ctypes.c_float)
         lib.parse_svmlight.argtypes = [ctypes.c_char_p, ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_long)]
+        lib.parse_tsv.restype = ctypes.POINTER(ctypes.c_float)
+        lib.parse_tsv.argtypes = [ctypes.c_char_p,
+                                  ctypes.POINTER(ctypes.c_long),
+                                  ctypes.POINTER(ctypes.c_long)]
         lib.free_buffer.argtypes = [ctypes.POINTER(ctypes.c_float)]
         _lib = lib
         return lib
@@ -99,3 +104,25 @@ def parse_svmlight(path: str, num_features: int) -> np.ndarray:
     finally:
         lib.free_buffer(ptr)
     return arr[np.argsort(arr[:, 1], kind="stable")]
+
+
+def parse_tsv(path: str) -> Optional[np.ndarray]:
+    """A numeric tsv (tabs or spaces between values, blank lines skipped)
+    -> (rows, cols) float32; None for a file with no values, as the JAX
+    package gives. Raises where the file cannot be read or its rows differ
+    in length, where the JAX package returns None."""
+    lib = load()
+    rows, cols = ctypes.c_long(0), ctypes.c_long(0)
+    ptr = lib.parse_tsv(path.encode(), ctypes.byref(rows),
+                        ctypes.byref(cols))
+    if not ptr:
+        raise ValueError(
+            f"the native parser could not read {path} as a numeric tsv (a "
+            "missing file, or rows of different lengths)")
+    try:                                # malloc(0) needs its free too
+        if rows.value == 0:
+            return None
+        return np.ctypeslib.as_array(
+            ptr, shape=(rows.value, cols.value)).copy()
+    finally:
+        lib.free_buffer(ptr)

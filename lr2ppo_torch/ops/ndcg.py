@@ -1,6 +1,7 @@
 """Batched, masked NDCG@k on the device, and the host-side meter that
-averages it (counterpart of lr2ppo_tpu/ops/ndcg.py; the meter is a copy of
-its numpy class).
+averages it, and the host's dcg_at_k / ndcg_at_k (counterpart of
+lr2ppo_tpu/ops/ndcg.py; the meter and the host functions are copies of its
+numpy code).
 
 Gain is 2^rel - 1, discount 1/log2(pos + 2), and an all-irrelevant ideal
 (true DCG <= 1e-6) scores 1. The sorts are stable, like jnp.argsort, so
@@ -15,6 +16,26 @@ import numpy as np
 import torch
 
 NDCG_AT_K_DEFAULT = [1, 3, 5, 10, 20, 100000000]
+
+
+def dcg_at_k(relevances: np.ndarray, k: int) -> float:
+    """DCG@k of one ranked list of relevances, on the host, in float64
+    (reference ndcg.py:28-32)."""
+    rel = np.asarray(relevances, dtype=np.float64)
+    n = min(len(rel), k)
+    if n == 0:
+        return 0.0
+    idx = np.arange(n)
+    return float(np.sum((2.0 ** rel[:n] - 1.0) / np.log2(idx + 2.0)))
+
+
+def ndcg_at_k(predicted_relevance: np.ndarray, true_relevances: np.ndarray,
+              k: int) -> float:
+    """NDCG@k on the host: 1 where the ideal DCG is <= 1e-6 (ndcg.py:40-41)."""
+    true = dcg_at_k(true_relevances, k)
+    if true <= 1e-6:
+        return 1.0
+    return dcg_at_k(predicted_relevance, k) / true
 
 
 def ndcg_from_scores(scores: torch.Tensor, gold: torch.Tensor,
@@ -64,6 +85,21 @@ class AverageNDCGMeter:
             self.ndcg[k] = (float(np.mean(np.asarray(vals))) if len(vals)
                             else float("nan"))
         return self.ndcg
+
+    def compute_ndcg_at_k(self, predicted_relevance, true_relevances
+                          ) -> None:
+        """Append one list's NDCG at every k (relevances in predicted and
+        in ideal order)."""
+        for k in self.ndcg_at_k:
+            self.ndcg[k].append(ndcg_at_k(np.asarray(predicted_relevance),
+                                          np.asarray(true_relevances), k))
+
+    def return_ndcg_at_k(self, predicted_relevance, true_relevances
+                         ) -> np.ndarray:
+        """One list's NDCG at every k as float32, without recording it."""
+        return np.asarray([ndcg_at_k(np.asarray(predicted_relevance),
+                                     np.asarray(true_relevances), k)
+                           for k in self.ndcg_at_k], dtype=np.float32)
 
     def extend(self, ndcg_rows: np.ndarray) -> None:
         """Append a (N, len(ks)) matrix of per-list NDCG vectors (the

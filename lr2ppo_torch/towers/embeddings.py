@@ -224,9 +224,10 @@ class SpeechEmbedding(nn.Module):
         self.kernel_size = kernel_size
         self.n_layers = conv_layers
         for i in range(conv_layers):
-            self.add_module(f"conv_{i}", nn.Conv1d(
-                in_dim if i == 0 else emb_size, 2 * emb_size, kernel_size,
-                stride=2, device=device))
+            conv = nn.Conv1d(in_dim if i == 0 else emb_size, 2 * emb_size,
+                             kernel_size, stride=2, device=device)
+            conv.decay_bias = True     # JAX's leaf is `conv_<i>_bias`
+            self.add_module(f"conv_{i}", conv)
         self.scale = math.sqrt(emb_size) if sinusoidalpos else None
 
     def forward(self, src: torch.Tensor, seg) -> torch.Tensor:

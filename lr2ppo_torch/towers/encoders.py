@@ -311,7 +311,9 @@ class GatedcnnEncoder(nn.Module):
         k, hs = cfg.kernel_size, cfg.hidden_size
 
         def conv(in_ch, width):
-            return nn.Conv2d(in_ch, hs, (k, width), device=device)
+            c = nn.Conv2d(in_ch, hs, (k, width), device=device)
+            c.decay_bias = True        # JAX's leaf is `<name>_b`, decayed
+            return c
 
         self.conv_1, self.gate_1 = (conv(1, cfg.emb_size),
                                     conv(1, cfg.emb_size))

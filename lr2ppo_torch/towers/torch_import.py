@@ -205,11 +205,16 @@ def load_tower_checkpoint(path: str, channels_num: int = 3,
                           kernel_size: Optional[int] = None
                           ) -> Dict[str, torch.Tensor]:
     """A tower's reference-keyed state_dict: a reference `.bin` or the
-    port's (a torch state_dict, a gated CNN's split biases folded), or a
-    JAX package pickle checkpoint (save_checkpoint's {"tree", ...}, e.g.
-    the JAX pretrainer's `-best`) through `tower_params_from_flax`."""
-    from lr2ppo_torch.train.checkpoints import jax_pickle_tree
+    port's (a torch state_dict, a gated CNN's split biases folded; or the
+    port's sharded directory), or a JAX package pickle checkpoint
+    (save_checkpoint's {"tree", ...}, e.g. the JAX pretrainer's `-best`)
+    through `tower_params_from_flax`."""
+    import os
 
+    from lr2ppo_torch.train.checkpoints import jax_pickle_tree, load_any
+
+    if os.path.isdir(path):
+        return fold_split_biases(load_any(path))
     tree = jax_pickle_tree(path)
     if tree is not None:
         return tower_params_from_flax(tree, channels_num, kernel_size)

@@ -22,8 +22,9 @@ from lr2ppo_torch.parallel.mesh import (Mesh, active, all_gather_dim,
                                         shard_slice, tp_dim, zero_dim)
 from lr2ppo_torch.parallel.tp import dp_mean, shard_tp
 from lr2ppo_torch.train import checkpoints
+from lr2ppo_torch.train.checkpoints import local_part
 from lr2ppo_torch.train.optim import (AdamW, DistributedOptimizer,
-                                      build_optimizer)
+                                      build_optimizer, no_decay_names)
 
 
 @dataclass
@@ -145,6 +146,7 @@ class DeviceCtx:
         DistributedOptimizer when a process group is up (zero1 slices the
         AdamW moments: each rank's optimizer sees views of its slices)."""
         named = self.named_parameters(model)
+        kw.setdefault("no_decay", no_decay_names(model))
         if not self.mesh.distributed:
             return build_optimizer(optim_cfg, named, train_steps, **kw)
         fsdp_dims = getattr(model, "_fsdp_dims", {})
@@ -189,6 +191,28 @@ class DeviceCtx:
             out = gather_to_first(out, mesh)
         return out
 
+    def local_state_dict(self, model: nn.Module) -> dict:
+        """The per-rank counterpart of full_state_dict, with no collective:
+        {reference key: Part} of the tensors this rank writes to a sharded
+        checkpoint, each as this rank holds it with its place in the whole
+        (the tp split outermost, then the fsdp one); a tensor whole along
+        an axis is written by the rank at index 0 of that axis, and under
+        pp each stage writes its own keys."""
+        mesh, dims = self.mesh, getattr(model, "_fsdp_dims", {})
+        out = {}
+        for k, v in model.state_dict().items():
+            k = clean_name(k)
+            splits = []
+            d = tp_dim(k) if mesh.tp > 1 else None
+            if d is not None and _is_split(model, k):
+                splits.append((d, mesh.tp_rank, mesh.tp, "tp"))
+            if k in dims:
+                splits.append((dims[k], mesh.dp_rank, mesh.dp, "dp"))
+            part = local_part(v, splits, mesh)
+            if part is not None:
+                out[k] = part
+        return out
+
     @torch.no_grad()
     def load_full_state(self, model: nn.Module, state: dict) -> None:
         """Load a full-width reference-keyed state_dict (strict) into a
@@ -227,9 +251,9 @@ def _is_split(model: nn.Module, key: str) -> bool:
 
 
 def check_unported(cfg: Config, allow_pp: bool = False) -> None:
-    """Refuse what the port does not run: a non-pickle checkpoint backend,
-    and --pp outside tower pretraining (`allow_pp`), as the JAX package
-    pipelines only the tower encoder."""
+    """Refuse an unknown checkpoint backend, and --pp outside tower
+    pretraining (`allow_pp`), as the JAX package pipelines only the tower
+    encoder."""
     checkpoints.check_backend(cfg.ckpt_backend)
     if getattr(cfg.mesh, "pp", 1) > 1 and not allow_pp:
         raise ValueError("--pp pipelines the tower encoder: it runs in "
@@ -270,23 +294,44 @@ def logged_path(ctx: DeviceCtx, path: Optional[str]) -> Optional[str]:
     return path if ctx.is_main else None
 
 
+def save_models(path: str, models, ctx: Optional[DeviceCtx] = None,
+                backend: str = "pickle") -> None:
+    """Write one model (stages 1 and 2, pretraining) as a reference-keyed
+    `.bin`, or the {"actor", "critic"} pair as one ActorCritic `.bin`
+    (stage 3). Under a mesh the pickle backend gathers the full-width
+    weights on every rank and rank 0 writes; the sharded backends write
+    each rank's part (DeviceCtx.local_state_dict) with no gather. Every
+    rank must call it."""
+    def weights(model):
+        if ctx is None:
+            return model
+        return (ctx.full_state_dict(model) if backend == "pickle"
+                else ctx.local_state_dict(model))
+
+    if isinstance(models, dict):
+        write = checkpoints.save_actor_critic
+        parts = [weights(models["actor"]), weights(models["critic"])]
+    else:
+        write, parts = checkpoints.save_model, [weights(models)]
+    if backend == "pickle" and ctx is not None and not ctx.is_main:
+        return
+    write(path, *parts, backend)
+
+
 class BestSaver:
     """Save-best contract (model_saver.py:4-11, ppo.py:910-915): one model
     is written as a reference-keyed `.bin` (stages 1 and 2), the
-    {"actor", "critic"} pair as one ActorCritic `.bin` (stage 3). Under a
-    mesh every rank gathers the full-width weights (the metric is the same
-    on every rank, so all of them take the branch) and rank 0 writes."""
+    {"actor", "critic"} pair as one ActorCritic `.bin` (stage 3), with the
+    run's checkpoint backend (save_models). Under a mesh the metric is the
+    same on every rank, so all of them take the branch."""
 
     def __init__(self, path: str, logger=None,
-                 ctx: Optional[DeviceCtx] = None):
+                 ctx: Optional[DeviceCtx] = None, backend: str = "pickle"):
         self.path = path
         self.best = -np.inf
         self.logger = logger
         self.ctx = ctx
-
-    def _full(self, model):
-        return (self.ctx.full_state_dict(model) if self.ctx is not None
-                else model)
+        self.backend = backend
 
     def maybe_save(self, metric: float, models) -> bool:
         # 'not (metric > best)': NaN from a diverged eval must never
@@ -294,16 +339,8 @@ class BestSaver:
         if not (metric > self.best):
             return False
         self.best = float(metric)
-        main = self.ctx is None or self.ctx.is_main
-        if self.path and isinstance(models, dict):
-            actor, critic = (self._full(models["actor"]),
-                             self._full(models["critic"]))
-            if main:
-                checkpoints.save_actor_critic(self.path, actor, critic)
-        elif self.path:
-            full = self._full(models)
-            if main:
-                checkpoints.save_model(self.path, full)
+        if self.path:
+            save_models(self.path, models, self.ctx, self.backend)
         if self.logger:
             self.logger.info("Best val indicator until now!")
         return True
@@ -319,20 +356,26 @@ def peek_batch(loader):
 
 def save_train_state(path: str, states: dict, generator: torch.Generator,
                      step: int, best: float, ctx: Optional[DeviceCtx] = None,
-                     **counters) -> None:
+                     backend: str = "pickle", **counters) -> None:
     """The resumable `.state` payload (checkpoints.save_state): each named
     TrainState's model, optimizer and update count, the dropout generator's
     state, the step and the best watermark. The single-model trainers name
     their state "model"; PPO names "actor" and "critic" and adds its
-    rollout counter. Under a mesh the payload holds full-width tensors
-    (every rank gathers; rank 0 writes), so it resumes at any world."""
-    models = {k: (ctx.full_state_dict(s.model) if ctx is not None
-                  else s.model) for k, s in states.items()}
-    optims = {k: s.opt.state_dict() for k, s in states.items()}
-    if ctx is not None and not ctx.is_main:
+    rollout counter. Under a mesh the pickle backend writes full-width
+    tensors (every rank gathers; rank 0 writes), and the sharded backends
+    each rank's part with no gather; either resumes at any world."""
+    whole = backend == "pickle"
+    if ctx is None:
+        models = {k: s.model for k, s in states.items()}
+    else:
+        weights = ctx.full_state_dict if whole else ctx.local_state_dict
+        models = {k: weights(s.model) for k, s in states.items()}
+    optims = {k: s.opt.state_dict() if whole else s.opt.local_state()
+              for k, s in states.items()}
+    if whole and ctx is not None and not ctx.is_main:
         return
     checkpoints.save_state(
-        path, models, optims, generator, step=step,
+        path, models, optims, generator, backend, step=step,
         best=best, updates={k: s.step for k, s in states.items()},
         **counters)
 

@@ -15,9 +15,13 @@ Adafactor is `optax.adafactor(learning_rate=schedule)` with optax's
 defaults written out (see `Adafactor`), as the JAX package builds it for
 --optimizer adafactor.
 
-The decay mask decays every parameter whose name does not end in `bias`:
-the reference exempts names holding 'bias'/'gamma'/'beta', and its finetune
-models have no gamma/beta, so LayerNorm weights and `pos_emb` decay.
+The decay mask is the JAX package's `decay_mask`: every parameter decays
+but one whose flax leaf is named `bias` (the reference exempts names holding
+'bias'/'gamma'/'beta', and its finetune models have no gamma/beta, so
+LayerNorm weights and `pos_emb` decay). A torch `.bias` is that leaf except
+where JAX declares the bias under a name of its own (the gated CNN's
+`conv_stem_b`, the speech embedding's `conv_<i>_bias`): those modules set
+`decay_bias`, and `no_decay_names(model)` leaves them out.
 """
 
 from __future__ import annotations
@@ -29,8 +33,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from lr2ppo_torch.parallel.fsdp import clean_name
 from lr2ppo_torch.parallel.mesh import (all_gather_dim, shard_slice, tp_dim,
                                         zero_dim)
+from lr2ppo_torch.train.checkpoints import local_part
 
 
 def _schedule_fns(name: str, base_lr: float, train_steps: int, w: int):
@@ -92,8 +98,26 @@ def make_schedule(name: str, base_lr: float, train_steps: int,
                          max(int(train_steps * warmup), 1))
 
 
-def decays(name: str) -> bool:
-    """Decay every parameter not named `bias`."""
+def no_decay_names(model: torch.nn.Module) -> frozenset:
+    """The reference keys of the model's parameters that AdamW does not
+    decay: every `bias` but those of modules that set `decay_bias` (their
+    JAX leaf has another name, so JAX's decay_mask decays it)."""
+    out = set()
+    for key, _ in model.named_parameters():
+        key = clean_name(key)
+        owner, _, leaf = key.rpartition(".")
+        if leaf == "bias" and not getattr(model.get_submodule(owner),
+                                          "decay_bias", False):
+            out.add(key)
+    return frozenset(out)
+
+
+def decays(name: str, no_decay: Optional[frozenset] = None) -> bool:
+    """Whether AdamW decays the parameter `name`: not where it is in
+    `no_decay` (no_decay_names of its model), and where that is not given,
+    not where it is named `bias`."""
+    if no_decay is not None:
+        return name not in no_decay
     return name.split(".")[-1] != "bias"
 
 
@@ -107,8 +131,10 @@ class AdamW:
                  b2: float = 0.999, eps: float = 1e-6,
                  weight_decay: float = 0.01, correct_bias: bool = False,
                  moment_dtype: Optional[torch.dtype] = None,
-                 grad_clip: Optional[float] = None):
+                 grad_clip: Optional[float] = None,
+                 no_decay: Optional[frozenset] = None):
         self.params = dict(named_params)
+        self.no_decay = no_decay
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.correct_bias = weight_decay, correct_bias
@@ -156,7 +182,7 @@ class AdamW:
             v = self.nu[k].float().mul_(self.b2).add_(
                 torch.square(g).mul_(1 - self.b2))
             upd = m * step_scale / (torch.sqrt(v) + self.eps)
-            if self.weight_decay and decays(k):
+            if self.weight_decay and decays(k, self.no_decay):
                 upd.add_(p.float() * self.weight_decay)
             p.add_((upd * -lr).to(p.dtype))
             self.mu[k].copy_(m)
@@ -172,6 +198,11 @@ class AdamW:
         return {"count": self.count,
                 "mu": {k: v.detach() for k, v in self.mu.items()},
                 "nu": {k: v.detach() for k, v in self.nu.items()}}
+
+    def local_state(self) -> dict:
+        """What this optimizer writes to a sharded checkpoint: in one
+        process, its whole state_dict()."""
+        return self.state_dict()
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
@@ -349,6 +380,11 @@ class Adafactor:
                 "v_col": {k: v.detach() for k, v in self.v_col.items()},
                 "v": {k: v.detach() for k, v in self.v.items()}}
 
+    def local_state(self) -> dict:
+        """What this optimizer writes to a sharded checkpoint: in one
+        process, its whole state_dict()."""
+        return self.state_dict()
+
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
         """Copy a state_dict() into this optimizer's statistics; the
@@ -360,9 +396,11 @@ class Adafactor:
 
 def build_optimizer(optim_cfg, named_params: Dict[str, torch.nn.Parameter],
                     train_steps: int, lr: Optional[float] = None,
-                    schedule_wrap=None, splits: Optional[dict] = None):
+                    schedule_wrap=None, splits: Optional[dict] = None,
+                    no_decay: Optional[frozenset] = None):
     """AdamW or Adafactor + schedule, mirroring build_optimizer
-    (ppo.py:378-419); Adafactor takes only the schedule, as in JAX. `lr`
+    (ppo.py:378-419); Adafactor takes only the schedule, as in JAX.
+    `no_decay` is AdamW's no_decay_names(model) (decays). `lr`
     overrides the base lr (actor vs critic); `schedule_wrap(sched) -> sched`
     remaps the step axis — PPO ticks its schedulers once per update SWEEP
     (ppo.py:612-613) via `lambda s: lambda t: s(t // upd)`. `splits` are
@@ -379,7 +417,7 @@ def build_optimizer(optim_cfg, named_params: Dict[str, torch.nn.Parameter],
                  optim_cfg.adam_eps, optim_cfg.weight_decay,
                  optim_cfg.correct_bias,
                  getattr(torch, moment_dtype) if moment_dtype else None,
-                 optim_cfg.grad_clip)
+                 optim_cfg.grad_clip, no_decay)
 
 
 # elements a gradient all-reduce takes at once
@@ -627,6 +665,42 @@ class DistributedOptimizer:
                 out[k] = v
             sd[table] = out
         return self._gather_stages(sd, ("mu", "nu"))
+
+    def local_state(self) -> dict:
+        """This rank's share of state_dict() for a sharded checkpoint, with
+        no collective: each moment or statistic as this rank holds it, a
+        Part of the global tensor (tp outermost, then dp), written by one
+        rank of each replica group; under pp, the stage's keys."""
+        mesh = self.mesh
+        out = {"count": self.inner.count}
+        if isinstance(self.inner, Adafactor):
+            for tname, table in self._stat_tables().items():
+                out[tname] = {}
+                for k, v in table.items():
+                    splits = [(d, mesh.tp_rank, parts, "tp")
+                              if group is mesh.tp_group
+                              else (d, mesh.dp_rank, parts, "dp")
+                              for d, group, parts in reversed(
+                                  self._split_stat_dims(tname, k))]
+                    if (tname, k) in self.stat_dims:
+                        splits.append((self.stat_dims[(tname, k)],
+                                       mesh.dp_rank, mesh.dp, "dp"))
+                    part = local_part(v, splits, mesh)
+                    if part is not None:
+                        out[tname][k] = part
+            return out
+        for table in ("mu", "nu"):
+            out[table] = {}
+            for k, v in getattr(self.inner, table).items():
+                dd, td = self._moment_dims(k)
+                splits = ([(td, mesh.tp_rank, mesh.tp, "tp")]
+                          if td is not None else [])
+                if dd is not None:
+                    splits.append((dd, mesh.dp_rank, mesh.dp, "dp"))
+                part = local_part(v, splits, mesh)
+                if part is not None:
+                    out[table][k] = part
+        return out
 
     def _gather_stages(self, sd: dict, tables) -> dict:
         if self.mesh.pp == 1:

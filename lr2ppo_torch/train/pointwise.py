@@ -111,14 +111,15 @@ class PointwiseTrainer:
             step, start_epoch, skip_batches, resume_best = resume_fit_state(
                 cfg, state, generator, steps_per_epoch, self.logger,
                 self.ctx)
-        saver = BestSaver(cfg.output_model_path, self.logger, self.ctx)
+        saver = BestSaver(cfg.output_model_path, self.logger, self.ctx,
+                          cfg.ckpt_backend)
         saver.best = max(saver.best, resume_best)
 
         def save_state(step):
             if cfg.save_state_steps and step % cfg.save_state_steps == 0:
                 save_train_state(cfg.output_model_path + ".state",
                                  {"model": state}, generator, step,
-                                 saver.best, self.ctx)
+                                 saver.best, self.ctx, cfg.ckpt_backend)
 
         return (state, generator, saver, step, start_epoch, skip_batches,
                 save_state)
@@ -168,6 +169,7 @@ class PointwiseTrainer:
                 save_state(step)      # with the epoch-end eval's best
         trace.close()
         self.trace_path = trace.path
+        checkpoints.wait_for_async_saves()
         self.logger.info(f"Best NDCG: {saver.best}")
         return state, saver.best
 
@@ -238,6 +240,7 @@ class TwoDataTrainer(PointwiseTrainer):
             self.metrics.log(step, ndcg_full=metric)
             saver.maybe_save(metric, model)
             save_state(step)          # with the epoch-end eval's best
+        checkpoints.wait_for_async_saves()
         self.logger.info(f"Best NDCG: {saver.best}")
         return state, saver.best
 

@@ -279,13 +279,15 @@ class PPOTrainer:
             self.logger.info(
                 f"resumed PPO from {cfg.resume_path} @ sweep {step} "
                 f"(epoch {start_epoch}, skipping {skip_batches} batches)")
-        saver = BestSaver(cfg.output_model_path, self.logger, self.ctx)
+        saver = BestSaver(cfg.output_model_path, self.logger, self.ctx,
+                          cfg.ckpt_backend)
         saver.best = max(saver.best, resume_best)
 
         def save_state():
             save_train_state(cfg.output_model_path + ".state",
                              {"actor": astate, "critic": cstate}, generator,
-                             step, saver.best, self.ctx, time_ctr=time_ctr)
+                             step, saver.best, self.ctx, cfg.ckpt_backend,
+                             time_ctr=time_ctr)
 
         memories: List[dict] = []
         pending_save = False
@@ -382,6 +384,7 @@ class PPOTrainer:
             # params); only where .state files are kept at all
             if pending_save or (improved and cfg.save_state_steps):
                 save_state()
+        checkpoints.wait_for_async_saves()
         self.logger.info(f"Best NDCG: {saver.best}")
         return astate, cstate, saver.best
 

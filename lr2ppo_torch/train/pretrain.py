@@ -64,7 +64,7 @@ from lr2ppo_torch.train import checkpoints
 from lr2ppo_torch.train.common import (BestSaver, TrainState, apply_updates,
                                        device_ctx, init_state, logged_path,
                                        peek_batch, resume_fit_state,
-                                       save_train_state)
+                                       save_models, save_train_state)
 from lr2ppo_torch.utils import MetricLogger, check_finite, init_logger
 
 def norm_target_out(out, rows: int):
@@ -258,7 +258,7 @@ class PretrainTrainer:
                                                     self.form)
         saver = BestSaver(cfg.output_model_path + "-best"
                           if cfg.output_model_path else "", self.logger,
-                          self.ctx)
+                          self.ctx, cfg.ckpt_backend)
         saver.best = max(saver.best, resume_best)
         tokens_since, t_last = 0, time.perf_counter()
         for epoch in range(start_epoch, epochs + 1):
@@ -293,11 +293,11 @@ class PretrainTrainer:
                 if save_checkpoint_steps and step % save_checkpoint_steps == 0:
                     save_train_state(f"{cfg.output_model_path}-{step}",
                                      {"model": state}, generator, step,
-                                     saver.best, self.ctx)
+                                     saver.best, self.ctx, cfg.ckpt_backend)
                 if step >= total:
                     break
         if cfg.output_model_path:
-            full = self.ctx.full_state_dict(model)
-            if self.ctx.is_main:
-                checkpoints.save_model(cfg.output_model_path, full)
+            save_models(cfg.output_model_path, model, self.ctx,
+                        cfg.ckpt_backend)
+        checkpoints.wait_for_async_saves()
         return state, saver.best

@@ -124,7 +124,8 @@ class RewardTrainer:
                 cfg, state, generator, steps_per_epoch, self.logger,
                 self.ctx)
         train_step = make_train_step(self.margin)
-        saver = BestSaver(cfg.output_model_path, self.logger, self.ctx)
+        saver = BestSaver(cfg.output_model_path, self.logger, self.ctx,
+                          cfg.ckpt_backend)
         saver.best = max(saver.best, resume_best)
 
         def save_state(step):
@@ -132,7 +133,7 @@ class RewardTrainer:
             if cfg.save_state_steps and step % cfg.save_state_steps == 0:
                 save_train_state(cfg.output_model_path + ".state",
                                  {"model": state}, generator, step,
-                                 saver.best, self.ctx)
+                                 saver.best, self.ctx, cfg.ckpt_backend)
 
         last_eval_step = -1
         for epoch in range(start_epoch, cfg.epochs_num + 1):
@@ -167,5 +168,6 @@ class RewardTrainer:
                 self.logger.info(f"epoch {epoch} val accuracy: {val_acc:.4f}")
                 saver.maybe_save(val_acc, model)
                 save_state(step)      # with the epoch-end eval's best
+        checkpoints.wait_for_async_saves()
         self.logger.info(f"Best Acc: {saver.best}")
         return state, saver.best

@@ -78,6 +78,10 @@ def test_load_any_reads_a_reference_bin(tmp_path, flax_params):
     _assert_same(both["critic"], sd)
 
 
-def test_load_any_refuses_an_orbax_directory(tmp_path):
-    with pytest.raises(ValueError, match="orbax"):
-        load_any(str(tmp_path))
+def test_load_any_refuses_an_orbax_directory(tmp_path, flax_params):
+    """An orbax directory the JAX package wrote (its 'orbax' backend) is
+    refused with a message that names the JAX package."""
+    path = str(tmp_path / "best")
+    jck.save_checkpoint(path, flax_params, backend="orbax")
+    with pytest.raises(ValueError, match="orbax.*JAX package"):
+        load_any(path)

@@ -4,9 +4,10 @@ gru, lstm with `bidirectional`, the birnn, bilstm and bigru stacks at 2
 layers (where they differ from bidirectional=True), the gated CNN at 3
 layers in blocks of 2, the dual encoder with and without tied weights, the
 clr target's loss, correct count and n, and one AdamW step of an lstm + lm,
-a bilstm + bilm and a tiny clip tower (the loss and every updated
-parameter). Each case carries the JAX tree across with
-`tower_params_from_flax`; the gated CNN also loads from a reference-layout
+a bilstm + bilm, a tiny clip tower, a gated CNN + lm and a speech seq2seq
+tower (the loss and every updated parameter, the decay of the gated CNN's
+and the speech convolutions' biases among them). Each case carries the JAX
+tree across with `tower_params_from_flax`; the gated CNN also loads from a reference-layout
 `.bin` with split biases."""
 
 import dataclasses
@@ -30,7 +31,7 @@ from lr2ppo_torch.towers import (TowerConfig, TowerModel,
 from lr2ppo_torch.towers.model import init_weights
 from lr2ppo_torch.train import pretrain as ttrain
 from lr2ppo_torch.train.common import TrainState
-from lr2ppo_torch.train.optim import build_optimizer
+from lr2ppo_torch.train.optim import build_optimizer, no_decay_names
 
 torch.set_num_threads(1)
 
@@ -272,11 +273,50 @@ def _clip_batch(seed):
             "seg_image": seg_img, "tgt": tgt}
 
 
+FRAMES, N_MELS = 16, 80
+
+
+def _speech_batch(seed):
+    """16 frames of 80 bins (4 positions after the two stride-2
+    convolutions), a padded target row."""
+    rng = np.random.RandomState(seed)
+    src = rng.standard_normal((B, FRAMES, N_MELS)).astype(np.float32)
+    seg = np.ones((B, FRAMES // 4), np.int32)
+    seg[1, 3:] = 0
+    tgt_in = rng.randint(5, V, (B, 6)).astype(np.int32)
+    tgt_seg = np.ones((B, 6), np.int32)
+    tgt_seg[2, 4:] = 0
+    tgt_in *= tgt_seg
+    tgt_out = (np.roll(tgt_in, -1, axis=1) * tgt_seg).astype(np.int32)
+    return {"src": src, "tgt_out": tgt_out, "seg": seg, "tgt_in": tgt_in,
+            "tgt_seg": tgt_seg}
+
+
+def _speech_biases(params, rng):
+    """JAX starts the speech convolutions' biases at 0, where decay moves
+    nothing: N(0, 1) instead, so the step shows whether they decay."""
+    speech = params["params"]["embedding"]["speech"]
+    for k in speech:
+        if k.endswith("_bias"):
+            speech[k] = rng.standard_normal(speech[k].shape).astype(
+                np.float32)
+    return params
+
+
+SPEECH_RAW = raw_cfg(emb_size=16, hidden_size=16, encoder="transformer",
+                     embedding=["speech", "sinusoidalpos"],
+                     tgt_embedding=["word", "sinusoidalpos"],
+                     decoder="transformer", target=["lm"],
+                     layernorm_positioning="pre", max_audio_frames=FRAMES)
+
+# (tower config, batch form, batch maker[, a change to JAX's init])
 STEPS = {
     "lstm_lm": (raw_cfg(encoder="lstm", layers_num=2), "simple", _lm_batch),
     "bilstm_bilm": (raw_cfg(encoder="bilstm", target=["bilm"]), "bilm",
                     _bilm_batch),
     "clip": (dual_raw(False), "clip", _clip_batch),
+    "gatedcnn_lm": (raw_cfg(**ENCODERS["gatedcnn"]), "simple", _lm_batch),
+    "speech_s2t": (SPEECH_RAW, "seq2seq", _speech_batch, _speech_biases),
 }
 
 
@@ -286,11 +326,13 @@ def test_one_training_step_matches_jax(case):
     make_pretrain_step_form and the port's make_pretrain_step from the same
     weights and batch: the step's loss and accuracy, and every parameter
     after the update (all of them moved)."""
-    raw, form, make = STEPS[case]
+    raw, form, make, *prepare = STEPS[case]
     mb = make(7)
     jmodel = JTowerModel(JTowerConfig.from_dict(raw))
     params = jax.tree.map(np.asarray, jmodel.init(
         jax.random.PRNGKey(0), *jtrain.form_args(form, mb)))
+    for change in prepare:
+        params = change(params, np.random.RandomState(8))
     jcfg, cfg = JConfig(), Config()
     for c in (jcfg, cfg):
         c.optim.learning_rate, c.optim.scheduler = 1e-2, "constant"
@@ -303,7 +345,8 @@ def test_one_training_step_matches_jax(case):
     model.load_state_dict(tower_params_from_flax(params), strict=True)
     start = {k: v.clone() for k, v in model.state_dict().items()}
     state = TrainState(model, build_optimizer(
-        cfg.optim, dict(model.named_parameters()), 10))
+        cfg.optim, dict(model.named_parameters()), 10,
+        no_decay=no_decay_names(model)))
     m = ttrain.make_pretrain_step(1, form=form)(
         state, torch.Generator().manual_seed(0),
         {k: torch.from_numpy(v) for k, v in mb.items()})

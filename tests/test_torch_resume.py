@@ -21,6 +21,7 @@ from lr2ppo_tpu.models.scorer import ScoreModel as JScore
 from lr2ppo_tpu.train.common import init_state as jinit_state
 from lr2ppo_tpu.train.common import save_train_state as jsave_train_state
 from lr2ppo_tpu.train.optim import build_optimizer as jbuild
+from lr2ppo_torch.cli import ppo_eval
 from lr2ppo_torch.config import Config
 from lr2ppo_torch.data import EvalLoader, Loader, MovieNetDataset
 from lr2ppo_torch.train import checkpoints
@@ -191,7 +192,8 @@ def test_resuming_a_finished_run_is_a_noop(tmp_path, data, stage):
 def test_a_jax_state_raises(tmp_path, data):
     """The JAX package's pointwise `.state` (a pickle of its params and
     optax tree) is refused before any step, with a message that says so;
-    so is an orbax directory, and the orbax checkpoint backends."""
+    so is the orbax directory of the JAX package's 'orbax' backend, by
+    load_state and load_any, naming the JAX package."""
     mcfg = JModelConfig(feat_size=D, seq_length=SEQ, max_imgs=IMGS,
                         visual_feat_dim=D, num_heads=HEADS)
     rng = np.random.RandomState(0)
@@ -204,8 +206,52 @@ def test_a_jax_state_raises(tmp_path, data):
     jsave_train_state(path, jinit_state(params, tx), 3, 0.5)
     with pytest.raises(ValueError, match="JAX package .state"):
         _pointwise(tmp_path, data, "port", resume_path=path)
-    (tmp_path / "orbax.state").mkdir()
-    with pytest.raises(ValueError, match="orbax"):
-        checkpoints.load_state(str(tmp_path / "orbax.state"))
-    with pytest.raises(ValueError, match="orbax"):
-        _pointwise(tmp_path, data, "port", ckpt_backend="orbax")
+    orbax = str(tmp_path / "orbax.state")
+    jsave_train_state(orbax, jinit_state(params, tx), 3, 0.5,
+                      backend="orbax")
+    for load in (checkpoints.load_state, checkpoints.load_any):
+        with pytest.raises(ValueError, match="orbax.*JAX package"):
+            load(orbax)
+    with pytest.raises(ValueError, match="orbax.*JAX package"):
+        _pointwise(tmp_path, data, "port", resume_path=orbax)
+
+
+@pytest.mark.parametrize("backend", ["orbax", "orbax_async"])
+@pytest.mark.parametrize("stage", ["pointwise", "ppo"])
+def test_sharded_resume_equals_the_uninterrupted_fit(tmp_path, data, stage,
+                                                     backend):
+    """A fit cut mid-epoch after its save with a sharded backend, resumed
+    from the directory, ends where the uninterrupted pickle fit ends; its
+    best checkpoint, a directory too, reads as that fit's `.bin` (through
+    ppo_eval for stage 3)."""
+    fit, _, every, k, _ = STAGES[stage]
+    full, full_best = fit(tmp_path, data, "full", save_state_steps=every)
+    with pytest.raises(Interrupted):
+        fit(tmp_path, data, "cut", stop=k, save_state_steps=every,
+            ckpt_backend=backend)
+    state = str(tmp_path / "cut.bin.state")
+    resumed, best = fit(tmp_path, data, "cut", resume_path=state,
+                        save_state_steps=every, ckpt_backend=backend)
+    assert checkpoints.is_sharded(state)
+    _assert_same(_snapshot(full), _snapshot(resumed))
+    assert best == full_best
+    kind = "actor_critic" if stage == "ppo" else "single"
+    best_dir, best_bin = str(tmp_path / "cut.bin"), str(tmp_path / "full.bin")
+    assert checkpoints.is_sharded(best_dir)
+    got, want = (checkpoints.load_any(p, kind) for p in (best_dir, best_bin))
+    if stage == "pointwise":
+        got, want = {"model": got}, {"model": want}
+    for side in want:
+        assert got[side].keys() == want[side].keys()
+        assert all(torch.equal(got[side][k], v)
+                   for k, v in want[side].items())
+    if stage == "ppo":
+        jp, _ = data
+        argv = ["--dev_path", jp, "--feat_size", str(D), "--seq_length",
+                str(SEQ), "--num_heads", str(HEADS), "--max_imgs", str(IMGS),
+                "--batch_size", "4", "--case_path",
+                str(tmp_path / "cases.json")]
+        assert (ppo_eval.main(argv + ["--pretrained_model_path", best_dir],
+                              device="cpu")
+                == ppo_eval.main(argv + ["--pretrained_model_path",
+                                         best_bin], device="cpu"))
