@@ -1,0 +1,9 @@
+"""step_mfu.train: the model FLOPs the traced sweeps need (flops/<config>.py,
+forward and backward, nothing recomputed) over the traced window's length
+times the dense bfloat16 peak of the chips, in %."""
+
+from perfbench.common.readers import mfu_pct
+
+
+def read(obs, job):
+    return mfu_pct(obs)
