@@ -29,7 +29,8 @@ head spans its 1,024 codes and dalle grows the vocabulary by them; s2t
 reads --max_audio_frames frames (default: the tower JSON's, else 256), and
 its position tables count them. It runs on the GPU unless `--device cpu`
 is given, and raises where there is no GPU. The checkpoints are
-reference-keyed `.bin` files.
+reference-keyed `.bin` files. --profile_dir DIR, which the JAX CLI lacks,
+traces steps 10 to 20 as the stage CLIs do.
 """
 
 from __future__ import annotations
@@ -208,6 +209,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--resume_path", default=None,
                    help="step-numbered .state checkpoint to resume from")
     p.add_argument("--log_path", default=None)
+    p.add_argument("--profile_dir", default=None,
+                   help="a torch.profiler Chrome trace of steps 10 to 20 in "
+                        "DIR/trace_steps_10-20.json (rank 0)")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--accumulation_steps", type=int, default=1)
     p.add_argument("--seq_length", type=int, default=128)
@@ -316,7 +320,8 @@ def build(args, device=None):
         report_steps=args.report_steps, seed=args.seed,
         output_model_path=args.output_model_path, log_path=args.log_path,
         pretrained_model_path=args.pretrained_model_path,
-        resume_path=args.resume_path, ckpt_backend=args.ckpt_backend)
+        resume_path=args.resume_path, ckpt_backend=args.ckpt_backend,
+        profile_dir=args.profile_dir)
     cfg.optim.learning_rate = args.learning_rate
     cfg.mesh.dp = args.dp
     cfg.mesh.tp = args.tp

@@ -18,6 +18,8 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from lr2ppo_torch.utils import span
+
 
 def _collate(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     # preallocate-and-assign instead of np.stack: stack/concatenate's
@@ -48,6 +50,25 @@ def _collate_into(items: List[Dict[str, np.ndarray]],
         for i, it in enumerate(items):
             buf[i] = it[k]
     return dict(slot)
+
+
+def _next_item(q: "queue.Queue", stop: threading.Event):
+    """The producer's next item, or None at its end or once this iteration
+    was preempted."""
+    while True:
+        # stop-aware get: when a NEW iteration preempts this one (sets our
+        # stop event), the producer exits without the None sentinel — the
+        # iterator must end, not hang
+        try:
+            item = q.get(timeout=0.1)
+        except queue.Empty:
+            if stop.is_set():
+                return None
+            continue
+        # preempted: items still in the queue reference reuse_buffers slots
+        # the NEW iteration is already rewriting — discard them, never yield
+        # stale slots
+        return None if stop.is_set() else item
 
 
 class Loader:
@@ -271,20 +292,8 @@ class Loader:
         self._live = (stop, pool, t)
         try:
             while True:
-                # stop-aware get: when a NEW iteration preempts this one
-                # (sets our stop event), the producer exits without the
-                # None sentinel — this iterator must end, not hang
-                try:
-                    item = q.get(timeout=0.1)
-                except queue.Empty:
-                    if stop.is_set():
-                        break
-                    continue
-                if stop.is_set():
-                    # preempted: items still in the queue reference
-                    # reuse_buffers slots the NEW iteration is already
-                    # rewriting — discard them, never yield stale slots
-                    break
+                with span("data.wait"):
+                    item = _next_item(q, stop)
                 if item is None:
                     break
                 if isinstance(item, Exception):
@@ -554,14 +563,17 @@ class ProcessLoader(Loader):
                             np.asarray(batches[dispatched]), self.epoch))
                 self._outstanding += 1
                 dispatched += 1
-            while yielded not in completed:
-                gen, k, slot, wrapped, err = self._get_done(done_q, procs)
-                self._outstanding -= 1
-                if gen != self._gen:
-                    continue            # straggler from a preempted run
-                if err is not None:
-                    raise RuntimeError(f"ProcessLoader worker failed: {err}")
-                completed[k] = (slot, wrapped)
+            with span("data.wait"):
+                while yielded not in completed:
+                    gen, k, slot, wrapped, err = self._get_done(done_q,
+                                                                procs)
+                    self._outstanding -= 1
+                    if gen != self._gen:
+                        continue        # straggler from a preempted run
+                    if err is not None:
+                        raise RuntimeError(
+                            f"ProcessLoader worker failed: {err}")
+                    completed[k] = (slot, wrapped)
             slot, wrapped = completed.pop(yielded)
             # slots are sized for the full (global) batch; a sharded
             # loader fills and yields only this process's local rows

@@ -25,6 +25,7 @@ from lr2ppo_torch.train import checkpoints
 from lr2ppo_torch.train.checkpoints import local_part
 from lr2ppo_torch.train.optim import (AdamW, DistributedOptimizer,
                                       build_optimizer, no_decay_names)
+from lr2ppo_torch.utils import count, recording, span
 
 
 @dataclass
@@ -88,9 +89,16 @@ class DeviceCtx:
             t = t.to(self.cast_dtype)
         return t
 
+    def _copy(self, t: torch.Tensor) -> torch.Tensor:
+        if recording():
+            count("h2d.bytes", t.nbytes)
+            if not t.is_pinned():
+                count("h2d.pageable_bytes", t.nbytes)
+        return t.to(self.device, non_blocking=False)
+
     def put(self, batch: dict) -> dict:
-        return {k: self._cast(v).to(self.device, non_blocking=False)
-                for k, v in batch.items()}
+        with span("data.put"):
+            return {k: self._copy(self._cast(v)) for k, v in batch.items()}
 
     def put_eval(self, batch: dict) -> dict:
         """This dp rank's rows of a whole eval batch (every rank holds the
@@ -112,7 +120,8 @@ class DeviceCtx:
 
     def put_array(self, v) -> torch.Tensor:
         """One array -> device, no dtype cast."""
-        return torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+        with span("data.put"):
+            return self._copy(torch.from_numpy(np.ascontiguousarray(v)))
 
     def check_loader(self, loader) -> None:
         """A training loader under dp must hand this rank its slice of each

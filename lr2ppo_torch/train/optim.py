@@ -37,6 +37,7 @@ from lr2ppo_torch.parallel.fsdp import clean_name
 from lr2ppo_torch.parallel.mesh import (all_gather_dim, shard_slice, tp_dim,
                                         zero_dim)
 from lr2ppo_torch.train.checkpoints import local_part
+from lr2ppo_torch.utils import span
 
 
 def _schedule_fns(name: str, base_lr: float, train_steps: int, w: int):
@@ -155,38 +156,39 @@ class AdamW:
         """One update from the parameters' `.grad`, or from `grads` by name
         (DistributedOptimizer passes the slices of a zero1 rank); `norm`
         overrides the global gradient norm that grad_clip reads."""
-        # a parameter the step's graph did not reach (the 2-data model's
-        # other projection) takes a zero gradient, as jax.grad gives it:
-        # its moments decay and its weight decay applies
-        if grads is None:
-            grads = {k: p.grad for k, p in self.params.items()}
-        grads = {k: torch.zeros_like(p) if grads.get(k) is None else grads[k]
-                 for k, p in self.params.items()}
-        if self.grad_clip and norm is None:
-            # optax.clip_by_global_norm: g / ||g|| * max_norm where
-            # ||g|| >= max_norm
-            norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                  for g in grads.values()))
-        lr = self.lr()
-        self.count += 1
-        step_scale = 1.0
-        if self.correct_bias:
-            c = float(self.count)
-            step_scale = math.sqrt(1 - self.b2 ** c) / (1 - self.b1 ** c)
-        for k, p in self.params.items():
-            g = grads[k].float()
-            if norm is not None:
-                g = torch.where(norm < self.grad_clip, g,
-                                g / norm * self.grad_clip)
-            m = self.mu[k].float().mul_(self.b1).add_(g * (1 - self.b1))
-            v = self.nu[k].float().mul_(self.b2).add_(
-                torch.square(g).mul_(1 - self.b2))
-            upd = m * step_scale / (torch.sqrt(v) + self.eps)
-            if self.weight_decay and decays(k, self.no_decay):
-                upd.add_(p.float() * self.weight_decay)
-            p.add_((upd * -lr).to(p.dtype))
-            self.mu[k].copy_(m)
-            self.nu[k].copy_(v)
+        with span("optim.step"):
+            # a parameter the step's graph did not reach (the 2-data model's
+            # other projection) takes a zero gradient, as jax.grad gives it:
+            # its moments decay and its weight decay applies
+            if grads is None:
+                grads = {k: p.grad for k, p in self.params.items()}
+            grads = {k: torch.zeros_like(p) if grads.get(k) is None
+                     else grads[k] for k, p in self.params.items()}
+            if self.grad_clip and norm is None:
+                # optax.clip_by_global_norm: g / ||g|| * max_norm where
+                # ||g|| >= max_norm
+                norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                      for g in grads.values()))
+            lr = self.lr()
+            self.count += 1
+            step_scale = 1.0
+            if self.correct_bias:
+                c = float(self.count)
+                step_scale = math.sqrt(1 - self.b2 ** c) / (1 - self.b1 ** c)
+            for k, p in self.params.items():
+                g = grads[k].float()
+                if norm is not None:
+                    g = torch.where(norm < self.grad_clip, g,
+                                    g / norm * self.grad_clip)
+                m = self.mu[k].float().mul_(self.b1).add_(g * (1 - self.b1))
+                v = self.nu[k].float().mul_(self.b2).add_(
+                    torch.square(g).mul_(1 - self.b2))
+                upd = m * step_scale / (torch.sqrt(v) + self.eps)
+                if self.weight_decay and decays(k, self.no_decay):
+                    upd.add_(p.float() * self.weight_decay)
+                p.add_((upd * -lr).to(p.dtype))
+                self.mu[k].copy_(m)
+                self.nu[k].copy_(v)
 
     def zero_grad(self) -> None:
         for p in self.params.values():
@@ -327,36 +329,38 @@ class Adafactor:
 
     @torch.no_grad()
     def step(self, grads: Optional[dict] = None) -> None:
-        decay = self._decay()
-        lr = self.lr()
-        self.count += 1
-        if grads is None:
-            grads = {k: p.grad for k, p in self.params.items()}
-        for k, p in self.params.items():
-            g = (torch.zeros_like(p) if grads.get(k) is None
-                 else grads[k].to(p.dtype))
-            g2 = g * g + self.EPS
-            dims = self.factored_dims(self.global_shape(k))
-            if dims is None:
-                v = decay * self.v[k] + (1.0 - decay) * g2
-                self.v[k] = v
-                upd = g * v ** -0.5
-            else:
-                d1, d0 = dims
-                vr = (decay * self.v_row[k]
-                      + (1.0 - decay) * self._mean(g2, d0, k, d0))
-                vc = (decay * self.v_col[k]
-                      + (1.0 - decay) * self._mean(g2, d1, k, d1))
-                self.v_row[k], self.v_col[k] = vr, vc
-                r1 = d1 - 1 if d1 > d0 else d1
-                row = (vr / self._mean(vr, r1, k, d1, keepdim=True)) ** -0.5
-                upd = g * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
-            upd = upd / torch.clamp_min(
-                torch.sqrt(self._mean_all(upd * upd, k)) / self.CLIP, 1.0)
-            upd = upd * lr
-            rms = torch.sqrt(self._mean_all(p * p, k))
-            upd = upd * torch.clamp_min(rms, self.MIN_PARAM_SCALE)
-            p.add_(upd * -1.0)
+        with span("optim.step"):
+            decay = self._decay()
+            lr = self.lr()
+            self.count += 1
+            if grads is None:
+                grads = {k: p.grad for k, p in self.params.items()}
+            for k, p in self.params.items():
+                g = (torch.zeros_like(p) if grads.get(k) is None
+                     else grads[k].to(p.dtype))
+                g2 = g * g + self.EPS
+                dims = self.factored_dims(self.global_shape(k))
+                if dims is None:
+                    v = decay * self.v[k] + (1.0 - decay) * g2
+                    self.v[k] = v
+                    upd = g * v ** -0.5
+                else:
+                    d1, d0 = dims
+                    vr = (decay * self.v_row[k]
+                          + (1.0 - decay) * self._mean(g2, d0, k, d0))
+                    vc = (decay * self.v_col[k]
+                          + (1.0 - decay) * self._mean(g2, d1, k, d1))
+                    self.v_row[k], self.v_col[k] = vr, vc
+                    r1 = d1 - 1 if d1 > d0 else d1
+                    row = (vr / self._mean(vr, r1, k, d1,
+                                           keepdim=True)) ** -0.5
+                    upd = g * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
+                upd = upd / torch.clamp_min(
+                    torch.sqrt(self._mean_all(upd * upd, k)) / self.CLIP, 1.0)
+                upd = upd * lr
+                rms = torch.sqrt(self._mean_all(p * p, k))
+                upd = upd * torch.clamp_min(rms, self.MIN_PARAM_SCALE)
+                p.add_(upd * -1.0)
 
     def stat_dim(self, table: str, k: str, pdim: int) -> Optional[int]:
         """The dim of statistic `table` of key k that the parameter's dim
@@ -539,26 +543,27 @@ class DistributedOptimizer:
         mesh = self.mesh
         if not mesh.distributed:
             return
-        todo = [p.grad for k, p in self.params.items()
-                if p.grad is not None and k not in self.fsdp_dims]
-        by_dtype: dict = {}
-        for g in todo:
-            by_dtype.setdefault(g.dtype, []).append(g)
-        for group in by_dtype.values():
-            bucket, size = [], 0
-            for g in group + [None]:
-                if g is not None:
-                    bucket.append(g)
-                    size += g.numel()
-                if bucket and (g is None or size >= BUCKET_ELEMENTS):
-                    flat = torch.cat([t.reshape(-1) for t in bucket])
-                    dist.all_reduce(flat, group=mesh.dp_group)
-                    if mesh.dp > 1:
-                        flat.div_(mesh.dp)
-                    for t, part in zip(bucket, flat.split(
-                            [t.numel() for t in bucket])):
-                        t.copy_(part.view_as(t))
-                    bucket, size = [], 0
+        with span("optim.allreduce"):
+            todo = [p.grad for k, p in self.params.items()
+                    if p.grad is not None and k not in self.fsdp_dims]
+            by_dtype: dict = {}
+            for g in todo:
+                by_dtype.setdefault(g.dtype, []).append(g)
+            for group in by_dtype.values():
+                bucket, size = [], 0
+                for g in group + [None]:
+                    if g is not None:
+                        bucket.append(g)
+                        size += g.numel()
+                    if bucket and (g is None or size >= BUCKET_ELEMENTS):
+                        flat = torch.cat([t.reshape(-1) for t in bucket])
+                        dist.all_reduce(flat, group=mesh.dp_group)
+                        if mesh.dp > 1:
+                            flat.div_(mesh.dp)
+                        for t, part in zip(bucket, flat.split(
+                                [t.numel() for t in bucket])):
+                            t.copy_(part.view_as(t))
+                        bucket, size = [], 0
 
     def _global_norm(self) -> torch.Tensor:
         """sqrt of the global squared gradient sum, each parameter counted

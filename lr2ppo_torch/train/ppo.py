@@ -51,7 +51,8 @@ from lr2ppo_torch.train.common import (BestSaver, TrainState, apply_updates,
                                        peek_batch, restore_train_state,
                                        save_train_state)
 from lr2ppo_torch.train.evaluate import evaluate_ndcg, format_ndcg
-from lr2ppo_torch.utils import MetricLogger, check_finite, init_logger
+from lr2ppo_torch.utils import (MetricLogger, TraceWindow, check_finite,
+                                init_logger, span)
 
 def frozen_copy(cls, mcfg, state: dict, dtype, int8: bool, ctx=None):
     """A frozen inference model of `cls` holding the full-width `state` (on
@@ -253,13 +254,14 @@ class PPOTrainer:
                 return actor, critic
             if not twins:
                 full = self.ctx.full_state_dict
-                twins["actor"] = frozen_copy(ScoreModel, cfg.model,
-                                             full(actor), self.dtype, True,
-                                             self.ctx)
-                if self.ri8 == "1":
-                    twins["critic"] = frozen_copy(
-                        SeqScoreModel, cfg.model, full(critic), self.dtype,
-                        True, self.ctx)
+                with span("ppo.requantize"):
+                    twins["actor"] = frozen_copy(ScoreModel, cfg.model,
+                                                 full(actor), self.dtype,
+                                                 True, self.ctx)
+                    if self.ri8 == "1":
+                        twins["critic"] = frozen_copy(
+                            SeqScoreModel, cfg.model, full(critic),
+                            self.dtype, True, self.ctx)
             return twins["actor"], twins.get("critic", critic)
 
         generator = torch.Generator().manual_seed(cfg.seed + 2)
@@ -284,13 +286,16 @@ class PPOTrainer:
         saver.best = max(saver.best, resume_best)
 
         def save_state():
-            save_train_state(cfg.output_model_path + ".state",
-                             {"actor": astate, "critic": cstate}, generator,
-                             step, saver.best, self.ctx, cfg.ckpt_backend,
-                             time_ctr=time_ctr)
+            with span("ppo.save"):
+                save_train_state(cfg.output_model_path + ".state",
+                                 {"actor": astate, "critic": cstate},
+                                 generator, step, saver.best, self.ctx,
+                                 cfg.ckpt_backend, time_ctr=time_ctr)
 
         memories: List[dict] = []
         pending_save = False
+        # sweeps 10-20 traced where --profile_dir is set, on rank 0 only
+        trace = TraceWindow(cfg.profile_dir if self.ctx.is_main else None)
         self.logger.info(
             f"Start PPO: {steps_per_epoch} rollout steps/epoch, "
             f"update every {upd}")
@@ -307,66 +312,72 @@ class PPOTrainer:
             if epoch == start_epoch and skip_batches:
                 batch_iter = islice(batch_iter, skip_batches, None)
             for batch in batch_iter:
-                if device_memories is None:
-                    device_memories = self._memory_policy(batch)
-                if (device_memories and must_copy
-                        and self.device.type == "cpu"):
-                    # on the CPU the device tensors alias the loader's
-                    # recycled host buffers: copy first
-                    batch = {k: np.array(v) for k, v in batch.items()}
-                b = self.ctx.put(batch)
-                if not device_memories:
-                    # ONE retained host copy per batch, shared by all of
-                    # its timesteps' memories
-                    host_batch = ({k: np.array(v) for k, v in batch.items()}
-                                  if must_copy else batch)
-                bsz, tags = batch["tgts"].shape
-                state = self.ctx.put_array(np.broadcast_to(
-                    np.arange(tags, dtype=np.int32), (bsz, tags)).copy())
-                for _t in range(cfg.ppo.max_timesteps):
-                    ra, rc = rollout_models()
-                    scores, value, next_state, rew = rollout_step(
-                        ra, rc, reward, b["text"], b.get("img"), state)
-                    dev = (b["text"], b.get("img"), state, next_state,
-                           scores, rew, value)
-                    if device_memories:
-                        memories.append({"dev": dev, "t": _t})
-                    else:
-                        memories.append({
-                            "batch": host_batch,
-                            "small": [v.cpu() for v in dev[2:]],
-                            "t": _t})
-                    state = next_state
-                    time_ctr += 1
-                    if time_ctr % upd == 0:
-                        if _t == cfg.ppo.max_timesteps - 1:
-                            b = dev = None
-                        twins.clear()         # params change: requantize
-                        agg = self._sweep(update_step, astate, cstate,
-                                          generator, memories)
-                        memories = []
-                        step += 1
-                        if (cfg.save_state_steps
-                                and step % cfg.save_state_steps == 0):
-                            # saved at a batch boundary with an empty
-                            # memory buffer, so the counters describe a
-                            # clean resume point
-                            pending_save = True
-                        check_finite(agg["policy_loss"], step, "policy_loss",
-                                     cfg.output_model_path)
-                        check_finite(agg["value_loss"], step, "value_loss",
-                                     cfg.output_model_path)
-                        self.logger.info(f"Training step: {step}")
-                        for k, v in agg.items():
-                            self.logger.info(f"{k}: {v:.6f}")
-                        if cfg.eval_steps <= 0 or step % cfg.eval_steps == 0:
-                            self._evaluate(step, actor, critic, eval_loader,
-                                           saver, agg, "Val")
+                with span("ppo.step"):
+                    if device_memories is None:
+                        device_memories = self._memory_policy(batch)
+                    if (device_memories and must_copy
+                            and self.device.type == "cpu"):
+                        # on the CPU the device tensors alias the loader's
+                        # recycled host buffers: copy first
+                        batch = {k: np.array(v) for k, v in batch.items()}
+                    b = self.ctx.put(batch)
+                    if not device_memories:
+                        # ONE retained host copy per batch, shared by all of
+                        # its timesteps' memories
+                        host_batch = ({k: np.array(v)
+                                       for k, v in batch.items()}
+                                      if must_copy else batch)
+                    bsz, tags = batch["tgts"].shape
+                    state = self.ctx.put_array(np.broadcast_to(
+                        np.arange(tags, dtype=np.int32), (bsz, tags)).copy())
+                    for _t in range(cfg.ppo.max_timesteps):
+                        ra, rc = rollout_models()
+                        with span("ppo.rollout"):
+                            scores, value, next_state, rew = rollout_step(
+                                ra, rc, reward, b["text"], b.get("img"),
+                                state)
+                        dev = (b["text"], b.get("img"), state, next_state,
+                               scores, rew, value)
+                        if device_memories:
+                            memories.append({"dev": dev, "t": _t})
                         else:
-                            self.metrics.log(step, **agg)
-                if pending_save and not memories:
-                    save_state()
-                    pending_save = False
+                            memories.append({
+                                "batch": host_batch,
+                                "small": [v.cpu() for v in dev[2:]],
+                                "t": _t})
+                        state = next_state
+                        time_ctr += 1
+                        if time_ctr % upd == 0:
+                            if _t == cfg.ppo.max_timesteps - 1:
+                                b = dev = None
+                            twins.clear()         # params change: requantize
+                            agg = self._sweep(update_step, astate, cstate,
+                                              generator, memories)
+                            memories = []
+                            step += 1
+                            trace.tick(step)
+                            if (cfg.save_state_steps
+                                    and step % cfg.save_state_steps == 0):
+                                # saved at a batch boundary with an empty
+                                # memory buffer, so the counters describe a
+                                # clean resume point
+                                pending_save = True
+                            check_finite(agg["policy_loss"], step,
+                                         "policy_loss", cfg.output_model_path)
+                            check_finite(agg["value_loss"], step,
+                                         "value_loss", cfg.output_model_path)
+                            self.logger.info(f"Training step: {step}")
+                            for k, v in agg.items():
+                                self.logger.info(f"{k}: {v:.6f}")
+                            if (cfg.eval_steps <= 0
+                                    or step % cfg.eval_steps == 0):
+                                self._evaluate(step, actor, critic,
+                                               eval_loader, saver, agg, "Val")
+                            else:
+                                self.metrics.log(step, **agg)
+                    if pending_save and not memories:
+                        save_state()
+                        pending_save = False
         improved = False
         try:
             if (cfg.eval_steps > 0 and step > 0
@@ -384,17 +395,21 @@ class PPOTrainer:
             # params); only where .state files are kept at all
             if pending_save or (improved and cfg.save_state_steps):
                 save_state()
+        trace.close()
+        self.trace_path = trace.path
         checkpoints.wait_for_async_saves()
         self.logger.info(f"Best NDCG: {saver.best}")
         return astate, cstate, saver.best
 
     def _evaluate(self, step, actor, critic, eval_loader, saver, agg,
                   label):
-        result = evaluate_ndcg(actor, eval_loader, put=self.ctx.put_eval)
-        self.logger.info(f"{label} NDCG:" + format_ndcg(result))
-        self.metrics.log(step, ndcg_full=result[100000000], **agg)
-        return saver.maybe_save(result[100000000], {"actor": actor,
-                                                    "critic": critic})
+        with span("ppo.eval"):
+            result = evaluate_ndcg(actor, eval_loader, put=self.ctx.put_eval)
+            self.logger.info(f"{label} NDCG:" + format_ndcg(result))
+            self.metrics.log(step, ndcg_full=result[100000000], **agg)
+            with span("ppo.save"):
+                return saver.maybe_save(result[100000000],
+                                        {"actor": actor, "critic": critic})
 
     def _check_geometry(self, batch) -> None:
         """The loader's batches must have the model's widths: (B, T, S, D)
@@ -456,36 +471,41 @@ class PPOTrainer:
             return (b["text"], b.get("img"),
                     *(v.to(self.device) for v in mem["small"]))
 
-        gae_kw = [{} for _ in memories]
-        if self.cfg.ppo.use_gae and memories:
-            g = self.cfg.ppo
-            pairs = [(m["dev"][5], m["dev"][6]) if "dev" in m
-                     else (m["small"][3].to(self.device),
-                           m["small"][4].to(self.device))
-                     for m in memories]
-            ts = [m["t"] for m in memories]
-            cont = torch.zeros(len(memories), device=self.device)
-            for i in range(len(memories) - 1):
-                # memory i+1 continues i's trajectory iff it is the next
-                # timestep of the SAME batch
-                cont[i] = 1.0 if ts[i + 1] == ts[i] + 1 else 0.0
-            adv_all, ret_all = gae_advantages(
-                torch.stack([p[0] for p in pairs]).float(),
-                torch.stack([p[1] for p in pairs]).float(), cont,
-                g.gae_gamma, g.gae_lambda)
-            gae_kw = [{"gae_adv": adv_all[i], "gae_ret": ret_all[i]}
-                      for i in range(len(memories))]
+        with span("ppo.sweep"):
+            gae_kw = [{} for _ in memories]
+            if self.cfg.ppo.use_gae and memories:
+                g = self.cfg.ppo
+                pairs = [(m["dev"][5], m["dev"][6]) if "dev" in m
+                         else (m["small"][3].to(self.device),
+                               m["small"][4].to(self.device))
+                         for m in memories]
+                ts = [m["t"] for m in memories]
+                cont = torch.zeros(len(memories), device=self.device)
+                for i in range(len(memories) - 1):
+                    # memory i+1 continues i's trajectory iff it is the next
+                    # timestep of the SAME batch
+                    cont[i] = 1.0 if ts[i + 1] == ts[i] + 1 else 0.0
+                adv_all, ret_all = gae_advantages(
+                    torch.stack([p[0] for p in pairs]).float(),
+                    torch.stack([p[1] for p in pairs]).float(), cont,
+                    g.gae_gamma, g.gae_lambda)
+                gae_kw = [{"gae_adv": adv_all[i], "gae_ret": ret_all[i]}
+                          for i in range(len(memories))]
 
-        agg = None
-        for i, mem in enumerate(memories):
-            metrics = update_step(astate, cstate, generator, *put(mem),
-                                  **gae_kw[i])
-            agg = metrics if agg is None else {k: agg[k] + v
-                                               for k, v in metrics.items()}
-        if agg is None:
-            return {}
-        n = len(memories)
-        # the means over the global batch: each rank's over its equal shard,
-        # averaged over dp
-        host = self.ctx.mean(torch.stack(list(agg.values()))).cpu().tolist()
-        return {k: v / n for k, v in zip(agg, host)}
+            agg = None
+            for i, mem in enumerate(memories):
+                arrays = put(mem)
+                with span("ppo.update"):
+                    metrics = update_step(astate, cstate, generator, *arrays,
+                                          **gae_kw[i])
+                agg = metrics if agg is None else {k: agg[k] + v
+                                                   for k, v in metrics.items()}
+            if agg is None:
+                return {}
+            n = len(memories)
+            # the means over the global batch: each rank's over its equal
+            # shard, averaged over dp
+            with span("ppo.fetch"):
+                host = self.ctx.mean(
+                    torch.stack(list(agg.values()))).cpu().tolist()
+            return {k: v / n for k, v in zip(agg, host)}

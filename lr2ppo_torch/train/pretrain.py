@@ -65,7 +65,8 @@ from lr2ppo_torch.train.common import (BestSaver, TrainState, apply_updates,
                                        device_ctx, init_state, logged_path,
                                        peek_batch, resume_fit_state,
                                        save_models, save_train_state)
-from lr2ppo_torch.utils import MetricLogger, check_finite, init_logger
+from lr2ppo_torch.utils import (MetricLogger, TraceWindow, check_finite,
+                                init_logger, span)
 
 def norm_target_out(out, rows: int):
     """(loss, correct, denom) from a target's output: mlm, lm and bilm give
@@ -260,6 +261,8 @@ class PretrainTrainer:
                           if cfg.output_model_path else "", self.logger,
                           self.ctx, cfg.ckpt_backend)
         saver.best = max(saver.best, resume_best)
+        # steps 10-20 traced where --profile_dir is set, on rank 0 only
+        trace = TraceWindow(cfg.profile_dir if self.ctx.is_main else None)
         tokens_since, t_last = 0, time.perf_counter()
         for epoch in range(start_epoch, epochs + 1):
             if step >= total:
@@ -269,35 +272,51 @@ class PretrainTrainer:
             if epoch == start_epoch and skip_batches:
                 batch_iter = islice(batch_iter, skip_batches, None)
             for batch in batch_iter:
-                dev_batch = self.ctx.put({k: v for k, v in batch.items()
-                                          if not k.startswith("_")})
-                m = step_fn(state, generator, dev_batch)
-                step += 1
-                tokens_since += step_tokens(batch) * self.ctx.mesh.dp
-                if step % cfg.report_steps == 0:
-                    # a masked mean is global already; a cls or sp mean
-                    # is this rank's, and equal shards average to the
-                    # global one
-                    loss = check_finite(
-                        float(self.ctx.mean(m["loss"])), step,
-                        checkpoint_hint=(cfg.output_model_path + "-best"
-                                         if cfg.output_model_path else None))
-                    acc = float(m["acc"])
-                    dt = time.perf_counter() - t_last
-                    tps = tokens_since / max(dt, 1e-9)
-                    self.logger.info(f"step {step}/{total} loss {loss:.4f} "
-                                     f"acc {acc:.4f} | {tps:,.0f} tokens/s")
-                    self.metrics.log(step, loss=loss, acc=acc, tokens_s=tps)
-                    saver.maybe_save(acc, model)
-                    tokens_since, t_last = 0, time.perf_counter()
-                if save_checkpoint_steps and step % save_checkpoint_steps == 0:
-                    save_train_state(f"{cfg.output_model_path}-{step}",
-                                     {"model": state}, generator, step,
-                                     saver.best, self.ctx, cfg.ckpt_backend)
+                with span("pretrain.step"):
+                    dev_batch = self.ctx.put({k: v for k, v in batch.items()
+                                              if not k.startswith("_")})
+                    with span("pretrain.update"):
+                        m = step_fn(state, generator, dev_batch)
+                    step += 1
+                    trace.tick(step)
+                    tokens_since += step_tokens(batch) * self.ctx.mesh.dp
+                    if step % cfg.report_steps == 0:
+                        with span("pretrain.report"):
+                            self._report(m, step, total, saver, model,
+                                         tokens_since, t_last)
+                        tokens_since, t_last = 0, time.perf_counter()
+                    if (save_checkpoint_steps
+                            and step % save_checkpoint_steps == 0):
+                        with span("pretrain.save"):
+                            save_train_state(
+                                f"{cfg.output_model_path}-{step}",
+                                {"model": state}, generator, step,
+                                saver.best, self.ctx, cfg.ckpt_backend)
                 if step >= total:
                     break
+        trace.close()
+        self.trace_path = trace.path
         if cfg.output_model_path:
-            save_models(cfg.output_model_path, model, self.ctx,
-                        cfg.ckpt_backend)
+            with span("pretrain.save"):
+                save_models(cfg.output_model_path, model, self.ctx,
+                            cfg.ckpt_backend)
         checkpoints.wait_for_async_saves()
         return state, saver.best
+
+    def _report(self, m: dict, step: int, total: int, saver, model,
+                tokens_since: int, t_last: float) -> None:
+        """Logs the step's loss, accuracy (the loss checked finite) and
+        tokens/s since `t_last`, and saves the best model by accuracy."""
+        cfg = self.cfg
+        # a masked mean is global already; a cls or sp mean is this rank's,
+        # and equal shards average to the global one
+        loss = check_finite(
+            float(self.ctx.mean(m["loss"])), step,
+            checkpoint_hint=(cfg.output_model_path + "-best"
+                             if cfg.output_model_path else None))
+        acc = float(m["acc"])
+        tps = tokens_since / max(time.perf_counter() - t_last, 1e-9)
+        self.logger.info(f"step {step}/{total} loss {loss:.4f} "
+                         f"acc {acc:.4f} | {tps:,.0f} tokens/s")
+        self.metrics.log(step, loss=loss, acc=acc, tokens_s=tps)
+        saver.maybe_save(acc, model)

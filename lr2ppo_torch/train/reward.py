@@ -33,7 +33,8 @@ from lr2ppo_torch.parallel.mesh import active, fetch_global
 from lr2ppo_torch.train.common import (BestSaver, TrainState, apply_updates,
                                        device_ctx, init_state, logged_path,
                                        resume_fit_state, save_train_state)
-from lr2ppo_torch.utils import MetricLogger, check_finite, init_logger
+from lr2ppo_torch.utils import (MetricLogger, TraceWindow, check_finite,
+                                init_logger)
 
 # the reference's hinge margin of each family: reward_pair_dataloader.py:
 # 355-357 (multimodal), reward_trad.py:273 (tabular)
@@ -135,6 +136,8 @@ class RewardTrainer:
                                  {"model": state}, generator, step,
                                  saver.best, self.ctx, cfg.ckpt_backend)
 
+        # steps 10-20 traced where --profile_dir is set, on rank 0 only
+        trace = TraceWindow(cfg.profile_dir if self.ctx.is_main else None)
         last_eval_step = -1
         for epoch in range(start_epoch, cfg.epochs_num + 1):
             train_loader.set_epoch(epoch)
@@ -147,6 +150,7 @@ class RewardTrainer:
                                        b.get("img"), b["chosen_index"],
                                        b["reject_index"])
                 step += 1
+                trace.tick(step)
                 if step % cfg.report_steps == 0:
                     loss_v = check_finite(
                         float(self.ctx.mean(loss)), step,
@@ -168,6 +172,8 @@ class RewardTrainer:
                 self.logger.info(f"epoch {epoch} val accuracy: {val_acc:.4f}")
                 saver.maybe_save(val_acc, model)
                 save_state(step)      # with the epoch-end eval's best
+        trace.close()
+        self.trace_path = trace.path
         checkpoints.wait_for_async_saves()
         self.logger.info(f"Best Acc: {saver.best}")
         return state, saver.best

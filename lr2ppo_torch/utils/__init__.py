@@ -1,8 +1,10 @@
 from lr2ppo_torch.utils.guards import (  # noqa: F401
     NonFiniteLossError,
-    StepTimer,
     TraceWindow,
     check_finite,
-    maybe_trace,
+    count,
+    counters,
+    recording,
+    span,
 )
 from lr2ppo_torch.utils.logging import MetricLogger, init_logger  # noqa: F401

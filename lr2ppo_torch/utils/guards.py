@@ -7,15 +7,44 @@ aborts cleanly with a NonFiniteLossError naming the step and the last saved
 checkpoint, so an external supervisor can restart from save-best. Tracing
 wraps torch.profiler where the JAX package wraps jax.profiler: each trace is
 a Chrome trace (.json) in the profile directory, with the card's kernels
-where the process has a GPU."""
+where the process has a GPU.
+
+The trainers, the data path and the optimizers mark their work with
+`span(name)` and count bytes with `count(name, n)`. Both act only while a
+torch.profiler records in this process (--profile_dir's window, or any
+profiler the operator starts): a span is then a `lr2ppo.<name>` range in
+the profiler's Chrome trace, on the clock of the card's kernels and copies,
+nested in the span that encloses it; `counters()` holds the counts. While
+nothing records, each call costs one check of the profiler's flag.
+
+  data.wait        the trainer waits for the loader's next batch
+  data.put         host batches copied to the device (counters h2d.bytes
+                   and h2d.pageable_bytes: the bytes copied, and those of
+                   them from pageable host memory)
+  ppo.step         stage 3, one batch: rollouts, and a sweep every
+                   update_timesteps of them
+  ppo.requantize   the int8 rollout twins rebuilt from the live params
+  ppo.rollout      one rollout
+  ppo.sweep        one update sweep over the collected memories
+  ppo.update       one update (actor, then critic)
+  ppo.fetch        the sweep's metrics fetched to the host
+  ppo.eval         an evaluation
+  ppo.save         a .state or best-model save
+  pretrain.step    tower pretraining, one optimizer step's batch
+  pretrain.update  its forward, backward and optimizer step
+  pretrain.report  the report_steps fetch, log and best save
+  pretrain.save    a .state or final model save
+  optim.step       an AdamW or Adafactor step
+  optim.allreduce  the gradients' all-reduce over dp
+"""
 
 from __future__ import annotations
 
 import contextlib
 import math
 import os
-import time
-from typing import Optional
+import sys
+from typing import Dict, Optional
 
 
 class NonFiniteLossError(RuntimeError):
@@ -47,22 +76,6 @@ def _export(prof, profile_dir: str, name: str) -> str:
     path = os.path.join(profile_dir, name)
     prof.export_chrome_trace(path)
     return path
-
-
-@contextlib.contextmanager
-def maybe_trace(profile_dir: Optional[str]):
-    """A torch.profiler trace of the block when profile_dir is set, written
-    to profile_dir/trace.json; a no-op else."""
-    if not profile_dir:
-        yield
-        return
-    prof = _profiler()
-    prof.start()
-    try:
-        yield
-    finally:
-        prof.stop()
-        _export(prof, profile_dir, "trace.json")
 
 
 class TraceWindow:
@@ -103,21 +116,48 @@ class TraceWindow:
             self.prof = None
 
 
-class StepTimer:
-    """Step-time / throughput counter (replaces the dead tokens/s counter
-    in reference trainer.py:167-178)."""
+# -- spans and counters --------------------------------------------------
+SPAN_PREFIX = "lr2ppo."
+_counts: Dict[str, int] = {}
 
-    def __init__(self):
-        self._time = time.perf_counter
-        self.reset()
 
-    def reset(self) -> None:
-        self.t0 = self._time()
-        self.units = 0
+# the span handed out while nothing records
+_NO_SPAN = contextlib.nullcontext()
 
-    def add(self, n: int) -> None:
-        self.units += n
 
-    def rate(self) -> float:
-        dt = self._time() - self.t0
-        return self.units / dt if dt > 0 else 0.0
+# torch.autograd._profiler_enabled, bound at the first check after torch
+# is loaded (the data path imports this module and loads no torch)
+_flag = None
+
+
+def recording() -> bool:
+    """Whether a torch.profiler records on this thread (where torch was
+    never imported, none does)."""
+    global _flag
+    if _flag is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return False
+        _flag = torch.autograd._profiler_enabled
+    return _flag()
+
+
+def span(name: str):
+    """`with span(name):` marks the block as `lr2ppo.<name>` in the trace
+    of the torch.profiler that records, if one does; else it is one shared
+    object that does nothing."""
+    if not (_flag() if _flag is not None else recording()):
+        return _NO_SPAN
+    return sys.modules["torch"].profiler.record_function(SPAN_PREFIX + name)
+
+
+def count(name: str, n: int) -> None:
+    """Adds n to the counter `name` while a torch.profiler records."""
+    if recording():
+        _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    """A copy of the counts added while a profiler recorded, since this
+    process started."""
+    return dict(_counts)

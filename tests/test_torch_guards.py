@@ -1,17 +1,15 @@
 """The port's profiling hooks (lr2ppo_torch/utils/guards.py, counterpart of
-lr2ppo_tpu/utils/guards.py): TraceWindow, maybe_trace and StepTimer against
-the JAX package's semantics, and stage 1 with --profile_dir, whose window
-(steps 10 to 20, JAX's defaults) writes a Chrome trace on the CPU here and
-on rank 0 only under a mesh."""
+lr2ppo_tpu/utils/guards.py): TraceWindow against the JAX package's
+semantics, and stage 1 with --profile_dir, whose window (steps 10 to 20,
+JAX's defaults) writes a Chrome trace on the CPU here and on rank 0 only
+under a mesh. The spans and counters: tests/test_torch_tracing.py."""
 
 import json
 import os
 
-import pytest
 import torch
 
-from lr2ppo_torch.utils import guards
-from lr2ppo_torch.utils.guards import StepTimer, TraceWindow, maybe_trace
+from lr2ppo_torch.utils.guards import TraceWindow
 from test_torch_parallel import spawn
 
 torch.set_num_threads(1)
@@ -60,25 +58,6 @@ def test_trace_window_without_a_dir_does_nothing(tmp_path):
         win.tick(step)
     win.close()
     assert win.prof is None and win.path is None
-
-
-def test_maybe_trace(tmp_path):
-    with maybe_trace(None):
-        _work()
-    with maybe_trace(str(tmp_path / "p")):
-        _work()
-    assert "aten::mm" in _names(tmp_path / "p" / "trace.json")
-
-
-def test_step_timer(monkeypatch):
-    clock = iter([0.0, 2.0, 2.0, 2.0])
-    monkeypatch.setattr(guards.time, "perf_counter", lambda: next(clock))
-    t = StepTimer()
-    t.add(3)
-    t.add(5)
-    assert t.rate() == 4.0
-    t.reset()
-    assert t.units == 0 and t.rate() == 0.0
 
 
 # -- stage 1 with --profile_dir ---------------------------------------------
