@@ -7,7 +7,7 @@ and the image and speech towers) and multi-GPU training at full width.
     python3 chip_smoke.py [--seed N] [--parallel_only | --pipeline_only |
                            --processors_only | --seq2seq_only |
                            --encoders_only | --vision_speech_only |
-                           --checkpoints_only]
+                           --checkpoints_only | --adamw_only]
 
 Phases, each of which raises on failure (exit code other than 0):
   1. device: torch and CUDA versions, the card's name and power limit;
@@ -238,6 +238,18 @@ Phases, each of which raises on failure (exit code other than 0):
      ones. Each checkpoint is
      deleted after its check. `--checkpoints_only` runs the build, phase 7,
      phase 21 and phase 15.
+ 22. the AdamW kernel against its plain version, p, m and v bit for bit
+     over 3 steps, at the `out_layer` weight (3,072 x 162,816; float32
+     parameters and bfloat16 moments, as the PPO trainer under --profile
+     fast holds them, and bfloat16 parameters) and XLM-R base's word table
+     (250,002 x 768; float32 parameters and moments, as tower pretraining
+     holds them, and bfloat16 parameters), with its time beside the plain
+     version's, torch.optim.AdamW(fused=True)'s and the bound; then one
+     update's whole set (the actor's and the critic's steps at flagship
+     width under --profile fast) through AdamW.step, one launch a tensor,
+     2 steps bit for bit, its time, the host's time to enqueue it and the
+     kernels' traced device time. Phase 7 also counts one launch a tensor
+     an update. `--adamw_only` runs the build and phase 22 alone.
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -276,6 +288,7 @@ from lr2ppo_torch.kernels import build
 from lr2ppo_torch.models.layers import init_weights
 from lr2ppo_torch.models.scorer import (ActorCritic, ScoreModel,
                                         SeqScoreModel, TwoDataScoreModel)
+from lr2ppo_torch.ops.adamw import adamw, adamw_reference
 from lr2ppo_torch.ops.attention import (fused_attention, reference_attention,
                                         reset_launches)
 from lr2ppo_torch.ops.dropout import philox_dropout, philox_dropout_reference
@@ -290,7 +303,8 @@ from lr2ppo_torch.train import checkpoints
 from lr2ppo_torch.train.checkpoints import load_any, trad_dims_from_state_dict
 from lr2ppo_torch.train.common import init_state, save_train_state
 from lr2ppo_torch.train.evaluate import evaluate_cases, scores_and_ndcg
-from lr2ppo_torch.train.optim import build_optimizer
+from lr2ppo_torch.train.optim import (AdamW, build_optimizer, decays,
+                                      no_decay_names)
 from lr2ppo_torch.train import pointwise, reward
 from lr2ppo_torch.train.pointwise import (PointwiseTrainer, TwoDataTrainer,
                                           project_tsv)
@@ -866,18 +880,21 @@ def train_path(args, dev, card_line: str) -> dict:
         trainer.init_params = init_params
         torch.cuda.reset_peak_memory_stats()
         int8_mlp.launches = hash_dropout.launches = 0
-        philox_dropout.launches = 0
+        philox_dropout.launches = adamw.launches = 0
         t0 = time.perf_counter()
         astate, cstate, best = trainer.fit(lambda epoch: loader, evb)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"int8_mlp": int8_mlp.launches,
                     "hash_dropout": hash_dropout.launches,
-                    "philox_dropout": philox_dropout.launches}
+                    "philox_dropout": philox_dropout.launches,
+                    "adamw": adamw.launches}
         fit_peak_gb = torch.cuda.max_memory_allocated() / 2**30
         rollouts, updates = TRAIN_BATCHES, astate.step
+        # AdamW: one launch a tensor of each model, each update
+        tensors = sum(len(list(m.parameters())) for m in built["models"][:2])
         want = {"int8_mlp": 4 * rollouts, "hash_dropout": 18 * updates,
-                "philox_dropout": 0}
+                "philox_dropout": 0, "adamw": tensors * updates}
         if updates != 4 or cstate.step != 4 or launches != want:
             raise AssertionError(f"{updates} updates, launches {launches}; "
                                  f"expected 4 updates and {want}")
@@ -1429,6 +1446,200 @@ def k2_kernel(seed: int, dev, card_line: str) -> dict:
     """Phase 11: every shape; returns the runs by name."""
     out = {name: check_k2(name, seed + i, dev, card_line)
            for i, name in enumerate(K2_SHAPES)}
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phase 22, AdamW at the main path's shapes: the actor's and the critic's
+# `out_layer` weight (162,816 fan-in) under --profile fast, float32
+# parameters (the compute dtype is bfloat16) and gradients with bfloat16
+# moments, and XLM-R base's word table in tower pretraining, all float32;
+# each also with bfloat16 parameters and gradients; then both models' whole
+# sets, one update
+ADAMW_TENSORS = {
+    "out_layer": ((3072, 162816), torch.float32, torch.bfloat16),
+    "out_layer_bf16": ((3072, 162816), torch.bfloat16, torch.bfloat16),
+    "xlmr_word": ((250002, 768), torch.float32, torch.float32),
+    "xlmr_word_bf16": ((250002, 768), torch.bfloat16, torch.float32)}
+# lr, b1, b2, eps, weight decay and step scale: lr 1e-4, OptimConfig's
+# defaults besides
+ADAMW_HYPER = (1e-4, 0.9, 0.999, 1e-6, 0.01, 1.0)
+# float32 operations an element (the clip's two left out), counted against
+# the card's float32 rate: far below the bytes' bound
+ADAMW_OPS = 20
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bits, so -0 and +0 differ."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def adamw_bytes(p: torch.Tensor, m: torch.Tensor) -> int:
+    """What an AdamW step must move: p, its gradient (p's dtype), m and v
+    read once, p, m and v written once."""
+    return p.numel() * (3 * p.element_size() + 4 * m.element_size())
+
+
+def adamw_inputs(shape, p_dtype, m_dtype, seed: int, dev) -> tuple:
+    """Seeded p, g, m and v (v positive) at the scales of a trained
+    model's."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(scale, dtype):
+        return (torch.randn(shape, device=dev, generator=gen)
+                * scale).to(dtype)
+    v = draw(1e-4, torch.float32).square_().to(m_dtype)
+    return (draw(0.02, p_dtype), draw(1e-3, p_dtype), draw(1e-4, m_dtype),
+            v)
+
+
+def fused_adamw_ms(params: list, grads: list) -> float:
+    """torch.optim.AdamW(fused=True) over the same tensors (its state in
+    their dtype): the library's yardstick, timed only; the port never calls
+    it."""
+    lr, b1, b2, eps, wd, _ = ADAMW_HYPER
+    wrapped = [torch.nn.Parameter(p) for p in params]
+    for w, g in zip(wrapped, grads):
+        w.grad = g
+    opt = torch.optim.AdamW(wrapped, lr=lr, betas=(b1, b2), eps=eps,
+                            weight_decay=wd, fused=True)
+    ms = cuda_ms(opt.step, iters=5, warmup=1)
+    del opt
+    torch.cuda.empty_cache()
+    return ms
+
+
+def check_adamw(name: str, seed: int, dev, card_line: str) -> dict:
+    """Phase 22, one tensor: the AdamW kernel against its plain version
+    over 3 steps, p, m and v bit for bit, one launch a step; then its time
+    beside the plain version's, the fused library step's and the bound."""
+    shape, p_dtype, m_dtype = ADAMW_TENSORS[name]
+    p, g, m, v = adamw_inputs(shape, p_dtype, m_dtype, seed, dev)
+    rp, rm, rv = p.clone(), m.clone(), v.clone()
+    before = adamw.launches
+    for _ in range(3):
+        adamw(p, g, m, v, *ADAMW_HYPER)
+        adamw_reference(rp, g, rm, rv, *ADAMW_HYPER)
+    torch.cuda.synchronize()
+    pairs = (("p", p, rp), ("m", m, rm), ("v", v, rv))
+    res = {"tensor": name, "shape": list(shape),
+           "dtype": str(p_dtype).replace("torch.", ""),
+           "moment_dtype": str(m_dtype).replace("torch.", ""),
+           "launches": adamw.launches - before,
+           "bit_equal": {k: bool(torch.equal(bits(a), bits(b)))
+                         for k, a, b in pairs},
+           "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                              for _, a, b in pairs)}
+    del rp, rm, rv, pairs
+    if res["launches"] != 3 or not all(res["bit_equal"].values()):
+        emit(phase="adamw_vs_plain", failed=True, **res)
+        raise AssertionError(f"the AdamW kernel disagrees with its plain "
+                             f"version: {res}")
+    res["ms"] = cuda_ms(lambda: adamw(p, g, m, v, *ADAMW_HYPER))
+    res["plain_ms"] = cuda_ms(lambda: adamw_reference(p, g, m, v,
+                                                      *ADAMW_HYPER),
+                              iters=3, warmup=1)
+    torch.cuda.empty_cache()
+    res["library_ms"] = fused_adamw_ms([p], [g])
+    res.update(bound(adamw_bytes(p, m), ADAMW_OPS * p.numel(),
+                     VECTOR_OPS_PER_S))
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["card"] = card_line
+    emit(phase="adamw_vs_plain", **res)
+    return res
+
+
+def adamw_update_set(seed: int, dev, card_line: str) -> dict:
+    """Phase 22, one update's AdamW: the actor's and the critic's steps at
+    the flagship width under --profile fast (float32 parameters and
+    gradients, bfloat16 moments; the decay mask of each model), the port's
+    AdamW.step on seeded tensors. Two steps against the plain version bit
+    for bit and one launch a tensor; then the two steps' time (CUDA
+    events, the host's launching included), the host's time to enqueue
+    them, the kernels' device time in a trace, the plain version's time,
+    the fused library step's and the bound."""
+    cfg = train_config("", seed)
+    lr, b1, b2, eps, wd, _ = ADAMW_HYPER
+    sets = []
+    for i, cls in enumerate((ScoreModel, SeqScoreModel)):
+        model = cls(cfg.model, torch.bfloat16, device="meta")
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
+        params = {k: torch.randn(p.shape, device=dev, generator=gen) * 0.02
+                  for k, p in model.named_parameters()}
+        grads = {k: torch.randn(p.shape, device=dev, generator=gen) * 1e-3
+                 for k, p in params.items()}
+        opt = AdamW(params, lambda t: lr, b1, b2, eps, wd,
+                    moment_dtype=getattr(torch, cfg.optim.moment_dtype),
+                    no_decay=no_decay_names(model))
+        sets.append((opt, grads))
+    tensors = sum(len(o.params) for o, _ in sets)
+    numel = sum(p.numel() for o, _ in sets for p in o.params.values())
+    nbytes = sum(adamw_bytes(p, o.mu[k]) for o, _ in sets
+                 for k, p in o.params.items())
+
+    def both():
+        for o, gr in sets:
+            o.step(gr)
+
+    plain = [({k: p.clone() for k, p in o.params.items()},
+              {k: t.clone() for k, t in o.mu.items()},
+              {k: t.clone() for k, t in o.nu.items()}) for o, _ in sets]
+
+    def plain_both():
+        for (o, gr), (ps, ms, vs) in zip(sets, plain):
+            for k, p in ps.items():
+                adamw_reference(p, gr[k], ms[k], vs[k], lr, b1, b2, eps,
+                                wd if decays(k, o.no_decay) else 0.0, 1.0)
+
+    before = adamw.launches
+    for _ in range(2):
+        both()
+        plain_both()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(bits(a), bits(b))
+                for (o, _), (ps, ms, vs) in zip(sets, plain)
+                for mine, theirs in ((o.params, ps), (o.mu, ms), (o.nu, vs))
+                for a, b in ((mine[k], theirs[k]) for k in mine))
+    res = {"tensors": tensors, "params": numel,
+           "launches_per_update": (adamw.launches - before) / 2,
+           "bit_equal": equal}
+    if not equal or res["launches_per_update"] != tensors:
+        emit(phase="adamw_update_set", failed=True, **res)
+        raise AssertionError(f"one update's AdamW disagrees with its plain "
+                             f"version or launched other than once a "
+                             f"tensor: {res}")
+    res["ms"] = cuda_ms(both, iters=5, warmup=1)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        both()
+        host.append((time.perf_counter() - t0) * 1e3)
+    res["host_ms"] = statistics.median(host)
+    res["trace_ms"] = sum(traced_ms(steady_trace(both), "adamw"))
+    res["plain_ms"] = cuda_ms(plain_both, iters=3, warmup=1)
+    del plain
+    torch.cuda.empty_cache()
+    res["library_ms"] = fused_adamw_ms(
+        [p for o, _ in sets for p in o.params.values()],
+        [gr[k] for o, gr in sets for k in o.params])
+    res.update(bound(nbytes, ADAMW_OPS * numel, VECTOR_OPS_PER_S))
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["bound_share_trace"] = res["bound_ms"] / res["trace_ms"]
+    res["card"] = card_line
+    emit(phase="adamw_update_set", **res)
+    return res
+
+
+def adamw_kernel(seed: int, dev, card_line: str) -> dict:
+    """Phase 22: the AdamW kernel at each tensor of ADAMW_TENSORS and over
+    one update's whole set; returns the runs by name."""
+    out = {}
+    for i, name in enumerate(ADAMW_TENSORS):
+        out[name] = check_adamw(name, seed + i, dev, card_line)
+        torch.cuda.empty_cache()
+    out["update"] = adamw_update_set(seed, dev, card_line)
     torch.cuda.empty_cache()
     return out
 
@@ -5245,6 +5456,8 @@ def main(argv=None) -> None:
                     help="build and run phase 19 alone on one card")
     ap.add_argument("--vision_speech_only", action="store_true",
                     help="build and run phase 20 alone on one card")
+    ap.add_argument("--adamw_only", action="store_true",
+                    help="build and run phase 22 alone on one card")
     ap.add_argument("--checkpoints_only", action="store_true",
                     help="build and run phase 7, phase 21 and phase 15 "
                          "(whose shared-card legs hold phase 21 (c)) alone "
@@ -5273,6 +5486,13 @@ def main(argv=None) -> None:
                 for k, v in built.items()})
     for name in build.ENTRIES:
         build.library(name)
+    if args.adamw_only:
+        adamw_kernel(args.seed, dev, card_line)
+        print(card_line, flush=True)
+        emit(ok=True, device={"platform": "gpu",
+                              "kind": torch.cuda.get_device_name(0),
+                              "count": torch.cuda.device_count()})
+        return
     if args.checkpoints_only:
         p7 = train_path(args, dev, card_line)
         checkpoints_path(args, dev, card_line, p7)
@@ -5400,7 +5620,10 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
     mark("19")
     p20 = vision_speech_path(args, dev, card_line)
+    torch.cuda.empty_cache()
     mark("20")
+    p22 = adamw_kernel(args.seed, dev, card_line)
+    mark("22")
     emit(phase="phase_seconds", card=card_line,
          seconds={name: later - earlier for (_, earlier), (name, later)
                   in zip(marks, marks[1:])})
@@ -5504,6 +5727,16 @@ def main(argv=None) -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    # AdamW: the out_layer weight's step, launched in phase 7's updates
+    # (one launch a tensor) and phase 22
+    r = p22["out_layer"]
+    kernels.append({
+        "name": "adamw", "route": "cuda",
+        "source": "lr2ppo_torch/kernels/csrc/adamw.cu",
+        "replaces": None, "launches": train_launches["adamw"],
+        "max_abs_err": max(v.get("max_abs_err", 0.0) for v in p22.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(card_line, flush=True)
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the fused int8 FFN (K1), the narrow int8 GEMM (K2), the tower
-attention kernel (K4) and hash dropout of one or more checkouts of this
-repository on one CUDA card, in the order given:
+"""Time AdamW, the fused int8 FFN (K1), the narrow int8 GEMM (K2), the
+tower attention kernel (K4) and hash dropout of one or more checkouts of
+this repository on one CUDA card, in the order given:
 
-    python3 kernel_ab.py [--only hash_dropout] _tree/parent . . _tree/parent
+    python3 kernel_ab.py [--only hash_dropout|adamw] _tree/parent . . \
+        _tree/parent
 
 Each tree must lie inside this checkout (unpack another commit with `git
 archive` into a git-ignored directory such as `_tree/`). Each runs in a
@@ -27,8 +28,19 @@ rate 0.65, BEiT's, S2T's, the sp place), each also traced (the kernel's
 device time a launch over 20 launches) with torch.nn.functional.dropout's
 one call and traced time beside it. Then the wrapper's host path at the
 (32, 128, 768) float32 site, part by part (`host_breakdown`).
-`--only hash_dropout` times hash dropout alone. Prints the card's name
-and power limit, then each tree's name and its phases' JSON lines.
+`--only hash_dropout` times hash dropout alone.
+
+AdamW (`--only adamw` times it alone): each tree's own AdamW.step, the
+eager loop or the kernel, one step a timed run over CUDA events (the host's
+launching included), at the `out_layer` weight (3,072 x 162,816, float32,
+bfloat16 moments), XLM-R base's word table (250,002 x 768, float32,
+float32 moments) and one update's whole set (the actor's and the critic's
+steps at flagship width under --profile fast: float32 parameters,
+bfloat16 moments); then, where the tree's
+chip_smoke.py has phase 22 (`adamw_kernel`), that phase: the kernel against
+its plain version bit for bit, its time beside the plain version's, the
+fused library step's and the bound. Prints the card's name and power
+limit, then each tree's name and its phases' JSON lines.
 """
 
 from __future__ import annotations
@@ -203,6 +215,66 @@ def host_breakdown(cs, dev, card_line: str) -> dict:
     return res
 
 
+# AdamW's tensors: shape, parameter dtype, moment dtype
+ADAMW_AB = {"out_layer": ((3072, 162816), "float32", "bfloat16"),
+            "xlmr_word": ((250002, 768), "float32", "float32")}
+
+
+def adamw_ab(cs, dev, card_line: str, seed: int = 5) -> None:
+    """The tree's AdamW.step (constant lr 1e-4, OptimConfig's other
+    defaults) at each tensor of ADAMW_AB and over one update's whole set,
+    on seeded tensors; one step a timed run."""
+    import torch
+
+    from lr2ppo_torch.models.scorer import ScoreModel, SeqScoreModel
+    from lr2ppo_torch.train.optim import AdamW, no_decay_names
+
+    def seeded(shapes: dict, dtype, gen) -> dict:
+        return {k: (torch.randn(s, device=dev, generator=gen)
+                    * 0.02).to(dtype) for k, s in shapes.items()}
+
+    def timed(name: str, sets: list, extra: dict) -> None:
+        def step():
+            for opt, grads in sets:
+                opt.step(grads)
+        ms = cs.cuda_ms(step, iters=5, warmup=1)
+        numel = sum(p.numel() for o, _ in sets for p in o.params.values())
+        nbytes = sum(p.numel() * (3 * p.element_size()
+                                  + 4 * o.mu[k].element_size())
+                     for o, _ in sets for k, p in o.params.items())
+        bound_ms = nbytes / cs.HBM_BYTES_PER_S * 1e3
+        print(json.dumps({
+            "phase": "adamw_step", "set": name, "params": numel,
+            "tensors": sum(len(o.params) for o, _ in sets), **extra,
+            "ms": ms, "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+            "card": card_line}), flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for name, (shape, p_dtype, m_dtype) in ADAMW_AB.items():
+        p_dt, m_dt = getattr(torch, p_dtype), getattr(torch, m_dtype)
+        params = seeded({name: shape}, p_dt, gen)
+        opt = AdamW(params, lambda t: 1e-4, moment_dtype=m_dt)
+        timed(name, [(opt, seeded({name: shape}, p_dt, gen))],
+              {"dtype": p_dtype, "moment_dtype": m_dtype})
+        del params, opt
+        torch.cuda.empty_cache()
+    cfg = cs.train_config("", seed)
+    sets = []
+    for cls in (ScoreModel, SeqScoreModel):
+        model = cls(cfg.model, torch.bfloat16, device="meta")
+        shapes = {k: p.shape for k, p in model.named_parameters()}
+        opt = AdamW(seeded(shapes, torch.float32, gen), lambda t: 1e-4,
+                    moment_dtype=torch.bfloat16,
+                    no_decay=no_decay_names(model))
+        sets.append((opt, seeded(shapes, torch.float32, gen)))
+    timed("update", sets, {"dtype": "float32",
+                           "moment_dtype": "bfloat16"})
+    del sets
+    torch.cuda.empty_cache()
+    if hasattr(cs, "adamw_kernel"):
+        cs.adamw_kernel(seed, dev, card_line)
+
+
 def child(tree: str, only: str = "") -> None:
     """Time one tree's kernels through its own chip_smoke.py."""
     sys.path.insert(0, tree)
@@ -216,8 +288,13 @@ def child(tree: str, only: str = "") -> None:
     dev = torch.device("cuda", 0)
     card_line = cs.card()
     own = cs.cuda_ms
-    if only not in ("", "hash_dropout"):
-        raise SystemExit(f"--only {only}: only hash_dropout is selectable")
+    if only not in ("", "hash_dropout", "adamw"):
+        raise SystemExit(f"--only {only}: only hash_dropout or adamw is "
+                         "selectable")
+    if only in ("", "adamw"):
+        adamw_ab(cs, dev, card_line)
+        if only:
+            return
     if not only:
         cs.cuda_ms = back_to_back(own, REPS["int8_mlp"])
         for rows in (cs.ROLLOUT_ROWS, cs.SERVE_ROWS):

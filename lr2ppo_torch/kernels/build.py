@@ -63,6 +63,12 @@ ENTRIES = {
             [_vp] * 5 + [_i32] * 4 + [_i64] * 9 + [ctypes.c_float, _i32, _vp],
             _i32),
         "lr2ppo_fused_attention_path": ([_i32, _i32, _i32], _i32)},
+    # p, g, m, v, norm; rows, cols and the four row strides; the dtypes of
+    # p, g and the moments; -lr, b1, 1 - b1, b2, 1 - b2, eps, wd, the step
+    # scale and the clip; decay; the stream
+    "adamw": {
+        "lr2ppo_adamw": ([_vp] * 5 + [_i64] * 6 + [_i32] * 3
+                         + [ctypes.c_float] * 9 + [_i32, _vp], _i32)},
 }
 
 # the library of each C entry

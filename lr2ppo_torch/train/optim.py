@@ -33,11 +33,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from lr2ppo_torch.ops.adamw import adamw
 from lr2ppo_torch.parallel.fsdp import clean_name
 from lr2ppo_torch.parallel.mesh import (all_gather_dim, shard_slice, tp_dim,
                                         zero_dim)
 from lr2ppo_torch.train.checkpoints import local_part
-from lr2ppo_torch.utils import span
+from lr2ppo_torch.utils import count, span
 
 
 def _schedule_fns(name: str, base_lr: float, train_steps: int, w: int):
@@ -124,8 +125,10 @@ def decays(name: str, no_decay: Optional[frozenset] = None) -> bool:
 
 class AdamW:
     """The reference's AdamW over named parameters; `step()` reads their
-    `.grad` and updates them in place. `count` is the number of steps
-    taken; step t uses schedule(t)."""
+    `.grad` and updates them in place, a tensor at a time through
+    ops/adamw.py:adamw (one kernel launch a tensor on a card, the plain
+    version on the CPU). `count` is the number of steps taken; step t uses
+    schedule(t)."""
 
     def __init__(self, named_params: Dict[str, torch.nn.Parameter],
                  schedule: Callable[[int], float], b1: float = 0.9,
@@ -162,33 +165,29 @@ class AdamW:
             # its moments decay and its weight decay applies
             if grads is None:
                 grads = {k: p.grad for k, p in self.params.items()}
-            grads = {k: torch.zeros_like(p) if grads.get(k) is None
-                     else grads[k] for k, p in self.params.items()}
+            grads = {k: grads.get(k) for k in self.params}
             if self.grad_clip and norm is None:
                 # optax.clip_by_global_norm: g / ||g|| * max_norm where
-                # ||g|| >= max_norm
-                norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                      for g in grads.values()))
+                # ||g|| >= max_norm; a zero gradient adds nothing
+                norm = torch.sqrt(torch.as_tensor(sum(
+                    (torch.sum(torch.square(g.float()))
+                     for g in grads.values() if g is not None), 0.0)))
             lr = self.lr()
             self.count += 1
             step_scale = 1.0
             if self.correct_bias:
                 c = float(self.count)
                 step_scale = math.sqrt(1 - self.b2 ** c) / (1 - self.b1 ** c)
+            on_kernel = 0
             for k, p in self.params.items():
-                g = grads[k].float()
-                if norm is not None:
-                    g = torch.where(norm < self.grad_clip, g,
-                                    g / norm * self.grad_clip)
-                m = self.mu[k].float().mul_(self.b1).add_(g * (1 - self.b1))
-                v = self.nu[k].float().mul_(self.b2).add_(
-                    torch.square(g).mul_(1 - self.b2))
-                upd = m * step_scale / (torch.sqrt(v) + self.eps)
-                if self.weight_decay and decays(k, self.no_decay):
-                    upd.add_(p.float() * self.weight_decay)
-                p.add_((upd * -lr).to(p.dtype))
-                self.mu[k].copy_(m)
-                self.nu[k].copy_(v)
+                wd = (self.weight_decay
+                      if self.weight_decay and decays(k, self.no_decay)
+                      else 0.0)
+                on_kernel += adamw(p, grads[k], self.mu[k], self.nu[k], lr,
+                                   self.b1, self.b2, self.eps, wd,
+                                   step_scale, norm, self.grad_clip)
+            count("optim.kernel_tensors", on_kernel)
+            count("optim.plain_tensors", len(self.params) - on_kernel)
 
     def zero_grad(self) -> None:
         for p in self.params.values():

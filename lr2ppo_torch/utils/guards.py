@@ -34,7 +34,10 @@ nothing records, each call costs one check of the profiler's flag.
   pretrain.update  its forward, backward and optimizer step
   pretrain.report  the report_steps fetch, log and best save
   pretrain.save    a .state or final model save
-  optim.step       an AdamW or Adafactor step
+  optim.step       an AdamW or Adafactor step (counters
+                   optim.kernel_tensors and optim.plain_tensors: the
+                   tensors an AdamW step sent to its kernel, and to its
+                   plain version)
   optim.allreduce  the gradients' all-reduce over dp
 """
 

@@ -173,3 +173,110 @@ def test_load_state_dict_refuses_other_parameters():
     wrong = {**state["nu"], "fc.bias": torch.zeros(3)}
     with pytest.raises(ValueError, match="fc.bias"):
         opt.load_state_dict({**state, "nu": wrong})
+
+
+def test_cpu_tensors_take_the_plain_version_and_are_counted():
+    """On the CPU every tensor takes the plain version (no launch): while a
+    profiler records, `optim.plain_tensors` counts each tensor a step and
+    `optim.kernel_tensors` none; the parameters equal adamw_reference's,
+    one tensor without a gradient among them."""
+    from lr2ppo_torch.ops import adamw as ops
+    from lr2ppo_torch.utils import counters
+
+    params, grads = _inputs()
+    named = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+             for k, v in params.items()}
+    plain = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    moments = {k: (torch.zeros_like(v), torch.zeros_like(v))
+               for k, v in plain.items()}
+    opt = topt.AdamW(named, lambda t: LR, grad_clip=0.5)
+    launches = ops.adamw.launches
+    for g in grads[:3]:
+        for k, p in named.items():
+            p.grad = None if k == "ln.weight" else torch.from_numpy(g[k])
+        seen = counters()
+        with torch.profiler.profile():
+            opt.step()
+        got = counters()
+        assert got["optim.plain_tensors"] - seen.get(
+            "optim.plain_tensors", 0) == len(named)
+        assert got.get("optim.kernel_tensors", 0) == seen.get(
+            "optim.kernel_tensors", 0)
+        norm = torch.sqrt(sum(torch.sum(torch.square(torch.from_numpy(
+            g[k]))) for k in ("fc.weight", "fc.bias")))
+        for k, p in plain.items():
+            ops.adamw_reference(p, None if k == "ln.weight"
+                                else torch.from_numpy(g[k]), *moments[k], LR,
+                                0.9, 0.999, 1e-6,
+                                0.0 if k == "fc.bias" else 0.01, 1.0, norm,
+                                0.5)
+    assert ops.adamw.launches == launches
+    for k, p in named.items():
+        assert torch.equal(p.detach(), plain[k]), k
+        assert torch.equal(opt.mu[k], moments[k][0]), k
+
+
+def test_a_tensor_off_the_cpu_never_takes_the_plain_version(monkeypatch):
+    """A tensor on any device but the CPU goes to the kernel: where the
+    kernel's library cannot be loaded, step raises, and the plain version
+    is never called (here on the meta device, as this machine may have no
+    card)."""
+    from lr2ppo_torch.kernels import build
+    from lr2ppo_torch.ops import adamw as ops
+
+    def no_library(entry):
+        raise RuntimeError(f"no library for {entry}")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(build, "function", no_library)
+    monkeypatch.setattr(ops, "adamw_reference", plain)
+    p = {"w.weight": torch.nn.Parameter(torch.zeros(4, 3, device="meta"))}
+    p["w.weight"].grad = torch.ones(4, 3, device="meta")
+    opt = topt.AdamW(p, lambda t: LR)
+    with pytest.raises(RuntimeError, match="lr2ppo_adamw"):
+        opt.step()
+
+
+def _strided(shape, view):
+    return view(torch.zeros(shape))
+
+
+@pytest.mark.parametrize("shape,view,want", [
+    ((5, 4), lambda t: t, (1, 20, 20)),
+    ((), lambda t: t, (1, 1, 1)),
+    ((1, 7, 1), lambda t: t, (1, 7, 7)),
+    # zero1 slices (mesh.shard_slice): along dim 1 rows of the slice's
+    # width at the parameter's row stride, along dim 0 one row
+    ((48, 1000), lambda t: t.narrow(1, 250, 250), (48, 250, 1000)),
+    ((4, 64, 24), lambda t: t.narrow(1, 16, 16), (4, 384, 1536)),
+    ((40, 36), lambda t: t.narrow(0, 10, 10), (1, 360, 360)),
+    ((4099,), lambda t: t[3:], (1, 4096, 4096)),
+], ids=["contiguous", "scalar", "unit_dims", "zero1_dim1", "zero1_3d",
+        "zero1_dim0", "offset_view"])
+def test_plane_lays_out_the_kernels_rows(shape, view, want):
+    """ops/adamw.py:plane, the layout the kernel takes: each tensor as rows
+    of contiguous values with its own row stride. A view and the
+    contiguous moments of its shape share rows and columns and keep their
+    own strides."""
+    from lr2ppo_torch.ops.adamw import plane
+
+    p = _strided(shape, view)
+    m = torch.zeros_like(p, memory_format=torch.contiguous_format)
+    rows, cols, strides = plane(p, p, m, m)
+    assert (rows, cols, strides[0]) == want
+    if rows > 1:
+        assert strides[2] == strides[3] == cols
+
+
+@pytest.mark.parametrize("shape,view", [
+    ((6, 6), lambda t: t.t()), ((6, 6), lambda t: t[:, ::2]),
+    ((4, 6, 6), lambda t: t[:, :3, :3])],
+    ids=["transposed", "strided_columns", "two_row_strides"])
+def test_plane_refuses_what_the_kernel_does_not_take(shape, view):
+    from lr2ppo_torch.ops.adamw import plane
+
+    p = _strided(shape, view)
+    with pytest.raises(ValueError, match="layout"):
+        plane(p, torch.zeros_like(p, memory_format=torch.contiguous_format))
