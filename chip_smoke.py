@@ -7,7 +7,8 @@ and the image and speech towers) and multi-GPU training at full width.
     python3 chip_smoke.py [--seed N] [--parallel_only | --pipeline_only |
                            --processors_only | --seq2seq_only |
                            --encoders_only | --vision_speech_only |
-                           --checkpoints_only | --adamw_only]
+                           --checkpoints_only | --adamw_only |
+                           --mla_only]
 
 Phases, each of which raises on failure (exit code other than 0):
   1. device: torch and CUDA versions, the card's name and power limit;
@@ -250,6 +251,22 @@ Phases, each of which raises on failure (exit code other than 0):
      2 steps bit for bit, its time, the host's time to enqueue it and the
      kernels' traced device time. Phase 7 also counts one launch a tensor
      an update. `--adamw_only` runs the build and phase 22 alone.
+ 23. the latent tower's causal attention kernel (ops/mla_attention.py,
+     Triton) at (8, 16, 8,192, 192/128) bf16, the moe-lm-s8192 cell's
+     shape: its output and its dq, dk, dv held to the plain version's on
+     the same inputs (one sequence at a time: the plain scores would not
+     fit whole), within the card test's gaps (norm-relative 1e-2 forward,
+     2e-2 gradients; worst element 6e-2 of the largest); forward and
+     backward times beside their bound at the bf16 peak (the pairs at or
+     below the diagonal), the plain version's and
+     F.scaled_dot_product_attention's as the yardstick, which the port
+     never calls. Then, its counters set to 0, one training step (forward
+     with remat, backward, the correction-bias update) of
+     perfbench/configs/moonlight-16b-a3b-ep8.json at 8 x 8,192 tokens:
+     45 kernel launches (9 forwards, 9 recomputes, 9 backwards of 3), the
+     plain version never called, and every MoE layer routing over 64
+     experts and computing its 8; the kernels line reports that step's
+     launches. `--mla_only` runs phase 23 alone (no nvcc build).
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -1640,6 +1657,181 @@ def adamw_kernel(seed: int, dev, card_line: str) -> dict:
         out[name] = check_adamw(name, seed + i, dev, card_line)
         torch.cuda.empty_cache()
     out["update"] = adamw_update_set(seed, dev, card_line)
+    torch.cuda.empty_cache()
+    return out
+
+
+MLA_SHAPE = (8, 16, 8192, 192, 128)
+MLA_FWD_GAP, MLA_GRAD_GAP, MLA_ELEMENT_GAP = 1e-2, 2e-2, 6e-2
+MLA_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "perfbench", "configs", "moonlight-16b-a3b-ep8.json")
+
+
+def mla_check(q, k, v, do, scale: float) -> dict:
+    """The kernel's output and gradients (do given) against the plain
+    version's on the same inputs, one sequence at a time: per result the
+    norm-relative gap over the batch and the worst element over the plain
+    result's largest magnitude; raises past the card test's gaps."""
+    from lr2ppo_torch.ops.mla_attention import (mla_attention,
+                                                reference_mla_attention)
+
+    qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = mla_attention(*qkv, scale)
+    o.backward(do)
+    got = [o.detach(), *(t.grad for t in qkv)]
+    del o, qkv
+    sums = [[0.0, 0.0, 0.0, 0.0] for _ in got]   # |d|², |w|², max|d|, max|w|
+    for i in range(q.shape[0]):
+        one = [t[i:i + 1].detach() for t in (q, k, v)]
+        with torch.no_grad():
+            want = [reference_mla_attention(*one, scale)]
+        ref = [t.float().requires_grad_(True) for t in one]
+        reference_mla_attention(*ref, scale).backward(do[i:i + 1].float())
+        want += [t.grad for t in ref]
+        for acc, g, w in zip(sums, got, want):
+            g, w = g[i:i + 1].float(), w.float()
+            d = g - w
+            acc[0] += float(d.square().sum())
+            acc[1] += float(w.square().sum())
+            acc[2] = max(acc[2], float(d.abs().max()))
+            acc[3] = max(acc[3], float(w.abs().max()))
+        del one, ref, want
+        torch.cuda.empty_cache()
+    out = {}
+    for name, acc, gap in zip(("o", "dq", "dk", "dv"), sums,
+                              (MLA_FWD_GAP,) + (MLA_GRAD_GAP,) * 3):
+        rel = math.sqrt(acc[0] / max(acc[1], 1e-30))
+        el = acc[2] / max(acc[3], 1e-30)
+        out[name] = {"rel": rel, "element": el, "limit": gap}
+        if not (rel < gap and el < MLA_ELEMENT_GAP):
+            raise AssertionError(f"mla_attention's {name} disagrees with its "
+                                 f"plain version: {out[name]}")
+    return out
+
+
+def mla_tower_step(seed: int, dev, rows: int = 8, tokens: int = 8192) -> dict:
+    """One training step of the moe-lm-s8192 cell's tower at its 8 x 8,192
+    tokens (forward with remat, backward, the correction-bias update),
+    the kernel's counters set to 0 before it; raises unless every
+    attention call took the kernel and every MoE layer routes over the
+    router's 64 experts and computes its 8."""
+    from lr2ppo_torch.ops.mla_attention import mla_attention
+    from lr2ppo_torch.towers.model import (TowerConfig, TowerModel,
+                                           init_weights as init_tower)
+    from lr2ppo_torch.towers.moe import MoeFeedForward
+
+    with open(MLA_CONFIG) as f:
+        cfg = TowerConfig.from_dict(json.load(f))
+    model = TowerModel(cfg, torch.bfloat16, dev, with_target=True)
+    init_tower(model, torch.Generator(device=dev).manual_seed(seed))
+    moe = [m for m in model.modules() if isinstance(m, MoeFeedForward)]
+    routing = sorted({(m.gate.out_features, len(m.held)) for m in moe})
+    g = torch.Generator(device=dev).manual_seed(seed)
+    src = torch.randint(5, cfg.vocab_size, (rows, tokens), generator=g,
+                        device=dev)
+    tgt, seg = torch.roll(src, -1, 1), torch.ones_like(src)
+    mla_attention.launches = mla_attention.plain_calls = 0
+    mla_attention.kernel_calls = {"fwd": 0, "bwd": 0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = model(src, tgt, seg, deterministic=False)[0]
+    loss.backward()
+    model.after_update()
+    torch.cuda.synchronize()
+    out = {"step_s": time.perf_counter() - t0, "loss": float(loss.detach()),
+           "layers": cfg.layers_num, "moe_layers": len(moe),
+           "routing": routing, "launches": mla_attention.launches,
+           "kernel_calls": dict(mla_attention.kernel_calls),
+           "plain_calls": mla_attention.plain_calls,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    n = cfg.layers_num
+    if (out["launches"] != 5 * n or out["plain_calls"]
+            or out["kernel_calls"] != {"fwd": 2 * n, "bwd": n}
+            or routing != [(64, 8)] or len(moe) != n - 1
+            or not math.isfinite(out["loss"])):
+        raise AssertionError(f"the tower step missed the kernel or the "
+                             f"experts: {out}")
+    del model, loss
+    return out
+
+
+def mla_kernel(seed: int, dev, card_line: str) -> dict:
+    """Phase 23: the causal attention kernel's forward and backward at
+    MLA_SHAPE, its bound, the plain version's and SDPA's times, the kernel
+    against the plain version there, and the launches of one step of the
+    Moonlight tower."""
+    import torch.nn.functional as F
+
+    from lr2ppo_torch.ops.mla_attention import (mla_attention,
+                                                reference_mla_attention)
+
+    b, h, s, dqk, dv = MLA_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k = (torch.randn(b, h, s, dqk, generator=g, device=dev)
+            .to(torch.bfloat16).requires_grad_(True) for _ in range(2))
+    v = torch.randn(b, h, s, dv, generator=g, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    do = torch.randn(b, h, s, dv, generator=g, device=dev).to(torch.bfloat16)
+    scale = dqk ** -0.5
+    pairs = b * h * s * (s + 1) / 2
+    ops_fwd, ops_bwd = 2 * pairs * (dqk + dv), 2 * pairs * (3 * dqk + 2 * dv)
+    out = {"shape": list(MLA_SHAPE)}
+
+    def fwd():
+        with torch.no_grad():
+            mla_attention(q, k, v, scale)
+
+    o = mla_attention(q, k, v, scale)
+
+    def bwd():
+        torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+
+    out["fwd_ms"] = cuda_ms(fwd, iters=5)
+    out["bwd_ms"] = cuda_ms(bwd, iters=5)
+    for part, ops in (("fwd", ops_fwd), ("bwd", ops_bwd)):
+        out[part + "_bound_ms"] = ops / BF16_TENSOR_OPS_PER_S * 1e3
+        out[part + "_share"] = out[part + "_bound_ms"] / out[part + "_ms"]
+    del o
+
+    def plain_fwd():
+        with torch.no_grad():
+            for i in range(b):
+                reference_mla_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                        scale)
+
+    def plain_bwd():
+        for i in range(b):
+            qi, ki, vi = (t[i:i + 1].detach().requires_grad_(True)
+                          for t in (q, k, v))
+            torch.autograd.grad(reference_mla_attention(qi, ki, vi, scale),
+                                (qi, ki, vi), do[i:i + 1])
+
+    out["plain_fwd_ms"] = cuda_ms(plain_fwd, iters=2, warmup=1)
+    out["plain_fwd_bwd_ms"] = cuda_ms(plain_bwd, iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    try:
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               scale=scale)
+
+        so = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                            scale=scale)
+
+        def sdpa_bwd():
+            torch.autograd.grad(so, (q, k, v), do, retain_graph=True)
+
+        out["sdpa_fwd_ms"] = cuda_ms(sdpa_fwd, iters=5)
+        out["sdpa_bwd_ms"] = cuda_ms(sdpa_bwd, iters=5)
+        del so
+    except RuntimeError as e:                 # no backend takes the shape
+        out["sdpa"] = str(e)[:200]
+    out["check"] = mla_check(q, k, v, do, scale)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    out["tower_step"] = mla_tower_step(seed, dev)
+    out["launches"] = out["tower_step"]["launches"]
+    emit(phase="mla_attention", card=card_line, **out)
     torch.cuda.empty_cache()
     return out
 
@@ -5458,6 +5650,8 @@ def main(argv=None) -> None:
                     help="build and run phase 20 alone on one card")
     ap.add_argument("--adamw_only", action="store_true",
                     help="build and run phase 22 alone on one card")
+    ap.add_argument("--mla_only", action="store_true",
+                    help="run phase 23 alone on one card")
     ap.add_argument("--checkpoints_only", action="store_true",
                     help="build and run phase 7, phase 21 and phase 15 "
                          "(whose shared-card legs hold phase 21 (c)) alone "
@@ -5475,6 +5669,13 @@ def main(argv=None) -> None:
     emit(phase="device", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], card=card_line,
          count=torch.cuda.device_count())
+    if args.mla_only:
+        mla_kernel(args.seed, dev, card_line)
+        print(card_line, flush=True)
+        emit(ok=True, device={"platform": "gpu",
+                              "kind": torch.cuda.get_device_name(0),
+                              "count": torch.cuda.device_count()})
+        return
 
     t0 = time.perf_counter()
     built = build.build()
@@ -5623,6 +5824,7 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
     mark("20")
     p22 = adamw_kernel(args.seed, dev, card_line)
+    p23 = mla_kernel(args.seed, dev, card_line)
     mark("22")
     emit(phase="phase_seconds", card=card_line,
          seconds={name: later - earlier for (_, earlier), (name, later)
@@ -5737,6 +5939,16 @@ def main(argv=None) -> None:
         "max_abs_err": max(v.get("max_abs_err", 0.0) for v in p22.values()),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the latent tower's causal attention (Triton), forward and backward
+    kernels.append({
+        "name": "mla_attention", "route": "triton",
+        "source": "lr2ppo_torch/ops/mla_attention.py", "replaces": None,
+        "launches": p23["launches"],
+        "ms": p23["fwd_ms"] + p23["bwd_ms"],
+        "plain_ms": p23["plain_fwd_bwd_ms"],
+        "bound_ms": p23["fwd_bound_ms"] + p23["bwd_bound_ms"],
+        "bound_by": "operations",
+        "library_ms": p23.get("sdpa_fwd_ms", 0) + p23.get("sdpa_bwd_ms", 0)})
     print(card_line, flush=True)
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu",

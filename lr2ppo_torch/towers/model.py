@@ -32,13 +32,16 @@ from lr2ppo_torch.towers.embeddings import (CompositeEmbedding,
                                             PatchEmbedding, SpeechEmbedding)
 from lr2ppo_torch.towers.encoders import (GatedcnnEncoder, RnnWeights,
                                           build_encoder, stream_config)
+from lr2ppo_torch.towers.latent import LatentEncoder
 from lr2ppo_torch.towers.layers import (GatedFeedForward,
                                         MultiHeadedAttention,
                                         PositionwiseFeedForward, RefLayerNorm,
                                         RelativePositionEmbedding,
                                         T5LayerNorm, additive_mask_from_seg,
                                         make_layer_norm)
+from lr2ppo_torch.towers.moe import MoeFeedForward
 from lr2ppo_torch.towers.targets import ClrTarget, CompositeTarget
+from lr2ppo_torch.utils import span
 
 
 @dataclass
@@ -109,6 +112,8 @@ class TowerConfig:
 
     @classmethod
     def from_dict(cls, raw: Dict[str, Any]) -> "TowerConfig":
+        if cls is TowerConfig and "kv_lora_rank" in raw:
+            return LatentMoeConfig.from_dict(raw)
         names = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in raw.items() if k in names}
         for key in ("embedding", "tgt_embedding", "target"):
@@ -118,6 +123,82 @@ class TowerConfig:
         if cfg.encoder.startswith("bi"):
             cfg = dataclasses.replace(cfg, bidirectional=True)
         return cfg
+
+
+# published keys of the DeepSeek-V3 config that repeat a TowerConfig field
+_SAME_AS = {"num_hidden_layers": "layers_num",
+            "num_attention_heads": "heads_num",
+            "intermediate_size": "feedforward_size"}
+# the published config's choices that LatentMoeConfig runs, and no other
+_ONLY = {"q_lora_rank": None, "scoring_func": "sigmoid",
+         "topk_method": "noaux_tc", "n_group": 1, "topk_group": 1,
+         "num_nextn_predict_layers": 0, "attention_bias": False,
+         "tie_word_embeddings": False, "hidden_act": "silu",
+         "encoder": "transformer", "decoder": None}
+
+
+@dataclass
+class LatentMoeConfig(TowerConfig):
+    """TowerConfig with the DeepSeek-V3 block's keys (Moonlight-16B-A3B;
+    towers/latent.py), under the published config.json's names, plus what
+    that file does not state: the router's width where this card holds only
+    some of a layer's experts (`router_experts`; None: n_routed_experts),
+    the first expert it holds (`first_held_expert`), the sequence-wise
+    balance loss's alpha (`aux_loss_alpha`) and the correction bias's speed
+    gamma (`bias_update_speed`). `n_routed_experts` counts the experts held
+    here, ids first_held_expert.. on: one rank's share of an
+    expert-parallel layer, or the whole layer. TowerConfig keeps the JAX
+    package's fields:
+    `TowerConfig.from_dict` hands a dict holding `kv_lora_rank` here. A
+    published key that repeats a field (num_hidden_layers,
+    num_attention_heads, intermediate_size) sets the field where the field
+    is not given."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 50000.0
+    rms_norm_eps: float = 1e-5
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    moe_intermediate_size: int = 1408
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    router_experts: Optional[int] = None
+    first_held_expert: int = 0
+    aux_loss_alpha: float = 1e-4
+    bias_update_speed: float = 1e-3
+
+    @classmethod
+    def from_dict(cls, raw: Dict[str, Any]) -> "LatentMoeConfig":
+        raw = dict(raw)
+        for key, want in _ONLY.items():
+            if key in raw and raw[key] != want:
+                raise ValueError(f"{key}={raw[key]!r}: the latent MoE tower "
+                                 f"runs {key}={want!r} only")
+        for pub, name in _SAME_AS.items():
+            if pub in raw:
+                raw.setdefault(name, raw[pub])
+        cfg = super().from_dict(raw)
+        if cfg.first_held_expert + cfg.n_routed_experts > cfg.n_router:
+            raise ValueError(
+                f"experts {cfg.first_held_expert}.."
+                f"{cfg.first_held_expert + cfg.n_routed_experts - 1} held, "
+                f"the router has {cfg.n_router}")
+        return cfg
+
+    @property
+    def n_router(self) -> int:
+        """The router's outputs: every expert of the layer."""
+        return self.router_experts or self.n_routed_experts
+
+    def held(self) -> List[int]:
+        """The ids of the experts held here."""
+        return list(range(self.first_held_expert,
+                          self.first_held_expert + self.n_routed_experts))
 
 
 class TransformerDecoderLayer(nn.Module):
@@ -252,7 +333,9 @@ class TowerModel(nn.Module):
                 stream_config(cfg, cfg.stream_1), device)
         else:
             self.embedding = CompositeEmbedding(cfg, device)
-        self.encoder = build_encoder(cfg, dtype, device)
+        self.encoder = (LatentEncoder(cfg, dtype, device)
+                        if isinstance(cfg, LatentMoeConfig)
+                        else build_encoder(cfg, dtype, device))
         if cfg.decoder:
             tgt_cfg = (dataclasses.replace(cfg, embedding=cfg.tgt_embedding,
                                            gate_embedding=cfg.embedding)
@@ -306,7 +389,24 @@ class TowerModel(nn.Module):
             memory = self.decoder(memory, emb, seg, tgt_seg, deterministic,
                                   generator)
             seg = tgt_seg
-        return self.target(memory, tgt, seg)
+        out = self.target(memory, tgt, seg)
+        balance = getattr(self.encoder, "balance_loss", None)
+        if balance is not None:
+            out = (out[0] + balance, *out[1:])
+        return out
+
+    def after_update(self) -> None:
+        """After each optimizer step: the MoE layers' correction biases
+        move by the load counted since the last step (towers/moe.py); no
+        other tower has anything to do."""
+        moe = getattr(self, "_moe", None)
+        if moe is None:
+            moe = self._moe = [m for m in self.modules()
+                               if isinstance(m, MoeFeedForward)]
+        if moe:
+            with span("moe.bias_update"):
+                for m in moe:
+                    m.update_bias()
 
 
 def build_model(cfg: TowerConfig, dtype=None, device=None) -> TowerModel:

@@ -103,13 +103,16 @@ def make_schedule(name: str, base_lr: float, train_steps: int,
 def no_decay_names(model: torch.nn.Module) -> frozenset:
     """The reference keys of the model's parameters that AdamW does not
     decay: every `bias` but those of modules that set `decay_bias` (their
-    JAX leaf has another name, so JAX's decay_mask decays it)."""
+    JAX leaf has another name, so JAX's decay_mask decays it), and every
+    parameter of a module that sets `no_decay` (the latent MoE tower's
+    norms, towers/latent.py, which the JAX package does not have)."""
     out = set()
     for key, _ in model.named_parameters():
         key = clean_name(key)
         owner, _, leaf = key.rpartition(".")
-        if leaf == "bias" and not getattr(model.get_submodule(owner),
-                                          "decay_bias", False):
+        module = model.get_submodule(owner)
+        if getattr(module, "no_decay", False) or (
+                leaf == "bias" and not getattr(module, "decay_bias", False)):
             out.add(key)
     return frozenset(out)
 

@@ -42,6 +42,12 @@ and --fsdp shard the optimizer and the parameters over dp; --sp (with
 whole tower under the reference keys (rank 0 gathers the stages), and its
 `.state` the whole model and optimizer, which a run at the same --pp
 resumes.
+
+A latent MoE tower (towers/model.py:LatentMoeConfig, Moonlight's DeepSeek-V3
+block) adds its layers' balance loss to the target's loss, and each
+optimizer step is followed by TowerModel.after_update, which moves the MoE
+layers' correction biases by the load the step counted. It trains on one
+process: --tp, --pp, --sp, --fsdp and a dp above 1 raise, naming the flag.
 """
 
 from __future__ import annotations
@@ -58,7 +64,8 @@ from lr2ppo_torch.device import compute_dtype
 from lr2ppo_torch.parallel.mesh import active
 from lr2ppo_torch.parallel.pipeline import (GPipe, check_pp_supported,
                                             keep_stage)
-from lr2ppo_torch.towers.model import TowerConfig, TowerModel, init_weights
+from lr2ppo_torch.towers.model import (LatentMoeConfig, TowerConfig,
+                                       TowerModel, init_weights)
 from lr2ppo_torch.towers.torch_import import load_tower_checkpoint
 from lr2ppo_torch.train import checkpoints
 from lr2ppo_torch.train.common import (BestSaver, TrainState, apply_updates,
@@ -155,10 +162,25 @@ def make_pretrain_step(accum: int = 1, pipe: Optional[GPipe] = None,
                 if p.grad is not None:
                     p.grad.div_(accum)
         apply_updates(state)
+        model.after_update()
         return {"loss": lsum / accum,
                 "acc": csum / torch.clamp_min(torch.as_tensor(dsum), 1.0)}
 
     return step
+
+
+def refuse_parallel(cfg: Config, tower_cfg: TowerConfig, dp: int) -> None:
+    """The latent MoE tower trains on one process: raises naming the first
+    parallel flag that is set (`dp`: the flag's, or the mesh's once --dp -1
+    has taken the world)."""
+    m = cfg.mesh
+    for flag, on in (("--tp", m.tp > 1), ("--pp", m.pp > 1),
+                     ("--sp", tower_cfg.seq_parallel), ("--fsdp", m.fsdp),
+                     ("--dp", dp > 1)):
+        if on:
+            raise ValueError(f"{flag} is not supported by the latent MoE "
+                             "tower, which trains on one process (expert "
+                             "parallelism across processes is not built)")
 
 
 class PretrainTrainer:
@@ -169,6 +191,11 @@ class PretrainTrainer:
     def __init__(self, cfg: Config, tower_cfg: TowerConfig,
                  accumulation_steps: int = 1, device=None,
                  form: str = "simple"):
+        latent = isinstance(tower_cfg, LatentMoeConfig)
+        if latent:
+            # before device_ctx, whose mesh would raise first at --tp, --pp
+            # or --dp N without naming the flag
+            refuse_parallel(cfg, tower_cfg, cfg.mesh.dp)
         self.pp = max(cfg.mesh.pp, 1)
         if self.pp > 1:
             check_pp_supported(tower_cfg, cfg.mesh)
@@ -179,6 +206,8 @@ class PretrainTrainer:
         self.form = form
         self.pp_micro = cfg.mesh.pp_microbatches or self.pp
         self.ctx = device_ctx(cfg, device, allow_pp=True)
+        if latent:                      # --dp -1 over a world of several
+            refuse_parallel(cfg, tower_cfg, self.ctx.mesh.dp)
         self.device = self.ctx.device
         self.cfg, self.tower_cfg = cfg, tower_cfg
         self.accum = max(accumulation_steps, 1)

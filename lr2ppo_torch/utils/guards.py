@@ -39,6 +39,24 @@ nothing records, each call costs one check of the profiler's flag.
                    tensors an AdamW step sent to its kernel, and to its
                    plain version)
   optim.allreduce  the gradients' all-reduce over dp
+  attn.mla         the latent tower's attention sub-block (towers/mla.py)
+  attn.kernel_fwd  the causal attention kernel's forward launch
+                   (ops/mla_attention.py)
+  attn.kernel_bwd  its backward launches, opened inside the autograd
+                   Function's backward (on autograd's thread)
+  moe.route        the router, the correction bias and the top k
+                   (towers/moe.py)
+  moe.dispatch     the permute to the held experts' rows and the combine
+                   (counters moe.assignments: the (token, choice) pairs
+                   sent to held experts, a recomputed forward not counted
+                   again; moe.host_syncs: the splits' host syncs, a
+                   recomputed forward's included, since it syncs again)
+  moe.experts      the held experts' products, forward and backward
+  moe.shared       the shared experts
+  moe.bias_update  the correction biases moved after the optimizer step
+
+A count may be a device tensor (`count(name, tensor)`): it is added on the
+device with no sync, and `counters()` fetches it once, when read.
 """
 
 from __future__ import annotations
@@ -154,13 +172,15 @@ def span(name: str):
     return sys.modules["torch"].profiler.record_function(SPAN_PREFIX + name)
 
 
-def count(name: str, n: int) -> None:
-    """Adds n to the counter `name` while a torch.profiler records."""
+def count(name: str, n) -> None:
+    """Adds n (an int, or a device tensor, added on its device) to the
+    counter `name` while a torch.profiler records."""
     if recording():
-        _counts[name] = _counts.get(name, 0) + int(n)
+        n = n.detach() if hasattr(n, "detach") else int(n)
+        _counts[name] = _counts.get(name, 0) + n
 
 
 def counters() -> Dict[str, int]:
     """A copy of the counts added while a profiler recorded, since this
-    process started."""
-    return dict(_counts)
+    process started (a device count fetched here)."""
+    return {k: int(v) for k, v in _counts.items()}

@@ -11,6 +11,9 @@ the moment of the call. After the forward, the caller's generator is moved to
 where the private one stopped, as if `fn` had drawn from it; the recompute in
 the backward draws the same seeds again and leaves the caller's generator
 alone. `preserve_rng_state` covers only the global generators.
+
+`recomputing()` is true while a backward recomputes a forward, so a count
+taken in the forward is not taken again.
 """
 
 from __future__ import annotations
@@ -21,23 +24,40 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 
+_recomputing = [False]
+
+
+def recomputing() -> bool:
+    """Whether a backward is recomputing a forward under `remat`."""
+    return _recomputing[0]
+
+
 def remat(fn: Callable, *args,
           generator: Optional[torch.Generator] = None):
     """fn(*args, generator) with its activations recomputed in the
     backward; the same seeds are drawn in the forward and the recompute."""
-    if generator is None:
-        return checkpoint(fn, *args, None, use_reentrant=False)
-    start = generator.get_state()
-    end = []
+    ran = []
 
     def run(*a):
-        private = torch.Generator(device=generator.device)
-        private.set_state(start)
-        out = fn(*a, private)
-        if not end:                    # the forward, not the recompute
-            end.append(private.get_state())
-        return out
+        again = bool(ran)
+        ran.append(True)
+        _recomputing[0] = again
+        try:
+            if generator is None:
+                return fn(*a, None)
+            private = torch.Generator(device=generator.device)
+            private.set_state(start)
+            out = fn(*a, private)
+            if not again:
+                end.append(private.get_state())
+            return out
+        finally:
+            _recomputing[0] = False
 
+    if generator is None:
+        return checkpoint(run, *args, use_reentrant=False)
+    start = generator.get_state()
+    end = []
     out = checkpoint(run, *args, use_reentrant=False)
     generator.set_state(end[0])
     return out
