@@ -251,22 +251,26 @@ Phases, each of which raises on failure (exit code other than 0):
      2 steps bit for bit, its time, the host's time to enqueue it and the
      kernels' traced device time. Phase 7 also counts one launch a tensor
      an update. `--adamw_only` runs the build and phase 22 alone.
- 23. the latent tower's causal attention kernel (ops/mla_attention.py,
-     Triton) at (8, 16, 8,192, 192/128) bf16, the moe-lm-s8192 cell's
-     shape: its output and its dq, dk, dv held to the plain version's on
-     the same inputs (one sequence at a time: the plain scores would not
-     fit whole), within the card test's gaps (norm-relative 1e-2 forward,
-     2e-2 gradients; worst element 6e-2 of the largest); forward and
-     backward times beside their bound at the bf16 peak (the pairs at or
-     below the diagonal), the plain version's and
+ 23. the latent tower's causal attention kernels (ops/mla_attention.py:
+     the Triton forward, the CUDA C++ backward of
+     kernels/csrc/mla_attention_bwd.cu) at (8, 16, 8,192, 192/128) bf16,
+     the moe-lm-s8192 cell's shape: its output and its dq, dk, dv held to
+     the plain version's on the same inputs (one sequence at a time: the
+     plain scores would not fit whole), within the card test's gaps
+     (norm-relative 1e-2 forward, 2e-2 gradients; worst element 6e-2 of the
+     largest); forward and backward times beside their bound at the bf16
+     peak (the pairs at or below the diagonal), the plain version's and
      F.scaled_dot_product_attention's as the yardstick, which the port
-     never calls. Then, its counters set to 0, one training step (forward
-     with remat, backward, the correction-bias update) of
-     perfbench/configs/moonlight-16b-a3b-ep8.json at 8 x 8,192 tokens:
-     45 kernel launches (9 forwards, 9 recomputes, 9 backwards of 3), the
-     plain version never called, and every MoE layer routing over 64
-     experts and computing its 8; the kernels line reports that step's
-     launches. `--mla_only` runs phase 23 alone (no nvcc build).
+     never calls, and the Triton backward's 24.876 ms that the CUDA one
+     replaced (PERF.md); the backward's tiles and ptxas' registers and
+     spills for its three kernels. Then, its counters set to 0, one
+     training step (forward with remat, backward, the correction-bias
+     update) of perfbench/configs/moonlight-16b-a3b-ep8.json at 8 x 8,192
+     tokens: 45 kernel launches (9 forwards, 9 recomputes, 9 backwards of
+     3), the plain version never called, and every MoE layer routing over
+     64 experts and computing its 8; the kernels line reports that step's
+     launches. `--mla_only` runs phase 23 alone (it builds the CUDA
+     libraries first).
 
 Prints JSON lines; the line before the last lists the kernels, and the last
 is {"ok": true, "device": {...}}. Without a CUDA device it fails.
@@ -1663,6 +1667,12 @@ def adamw_kernel(seed: int, dev, card_line: str) -> dict:
 
 MLA_SHAPE = (8, 16, 8192, 192, 128)
 MLA_FWD_GAP, MLA_GRAD_GAP, MLA_ELEMENT_GAP = 1e-2, 2e-2, 6e-2
+# the Triton backward's time at MLA_SHAPE on an H100 at 700 W, before the
+# CUDA backward replaced it (PERF.md's kernel table)
+MLA_TRITON_BWD_MS = 24.876
+# the CUDA backward's tiles (kernels/csrc/mla_attention_bwd.cu)
+MLA_BWD_TILES = {"keys_a_block": 128, "keys_a_warpgroup": 64,
+                 "queries_a_stage": 64, "stages": 2, "threads": 256}
 MLA_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "perfbench", "configs", "moonlight-16b-a3b-ep8.json")
 
@@ -1755,11 +1765,12 @@ def mla_tower_step(seed: int, dev, rows: int = 8, tokens: int = 8192) -> dict:
     return out
 
 
-def mla_kernel(seed: int, dev, card_line: str) -> dict:
-    """Phase 23: the causal attention kernel's forward and backward at
-    MLA_SHAPE, its bound, the plain version's and SDPA's times, the kernel
-    against the plain version there, and the launches of one step of the
-    Moonlight tower."""
+def mla_kernel(seed: int, dev, card_line: str, built: dict) -> dict:
+    """Phase 23: the causal attention kernels' forward and backward at
+    MLA_SHAPE, their bound, the plain version's and SDPA's times, the
+    backward's tiles and ptxas report (from `built`, build.build()'s
+    result), the kernels against the plain version there, and the launches
+    of one step of the Moonlight tower."""
     import torch.nn.functional as F
 
     from lr2ppo_torch.ops.mla_attention import (mla_attention,
@@ -1791,6 +1802,11 @@ def mla_kernel(seed: int, dev, card_line: str) -> dict:
     for part, ops in (("fwd", ops_fwd), ("bwd", ops_bwd)):
         out[part + "_bound_ms"] = ops / BF16_TENSOR_OPS_PER_S * 1e3
         out[part + "_share"] = out[part + "_bound_ms"] / out[part + "_ms"]
+    out["bwd_triton_ms"] = MLA_TRITON_BWD_MS
+    out["bwd_tiles"] = MLA_BWD_TILES
+    log = built.get("mla_attention_bwd", {}).get("log", "")
+    out["bwd_ptxas"] = [ln.strip() for ln in log.splitlines()
+                        if "registers" in ln or "spill" in ln] or "reused"
     del o
 
     def plain_fwd():
@@ -5651,7 +5667,7 @@ def main(argv=None) -> None:
     ap.add_argument("--adamw_only", action="store_true",
                     help="build and run phase 22 alone on one card")
     ap.add_argument("--mla_only", action="store_true",
-                    help="run phase 23 alone on one card")
+                    help="build and run phase 23 alone on one card")
     ap.add_argument("--checkpoints_only", action="store_true",
                     help="build and run phase 7, phase 21 and phase 15 "
                          "(whose shared-card legs hold phase 21 (c)) alone "
@@ -5670,7 +5686,7 @@ def main(argv=None) -> None:
          python=sys.version.split()[0], card=card_line,
          count=torch.cuda.device_count())
     if args.mla_only:
-        mla_kernel(args.seed, dev, card_line)
+        mla_kernel(args.seed, dev, card_line, build.build())
         print(card_line, flush=True)
         emit(ok=True, device={"platform": "gpu",
                               "kind": torch.cuda.get_device_name(0),
@@ -5824,7 +5840,7 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
     mark("20")
     p22 = adamw_kernel(args.seed, dev, card_line)
-    p23 = mla_kernel(args.seed, dev, card_line)
+    p23 = mla_kernel(args.seed, dev, card_line, built)
     mark("22")
     emit(phase="phase_seconds", card=card_line,
          seconds={name: later - earlier for (_, earlier), (name, later)
@@ -5939,10 +5955,13 @@ def main(argv=None) -> None:
         "max_abs_err": max(v.get("max_abs_err", 0.0) for v in p22.values()),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    # the latent tower's causal attention (Triton), forward and backward
+    # the latent tower's causal attention: the Triton forward and the CUDA
+    # backward
     kernels.append({
-        "name": "mla_attention", "route": "triton",
-        "source": "lr2ppo_torch/ops/mla_attention.py", "replaces": None,
+        "name": "mla_attention", "route": "triton forward, cuda backward",
+        "source": "lr2ppo_torch/ops/mla_attention.py, "
+                  "lr2ppo_torch/kernels/csrc/mla_attention_bwd.cu",
+        "replaces": None,
         "launches": p23["launches"],
         "ms": p23["fwd_ms"] + p23["bwd_ms"],
         "plain_ms": p23["plain_fwd_bwd_ms"],

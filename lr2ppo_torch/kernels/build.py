@@ -69,6 +69,12 @@ ENTRIES = {
     "adamw": {
         "lr2ppo_adamw": ([_vp] * 5 + [_i64] * 6 + [_i32] * 3
                          + [ctypes.c_float] * 9 + [_i32, _vp], _i32)},
+    # q, k, v, o, lse, dout, dq, dk, dv, the scratch; batch, heads, seq; the
+    # host's 24 strides; the scale in log2 units and the scale; the stream
+    "mla_attention_bwd": {
+        "lr2ppo_mla_attention_bwd": ([_vp] * 10 + [_i32] * 3 + [_vp]
+                                     + [ctypes.c_float] * 2 + [_vp], _i32),
+        "lr2ppo_mla_attention_bwd_scratch": ([_i32] * 3, _i64)},
 }
 
 # the library of each C entry

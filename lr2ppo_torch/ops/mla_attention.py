@@ -1,7 +1,8 @@
 """Causal attention of multi-head latent attention (towers/mla.py), forward
-and backward, in hand-written Triton kernels for Hopper.
+and backward, in hand-written kernels for Hopper: the forward in Triton,
+the backward in CUDA C++ (kernels/csrc/mla_attention_bwd.cu).
 
-The kernel replaces no TPU kernel: the JAX package has no latent attention
+The kernels replace no TPU kernel: the JAX package has no latent attention
 and no causal sequence beyond 512 tokens, and the towers' plain attention
 (towers/layers.py) builds float32 (B, h, S, S) scores, 4.3 GB a sequence a
 layer at 8,192 tokens and 16 heads. Here q and k are Dqk = 192 wide (the
@@ -11,17 +12,18 @@ output Dv = 128, all bfloat16; the softmax statistics are float32.
 What bounds it: causal attention at S = 8,192 does S²/2 x (Dqk + Dv) x 2
 operations a head forward, 2.4 x that backward, and reads each of q, k, v
 once a tile, so it is bound by the tensor cores (about 2,700 operations a
-byte at S = 8,192, against the card's ~295). The design keeps every score
+byte at S = 8,192, against the card's ~295). The forward keeps every score
 and probability in registers (FlashAttention-2's online softmax): a block of
 query rows walks the key blocks up to the diagonal, holding its float32 sum
 of P·V, the row maximum and the row sum, and writes the output and each
 row's log-sum-exp once; no S x S tensor exists. The 192-wide products are
 two products over the 128- and 64-wide parts (Triton takes power-of-two
 tiles), so no lane is padded. The backward recomputes the probabilities
-from the saved log-sum-exp: one pass per key block accumulates dK and dV
-over the query blocks at or below the diagonal, a second pass per query
-block accumulates dQ over the key blocks, so no gradient needs atomics;
-delta = rowsum(dO * O) comes from a small pass first.
+from the saved log-sum-exp once: a block holds 128 keys' dK and dV in
+registers, walks the query tiles from the diagonal with wgmma on TMA-fed
+tiles, and adds each tile's dQ into a float32 accumulator; a pre-pass
+writes delta = rowsum(dO * O) and a last pass dQ in bfloat16 (the source
+says how).
 
 Two parts:
   * `mla_attention`, the entry: a CPU tensor takes the plain version, a
@@ -33,25 +35,25 @@ Two parts:
 
 `mla_attention.launches` counts kernel launches, `kernel_calls` the entry's
 calls that took the kernels ({"fwd", "bwd"}) and `plain_calls` those that
-took the plain version. Triton is imported when the first kernel is built,
-never when this module is imported.
+took the plain version. Triton is imported when the forward is first built
+and the CUDA library loaded at the first backward, never when this module
+is imported.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
 
 import torch
 
+from lr2ppo_torch.kernels import build
 from lr2ppo_torch.utils import span
 
-# (query, key) tile heights of the forward and of the backward's dK/dV and
-# dQ passes: the fastest of those timed at (8, 16, 8,192) on an H100
-# (PERF.md §6)
+# (query, key) tile heights of the forward: the fastest of those timed at
+# (8, 16, 8,192) on an H100 (PERF.md §6)
 FWD_BLOCK = (128, 128)
-DKDV_BLOCK = (128, 64)
-DQ_BLOCK = (128, 64)
 LOG2E = 1.4426950408889634
 # bound by _kernels() at the first build
 triton = tl = None
@@ -89,7 +91,7 @@ def _check(q, k, v) -> None:
 
 @lru_cache(maxsize=None)
 def _kernels():
-    """The three Triton kernels, built at first use."""
+    """The Triton forward kernel, built at first use."""
     global triton, tl
     import triton
     import triton.language as tl
@@ -142,126 +144,7 @@ def _kernels():
         # the log-sum-exp of the scaled scores, in log2 units
         tl.store(L + bh * S + rows, m_i + tl.log2(l_i), mask=rows < S)
 
-    @triton.jit
-    def bwd_pre(O, DO, DELTA, sob, soh, sos, sdb, sdh, sds, H, S,
-                BM: tl.constexpr, DV: tl.constexpr):
-        pid_m = tl.program_id(0)
-        bh = tl.program_id(1)
-        b = bh // H
-        h = bh % H
-        rows = pid_m * BM + tl.arange(0, BM)
-        dv = tl.arange(0, DV)
-        ok = rows[:, None] < S
-        o = tl.load(O + b * sob + h * soh + rows[:, None] * sos + dv[None, :],
-                    mask=ok, other=0.0).to(tl.float32)
-        do = tl.load(DO + b * sdb + h * sdh + rows[:, None] * sds
-                     + dv[None, :], mask=ok, other=0.0).to(tl.float32)
-        tl.store(DELTA + bh * S + rows, tl.sum(o * do, 1), mask=rows < S)
-
-    @triton.jit
-    def bwd_dkdv(Q, K, V, DO, L, DELTA, DK, DV_, sqb, sqh, sqs, skb, skh,
-                 sks, svb, svh, svs, sdb, sdh, sds, sgb, sgh, sgs, svgb,
-                 svgh, svgs, H, S, qk_scale, scale,
-                 BM: tl.constexpr, BN: tl.constexpr, DA: tl.constexpr,
-                 DB: tl.constexpr, DV: tl.constexpr):
-        pid_n = tl.program_id(0)
-        bh = tl.program_id(1)
-        b = bh // H
-        h = bh % H
-        cols = pid_n * BN + tl.arange(0, BN)
-        da = tl.arange(0, DA)
-        db = tl.arange(0, DB)
-        dv = tl.arange(0, DV)
-        col_ok = cols[:, None] < S
-        k_ptr = K + b * skb + h * skh + cols[:, None] * sks
-        ka = tl.load(k_ptr + da[None, :], mask=col_ok, other=0.0)
-        kb = tl.load(k_ptr + DA + db[None, :], mask=col_ok, other=0.0)
-        vt = tl.load(V + b * svb + h * svh + cols[:, None] * svs
-                     + dv[None, :], mask=col_ok, other=0.0)
-        dka = tl.zeros([BN, DA], tl.float32)
-        dkb = tl.zeros([BN, DB], tl.float32)
-        dvt = tl.zeros([BN, DV], tl.float32)
-        q_ptr = Q + b * sqb + h * sqh
-        do_ptr = DO + b * sdb + h * sdh
-        lo = (pid_n * BN) // BM * BM
-        for start in range(lo, S, BM):
-            rows = start + tl.arange(0, BM)
-            row_ok = rows[:, None] < S
-            qa = tl.load(q_ptr + rows[:, None] * sqs + da[None, :],
-                         mask=row_ok, other=0.0)
-            qb = tl.load(q_ptr + rows[:, None] * sqs + DA + db[None, :],
-                         mask=row_ok, other=0.0)
-            do = tl.load(do_ptr + rows[:, None] * sds + dv[None, :],
-                         mask=row_ok, other=0.0)
-            lse = tl.load(L + bh * S + rows, mask=rows < S, other=0.0)
-            delta = tl.load(DELTA + bh * S + rows, mask=rows < S, other=0.0)
-            s = tl.dot(qa, tl.trans(ka)) + tl.dot(qb, tl.trans(kb))
-            keep = (rows[:, None] >= cols[None, :]) & row_ok \
-                & (cols[None, :] < S)
-            p = tl.where(keep, tl.exp2(s * qk_scale - lse[:, None]), 0.0)
-            dvt += tl.dot(tl.trans(p.to(do.dtype)), do)
-            dp = tl.dot(do, tl.trans(vt))
-            ds = (p * (dp - delta[:, None])).to(qa.dtype)
-            dka += tl.dot(tl.trans(ds), qa)
-            dkb += tl.dot(tl.trans(ds), qb)
-        g_ptr = DK + b * sgb + h * sgh + cols[:, None] * sgs
-        tl.store(g_ptr + da[None, :], (dka * scale).to(DK.dtype.element_ty),
-                 mask=col_ok)
-        tl.store(g_ptr + DA + db[None, :],
-                 (dkb * scale).to(DK.dtype.element_ty), mask=col_ok)
-        tl.store(DV_ + b * svgb + h * svgh + cols[:, None] * svgs
-                 + dv[None, :], dvt.to(DV_.dtype.element_ty), mask=col_ok)
-
-    @triton.jit
-    def bwd_dq(Q, K, V, DO, L, DELTA, DQ, sqb, sqh, sqs, skb, skh, sks,
-               svb, svh, svs, sdb, sdh, sds, sgb, sgh, sgs, H, S, qk_scale,
-               scale, BM: tl.constexpr, BN: tl.constexpr, DA: tl.constexpr,
-               DB: tl.constexpr, DV: tl.constexpr):
-        pid_m = tl.program_id(0)
-        bh = tl.program_id(1)
-        b = bh // H
-        h = bh % H
-        rows = pid_m * BM + tl.arange(0, BM)
-        da = tl.arange(0, DA)
-        db = tl.arange(0, DB)
-        dv = tl.arange(0, DV)
-        row_ok = rows[:, None] < S
-        q_ptr = Q + b * sqb + h * sqh + rows[:, None] * sqs
-        qa = tl.load(q_ptr + da[None, :], mask=row_ok, other=0.0)
-        qb = tl.load(q_ptr + DA + db[None, :], mask=row_ok, other=0.0)
-        do = tl.load(DO + b * sdb + h * sdh + rows[:, None] * sds
-                     + dv[None, :], mask=row_ok, other=0.0)
-        lse = tl.load(L + bh * S + rows, mask=rows < S, other=0.0)
-        delta = tl.load(DELTA + bh * S + rows, mask=rows < S, other=0.0)
-        dqa = tl.zeros([BM, DA], tl.float32)
-        dqb = tl.zeros([BM, DB], tl.float32)
-        k_ptr = K + b * skb + h * skh
-        v_ptr = V + b * svb + h * svh
-        hi = tl.minimum((pid_m + 1) * BM, S)
-        for start in range(0, hi, BN):
-            cols = start + tl.arange(0, BN)
-            col_ok = cols[:, None] < S
-            ka = tl.load(k_ptr + cols[:, None] * sks + da[None, :],
-                         mask=col_ok, other=0.0)
-            kb = tl.load(k_ptr + cols[:, None] * sks + DA + db[None, :],
-                         mask=col_ok, other=0.0)
-            vt = tl.load(v_ptr + cols[:, None] * svs + dv[None, :],
-                         mask=col_ok, other=0.0)
-            s = tl.dot(qa, tl.trans(ka)) + tl.dot(qb, tl.trans(kb))
-            keep = (rows[:, None] >= cols[None, :]) & row_ok \
-                & (cols[None, :] < S)
-            p = tl.where(keep, tl.exp2(s * qk_scale - lse[:, None]), 0.0)
-            dp = tl.dot(do, tl.trans(vt))
-            ds = (p * (dp - delta[:, None])).to(qa.dtype)
-            dqa += tl.dot(ds, ka)
-            dqb += tl.dot(ds, kb)
-        g_ptr = DQ + b * sgb + h * sgh + rows[:, None] * sgs
-        tl.store(g_ptr + da[None, :], (dqa * scale).to(DQ.dtype.element_ty),
-                 mask=row_ok)
-        tl.store(g_ptr + DA + db[None, :],
-                 (dqb * scale).to(DQ.dtype.element_ty), mask=row_ok)
-
-    return fwd, bwd_pre, bwd_dkdv, bwd_dq
+    return (fwd,)
 
 
 def _strides(t: torch.Tensor) -> tuple:
@@ -291,30 +174,47 @@ def _launch_fwd(q, k, v, scale: float):
     return o, lse
 
 
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """t, or a contiguous copy where TMA cannot read it: every stride a
+    multiple of 8 elements (16 bytes) and the base 16-byte aligned."""
+    if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]) \
+            or t.stride(-1) != 1:
+        return t.contiguous()
+    return t
+
+
+def _tma_strides(t: torch.Tensor) -> tuple:
+    """(batch, head, row) strides of a (B, H, S, d) tensor; a dim of size 1
+    takes the next outer extent's, so TMA sees a valid stride."""
+    st = list(t.stride()[:3])
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            st[i] = max(s * n for s, n in zip(t.stride(), t.shape))
+    return tuple(st)
+
+
 def _launch_bwd(q, k, v, o, lse, do, scale: float):
-    """(dq, dk, dv), each laid out as _heads_last."""
-    _, pre, dkdv, dq_kernel = _kernels()
+    """(dq, dk, dv), each laid out as _heads_last: the three launches of
+    kernels/csrc/mla_attention_bwd.cu on the current stream."""
+    fn = build.function("lr2ppo_mla_attention_bwd")
+    q, k, v, o, do = (_tma_ready(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
     b, h, s, _ = q.shape
-    if do.stride(-1) != 1:
-        do = do.contiguous()
-    delta = torch.empty_like(lse)
-    pre[(triton.cdiv(s, 64), b * h)](
-        o, do, delta, *_strides(o), *_strides(do), h, s, BM=64, DV=128,
-        num_warps=4)
     dq = _heads_last(b, h, s, q.shape[-1], q)
     dk = _heads_last(b, h, s, k.shape[-1], k)
     dv = _heads_last(b, h, s, v.shape[-1], v)
-    common = (*_strides(q), *_strides(k), *_strides(v), *_strides(do))
-    bm, bn = DKDV_BLOCK
-    dkdv[(triton.cdiv(s, bn), b * h)](
-        q, k, v, do, lse, delta, dk, dv, *common, *_strides(dk),
-        *_strides(dv), h, s, scale * LOG2E, scale, BM=bm, BN=bn, DA=128,
-        DB=64, DV=128, num_warps=8, num_stages=2)
-    bm, bn = DQ_BLOCK
-    dq_kernel[(triton.cdiv(s, bm), b * h)](
-        q, k, v, do, lse, delta, dq, *common, *_strides(dq), h, s,
-        scale * LOG2E, scale, BM=bm, BN=bn, DA=128, DB=64, DV=128,
-        num_warps=8, num_stages=2)
+    scratch = torch.empty(
+        build.function("lr2ppo_mla_attention_bwd_scratch")(b, h, s),
+        dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *(x for t in (q, k, v, o, do, dq, dk, dv) for x in _tma_strides(t)))
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, h, s,
+             strides, scale * LOG2E, scale,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(build.library_of("lr2ppo_mla_attention_bwd"), err,
+                "mla_attention backward")
     mla_attention.launches += 3
     return dq, dk, dv
 

@@ -72,3 +72,25 @@ def test_a_shared_header_rebuilds_both_int8_kernels(tmp_path, monkeypatch):
     again = {name: build.library_path(name) for name in build.ENTRIES}
     assert again["int8_mlp"] != after["int8_mlp"]
     assert again["int8_matmul"] != after["int8_matmul"]
+
+
+def test_mla_backward_entry_passes_pointers_whole():
+    """The latent attention backward's C entry takes its ten tensors, the
+    host's stride array and the stream as c_void_p (an int would cut a
+    pointer to 32 bits), and `_launch_bwd`, which the benchmark wraps by
+    name, keeps its signature."""
+    import inspect
+
+    from lr2ppo_torch.ops import mla_attention
+
+    args, ret = build.ENTRIES["mla_attention_bwd"]["lr2ppo_mla_attention_bwd"]
+    assert ret == ctypes.c_int and len(args) == 17
+    assert args[:10] == [ctypes.c_void_p] * 10
+    assert args[10:13] == [ctypes.c_int] * 3
+    assert args[13] == ctypes.c_void_p and args[16] == ctypes.c_void_p
+    assert args[14:16] == [ctypes.c_float] * 2
+    assert build.ENTRIES["mla_attention_bwd"][
+        "lr2ppo_mla_attention_bwd_scratch"] == ([ctypes.c_int] * 3,
+                                                 ctypes.c_longlong)
+    params = list(inspect.signature(mla_attention._launch_bwd).parameters)
+    assert params == ["q", "k", "v", "o", "lse", "do", "scale"]

@@ -1,7 +1,8 @@
-"""The causal attention kernel of the latent tower (ops/mla_attention.py)
-against its plain version on a CUDA card, forward and backward, and a
-training step of a latent MoE tower whose every attention call takes the
-kernel.
+"""The causal attention kernels of the latent tower (ops/mla_attention.py:
+the Triton forward, the CUDA C++ backward in
+kernels/csrc/mla_attention_bwd.cu) against the plain version on a CUDA card,
+forward and backward, and a training step of a latent MoE tower whose every
+attention call takes the kernels.
 
 The kernel works in bfloat16 with float32 statistics; the plain version's
 forward rounds the normalized probabilities to bfloat16 where the kernel
@@ -40,9 +41,11 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def inputs(b, h, s, dev, heads_last=False, seed=0):
+def inputs(b, h, s, dev, heads_last=False, seed=0, v_slice=False):
     """q, k (B, H, S, 192), v (B, H, S, 128) bf16, N(0, 1); with
-    `heads_last` views of (B, S, H, d) tensors, as the tower hands them."""
+    `heads_last` views of (B, S, H, d) tensors, as the tower hands them;
+    with `v_slice` v is the last 128 of 256 columns of a (B, S, H, 256)
+    tensor, 256 bytes past its start, as `kv_b_proj`'s output gives it."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def make(d):
@@ -50,7 +53,11 @@ def inputs(b, h, s, dev, heads_last=False, seed=0):
         t = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
         return t.transpose(1, 2) if heads_last else t
 
-    return make(192), make(192), make(128)
+    q, k = make(192), make(192)
+    if v_slice:
+        kv = torch.randn(b, s, h, 256, generator=g, device=dev)
+        return q, k, kv.to(torch.bfloat16)[..., 128:].transpose(1, 2)
+    return q, k, make(128)
 
 
 def gaps(got, want):
@@ -60,26 +67,66 @@ def gaps(got, want):
     return rel, el
 
 
-@pytest.mark.parametrize("b,h,s,heads_last", [
-    (1, 16, 8192, False), (1, 16, 8192, True), (2, 4, 1000, True),
-    (1, 2, 77, False)])
+@pytest.mark.parametrize("b,h,s,heads_last,v_slice", [
+    (1, 16, 8192, False, False), (1, 16, 8192, True, False),
+    (2, 4, 1000, True, False), (1, 2, 77, False, False),
+    (2, 16, 8192, True, False), (1, 4, 4160, True, False),
+    (2, 4, 1000, True, True)])
 def test_kernel_matches_plain_forward_and_backward(b, h, s, heads_last,
-                                                   dev):
-    q, k, v = inputs(b, h, s, dev, heads_last)
+                                                   v_slice, dev):
+    """Batch 2 at the cell's heads-last strides; 4,160 tokens, not a whole
+    number of 128-key tiles; v a slice at an offset of a wider tensor. The
+    plain version runs one sequence at a time (its scores at 8,192 tokens
+    would not fit whole twice)."""
+    q, k, v = inputs(b, h, s, dev, heads_last, v_slice=v_slice)
     scale = 1.0 / 192 ** 0.5
     qk = [t.detach().requires_grad_(True) for t in (q, k, v)]
     out = mla_attention(*qk, scale)
-    want = reference_mla_attention(q, k, v, scale)
-    rel, el = gaps(out, want)
-    assert rel < FWD_GAP and el < ELEMENT_GAP, (rel, el)
     do = torch.randn(out.shape, device=dev).to(torch.bfloat16)
     out.backward(do)
-    ref = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
-    reference_mla_attention(*ref, scale).backward(do.float())
-    for name, got, r in zip("qkv", qk, ref):
-        rel, el = gaps(got.grad, r.grad)
-        assert rel < GRAD_GAP and el < ELEMENT_GAP, (name, rel, el)
+    for i in range(b):
+        one = [t[i:i + 1] for t in (q, k, v)]
+        want = reference_mla_attention(*one, scale)
+        rel, el = gaps(out[i:i + 1], want)
+        assert rel < FWD_GAP and el < ELEMENT_GAP, (i, rel, el)
+        del want
+        ref = [t.detach().float().requires_grad_(True) for t in one]
+        reference_mla_attention(*ref, scale).backward(do[i:i + 1].float())
+        for name, got, r in zip("qkv", qk, ref):
+            rel, el = gaps(got.grad[i:i + 1], r.grad)
+            assert rel < GRAD_GAP and el < ELEMENT_GAP, (i, name, rel, el)
+        del ref
+    for got in qk:
         assert got.grad.shape == got.shape
+
+
+def test_backward_repeats_and_counts_its_launches(dev):
+    """Two backward calls on the same inputs: dk and dv bit for bit (each
+    block sums its own keys in a fixed order), dq within float32 reduction
+    order (the tiles' partial dQ meet in a float32 accumulator in whatever
+    order the blocks reach it); each call adds its three launches (the
+    pre-pass, the main kernel, the dQ pass) and one backward call."""
+    from lr2ppo_torch.ops import mla_attention as mod
+
+    q, k, v = inputs(2, 4, 1000, dev, heads_last=True, seed=3)
+    scale = 1.0 / 192 ** 0.5
+    o, lse = mod._launch_fwd(q, k, v, scale)
+    do = torch.randn(o.shape, device=dev).to(torch.bfloat16)
+    before = mla_attention.launches
+    first = mod._launch_bwd(q, k, v, o, lse, do, scale)
+    assert mla_attention.launches == before + 3
+    second = mod._launch_bwd(q, k, v, o, lse, do, scale)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2],
+                                                            second[2])
+    rel = float((first[0].float() - second[0].float()).norm()
+                / first[0].float().norm())
+    assert rel <= 1e-3, rel
+    qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    calls = dict(mla_attention.kernel_calls)
+    launches = mla_attention.launches
+    mla_attention(*qkv, scale).backward(do)
+    assert mla_attention.kernel_calls["bwd"] == calls["bwd"] + 1
+    assert mla_attention.launches == launches + 1 + 3
 
 
 def test_kernel_is_counted_and_refuses_what_it_does_not_take(dev):
